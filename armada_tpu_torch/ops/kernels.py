@@ -1,0 +1,341 @@
+"""The solve's hand-written CUDA kernels, their plain torch versions, and
+the code that builds and binds them.
+
+Two kernels carry the batched fill loop (once per loop each):
+
+- `score_nodes` (csrc/score_nodes.cu): one job's fit mask, per-node
+  placement caps and packed best-fit key over every node. Replaces the
+  JAX package's Pallas `_score_kernel`.
+- `fill_take` (csrc/fill_take.cu): the B smallest packed keys in
+  stable-sort order. Replaces the JAX package's lax `fill_take`.
+
+Each wrapper takes the plain version for CPU tensors (the tests) and, for
+CUDA tensors, launches the kernel or raises; nothing falls back. Each
+counts its kernel launches in `LAUNCHES`.
+
+Build: each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its
+own shared library with a plain C interface, loaded with ctypes, at first
+use (or all at once, in parallel, by `build_all`). Libraries land under
+`build/kernels/` at the repository root, named by a hash of their source,
+so an edited source is rebuilt and a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+from .select import lexsort, masked_keys
+
+_ROOT = pathlib.Path(__file__).resolve().parents[2]
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = _ROOT / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+KERNELS = ("score_nodes", "fill_take")
+
+# Kernel launches since the last reset_launches(); only a wrapper's
+# kernel launch counts, never its plain version.
+LAUNCHES = {name: 0 for name in KERNELS}
+
+BIG_I32 = 2**30
+FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: survivors sorted in shared memory
+
+_libs: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one kernel unless its library is already built;
+    returns (process, tmp path, final path) or None."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> dict:
+    """Build every kernel library, one nvcc per source, all started
+    together. Returns {name: library path}."""
+    jobs = {name: _start_build(name) for name in KERNELS}
+    for name, job in jobs.items():
+        _finish_build(name, job)
+    return {name: str(_lib_path(name)) for name in KERNELS}
+
+
+_SIGNATURES = {
+    "score_nodes": (
+        "armada_score_nodes",
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4,
+    ),
+    "fill_take": (
+        "armada_fill_take",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    ),
+}
+
+
+def _fn(name: str):
+    fn = _libs.get(name)
+    if fn is None:
+        _finish_build(name, _start_build(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return fn
+
+
+def _check(name, t, dtype, ndim, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(name, *args):
+    rc = _fn(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
+
+
+# ---------------------------------------------------------------------------
+# Fused scoring
+# ---------------------------------------------------------------------------
+
+
+def pack_plan(dev, n_shards: int = 1):
+    """Static bit widths of the fused fill key, or None when the fused
+    path is ineligible (widths overflow the 62-bit budget or one exceeds
+    31 bits). The fused path engages only where the unfused graph would
+    have packed to one int64 too, so both compare bit for bit."""
+    n_local = int(dev.node_id_rank.shape[0])
+    rank_bits = max(1, (n_local * n_shards - 1).bit_length())
+    bits = tuple([max(1, int(b)) for b in dev.order_key_bits] + [rank_bits])
+    if sum(bits) > 62 or max(bits) > 31:
+        return None
+    return bits
+
+
+def _floor_div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def score_nodes_plain(
+    alloc0, node_total, taints, labels, rank, gid, unsched, aff_row,
+    tolerated, selector, req_fit, excl, order_res_idx, order_res_resolution,
+    bits, batch_window, job_ok,
+):
+    """Plain torch version of `score_nodes` (the reference's
+    `_score_values`): (fit0 bool[N], caps int32[N], key int64[N])."""
+    taints_ok = torch.all((taints & ~tolerated[None, :]) == 0, dim=-1)
+    sel_ok = torch.all((selector[None, :] & ~labels) == 0, dim=-1)
+    total_ok = torch.all(req_fit[None, :] <= node_total, dim=-1)
+    excl_ok = torch.all(gid[:, None] != excl[None, :], dim=-1)
+    ok = taints_ok & sel_ok & total_ok & excl_ok & ~unsched
+    if aff_row is not None:
+        word = aff_row[torch.div(gid, 32, rounding_mode="floor").long()]
+        ok = ok & (((word >> (gid % 32)) & 1) != 0)
+    if not job_ok:
+        ok = torch.zeros_like(ok)
+    fit0 = ok & torch.all(req_fit[None, :] <= alloc0, dim=-1)
+    safe_req = torch.clamp(req_fit, min=1)
+    caps = torch.where(
+        req_fit[None, :] > 0, _floor_div(alloc0, safe_req[None, :]), BIG_I32
+    ).min(dim=-1).values
+    caps = torch.clamp(caps, 0, int(batch_window)).to(torch.int32)
+    widths = [int(b) for b in bits.tolist()]
+    oidx = order_res_idx.tolist()
+    ores = order_res_resolution.tolist()
+    key = torch.zeros(alloc0.shape[0], dtype=torch.int64, device=alloc0.device)
+    for k, b in enumerate(widths[:-1]):
+        v = _floor_div(alloc0[:, oidx[k]], ores[k])
+        key = (key << b) | torch.clamp(v, 0, (1 << b) - 1).to(torch.int64)
+    b = widths[-1]
+    key = (key << b) | torch.clamp(rank, 0, (1 << b) - 1).to(torch.int64)
+    return fit0, caps, key
+
+
+def score_nodes(
+    alloc0, node_total, taints, labels, rank, gid, unsched, aff_row,
+    tolerated, selector, req_fit, excl, order_res_idx, order_res_resolution,
+    bits, batch_window, job_ok,
+):
+    """One job scored against every node: (fit0 bool[N], caps int32[N],
+    key int64[N]). Node arrays: alloc0/node_total int32[N, R], taint and
+    label words int32[N, W] (uint32 bit patterns), rank/gid int32[N],
+    unsched bool[N]. Job vectors: aff_row int32[ceil(N/32)] (None when the
+    job has no affinity group), tolerated/selector int32[W], req_fit
+    int32[R], excl int32[K]. Order keys: order_res_idx and
+    order_res_resolution int32[Ko], bits int32[Ko + 1] (the pack plan)."""
+    if alloc0.device.type == "cpu":
+        return score_nodes_plain(
+            alloc0, node_total, taints, labels, rank, gid, unsched, aff_row,
+            tolerated, selector, req_fit, excl, order_res_idx,
+            order_res_resolution, bits, batch_window, job_ok,
+        )
+    device = alloc0.device
+    if device.type != "cuda":
+        raise ValueError(f"score_nodes: unsupported device {device}")
+    n, r = alloc0.shape
+    i32 = torch.int32
+    for nm, t, dt, nd in (
+        ("alloc0", alloc0, i32, 2), ("node_total", node_total, i32, 2),
+        ("taints", taints, i32, 2), ("labels", labels, i32, 2),
+        ("rank", rank, i32, 1), ("gid", gid, i32, 1),
+        ("unsched", unsched, torch.bool, 1), ("tolerated", tolerated, i32, 1),
+        ("selector", selector, i32, 1), ("req_fit", req_fit, i32, 1),
+        ("excl", excl, i32, 1), ("order_res_idx", order_res_idx, i32, 1),
+        ("order_res_resolution", order_res_resolution, i32, 1),
+        ("bits", bits, i32, 1),
+    ):
+        _check(f"score_nodes.{nm}", t, dt, nd, device)
+    if aff_row is not None:
+        _check("score_nodes.aff_row", aff_row, i32, 1, device)
+        if aff_row.shape[0] * 32 < n:
+            raise ValueError("score_nodes: aff_row has fewer words than nodes")
+    wt, wl = taints.shape[1], labels.shape[1]
+    n_order = order_res_idx.shape[0]
+    if (
+        node_total.shape != (n, r) or taints.shape[0] != n or labels.shape[0] != n
+        or rank.shape[0] != n or gid.shape[0] != n or unsched.shape[0] != n
+        or tolerated.shape[0] != wt or selector.shape[0] != wl
+        or req_fit.shape[0] != r or order_res_resolution.shape[0] != n_order
+        or bits.shape[0] != n_order + 1
+    ):
+        raise ValueError("score_nodes: inconsistent shapes")
+    fit0 = torch.empty(n, dtype=torch.bool, device=device)
+    caps = torch.empty(n, dtype=i32, device=device)
+    key = torch.empty(n, dtype=torch.int64, device=device)
+    _launch(
+        "score_nodes",
+        _ptr(alloc0), _ptr(node_total), _ptr(taints), _ptr(labels), _ptr(rank),
+        _ptr(gid), _ptr(unsched), _ptr(aff_row), _ptr(tolerated),
+        _ptr(selector), _ptr(req_fit), _ptr(excl), _ptr(order_res_idx),
+        _ptr(order_res_resolution), _ptr(bits), n, r, wt, wl, excl.shape[0],
+        n_order, int(batch_window), int(bool(job_ok)), _ptr(fit0), _ptr(caps),
+        _ptr(key), _stream(device),
+    )
+    return fit0, caps, key
+
+
+# ---------------------------------------------------------------------------
+# Top-B selection (the fill sort replacement)
+# ---------------------------------------------------------------------------
+
+
+def fill_take_plain(key, B):
+    """Plain torch version of `fill_take`: a stable sort's first
+    min(B, N) entries. Returns (take int32, key[take] int64)."""
+    want = min(int(B), key.shape[0])
+    order = torch.sort(key, stable=True).indices[:want]
+    return order.to(torch.int32), key[order]
+
+
+def fill_take(key, B):
+    """Indices of the B smallest entries of an int64 key in stable-sort
+    order, masked sentinel tail included: (take int32[min(B, N)],
+    key[take] int64). The kernel takes 1 <= min(B, N) <= FILL_TAKE_MAX."""
+    if key.device.type == "cpu":
+        return fill_take_plain(key, B)
+    device = key.device
+    if device.type != "cuda":
+        raise ValueError(f"fill_take: unsupported device {device}")
+    _check("fill_take.key", key, torch.int64, 1, device)
+    n = key.shape[0]
+    want = min(int(B), n)
+    if not 1 <= want <= FILL_TAKE_MAX:
+        raise ValueError(f"fill_take: min(B, N) = {want} outside [1, {FILL_TAKE_MAX}]")
+    if n > 2**31 - 2**11:
+        raise ValueError("fill_take: more than 2^31 - 2^11 keys")
+    take = torch.empty(want, dtype=torch.int32, device=device)
+    take_key = torch.empty(want, dtype=torch.int64, device=device)
+    _launch(
+        "fill_take", _ptr(key), n, want, _ptr(take), _ptr(take_key),
+        _stream(device),
+    )
+    return take, take_key
+
+
+def fill_sort_path(keys, mask, B, path, nbits):
+    """The fill sort with the kernel path's selection: the top-B kernel
+    engages only for the fused single-int64 key (where it is provably
+    equal to the stable sort); every other key list keeps the chained
+    stable sort. Returns (take, masked keys list)."""
+    mk = masked_keys(keys, mask)
+    if (
+        path == "cuda"
+        and nbits is not None
+        and len(mk) == 1
+        and mk[0].dtype == torch.int64
+    ):
+        take, _ = fill_take(mk[0], B)
+        return take, mk
+    return lexsort(mk)[:B], mk

@@ -1,0 +1,90 @@
+"""Where the time of one round goes on the card.
+
+    python -m armada_tpu_torch.profile_round [--jobs 100000] [--nodes 5000]
+        [--running 5000] [--path cuda]
+
+Builds the bench's round (workload.build_inputs), solves it once to load
+the kernels, then solves it again under torch.profiler (CUDA activity
+only) and prints one JSON line: the solve's wall seconds, the device's
+busy seconds (the sum of its kernel and copy intervals, one stream) and
+idle share, the loop counts and host seconds by loop kind, and the ten
+device operations with the most time. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import time
+
+import torch
+
+from .snapshot.round import build_round_snapshot
+from .solver import kernel as kernel_mod
+from .solver.kernel_prep import pad_device_round, prep_device_round
+from .workload import build_inputs
+
+
+def _device_events(prof):
+    """(name, microseconds) of every device-side interval in the trace."""
+    out = []
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, e.time_range.elapsed_us()))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--jobs", type=int, default=100_000)
+    ap.add_argument("--nodes", type=int, default=5000)
+    ap.add_argument("--running", type=int, default=5000)
+    ap.add_argument("--path", choices=("cuda", "lax"), default="cuda")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_round: needs a CUDA card")
+
+    snap = build_round_snapshot(*build_inputs(args.jobs, args.nodes, n_running=args.running))
+    dev = dataclasses.replace(
+        pad_device_round(prep_device_round(snap)), kernel_path=args.path
+    )
+    kernel_mod.solve_round(dev)  # loads the kernels
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = {}
+        out = kernel_mod.solve_round(dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy_us = sum(us for _, us in events)
+    by_name: dict = {}
+    for name, us in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(json.dumps({
+        "card": smi,
+        "jobs": args.jobs, "nodes": args.nodes, "running": args.running,
+        "path": args.path,
+        "num_loops": int(out["num_loops"]),
+        "solve_wall_s": wall,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_intervals": len(events),
+        "loops": stats,
+        "top_device_ops": [
+            {"name": k[:80], "count": n, "s": t / 1e6} for k, (n, t) in top
+        ],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

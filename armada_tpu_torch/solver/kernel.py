@@ -1,0 +1,1362 @@
+"""The scheduling round in eager PyTorch: one `solve_round` call runs the
+whole preempt-and-schedule round on one device,
+
+  fair shares -> balance eviction -> fairness-order indexing ->
+  pass 1 (evicted + queued) -> oversubscription eviction -> pass 2 ->
+  finalize,
+
+deciding exactly what the JAX package's fused program decides on the same
+padded round (armada_tpu/solver/kernel.py, `solve_impl`).
+
+Where the JAX program runs `lax.while_loop`s and `lax.cond`s on device,
+this module runs Python loops and `if`s on scalars read back from the
+device, and reads the round's static tables (slot members, counts, run
+lengths, queue ranges) from the host copy of the round instead. Tensors
+are never updated in place: a failed gang attempt keeps the carry it
+started from, as the functional reference does.
+
+Slice coverage: the default scheduler configuration (DRF, not market
+driven, serial gangs plus the single-queue batched fill, no fast fill, no
+round budget, no hot window). Everything else raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.priorities import EVICTED_PRIORITY, MIN_PRIORITY
+from ..device import COST_DTYPE, resolve_device
+from ..ops.bitset import as_words, bits_subset
+from ..ops.kernels import pack_plan, score_nodes
+from ..ops.segment import segment_sum
+from ..ops.select import lex_argmin, masked_lexsort
+from .dist import LOCAL, at
+from .kernel_prep import DeviceRound
+from .validate import maybe_assert_finite
+
+NO_NODE = -1
+
+# slot_state values
+PENDING, DONE, FAILED = 0, 1, 2
+
+# failure codes from a gang attempt
+OK, FAIL, FAIL_TERMINAL, FAIL_QUEUE_TERMINAL, FAIL_GANG_PROPERTY = 0, 1, 2, 3, 4
+
+BIG = 2**30
+I32_MAX = 2**31 - 1
+
+
+
+class Carry(NamedTuple):
+    alloc: torch.Tensor  # int32[P, N, R]
+    qalloc: torch.Tensor  # float64[Q, R]
+    qpc_alloc: torch.Tensor  # float64[Q, C, R]
+    job_node: torch.Tensor  # int32[J]
+    job_prio: torch.Tensor  # int32[J]
+    job_evicted: torch.Tensor  # bool[J]
+    job_scheduled: torch.Tensor  # bool[J] newly scheduled queued jobs
+    slot_state: torch.Tensor  # int8[S]
+    evict_rank: torch.Tensor  # int32[J]; -1 inactive, -2 consumed
+    tokens: torch.Tensor  # float64 0-d
+    qtokens: torch.Tensor  # float64[Q]
+    scheduled_new: torch.Tensor  # float64[R]
+    floating: torch.Tensor  # float64[R] pool floating-resource allocation
+    spot_price: torch.Tensor  # float64 0-d (nan: no market in this slice)
+    # Host-side loop state: validity flags and the loop counter.
+    only_ev_global: bool
+    only_ev_queue: np.ndarray  # bool[Q]
+    unfeasible: np.ndarray  # bool[G]
+    stop: bool
+    loops: int
+
+
+class _Round:
+    """One padded round on a device: `h` is the host DeviceRound (numpy,
+    read for static per-slot and per-job scalars without a device
+    round trip), `t` the same fields as tensors on `device`. Bitset words
+    are int32 views of the uint32 host words."""
+
+    def __init__(self, dev: DeviceRound, device: torch.device):
+        self.h = dev
+        self.device = device
+        tensors = {}
+        for f in dataclasses.fields(dev):
+            v = getattr(dev, f.name)
+            if isinstance(v, np.ndarray) and v.ndim > 0:
+                if v.dtype == np.uint32:
+                    v = as_words(v)
+                tensors[f.name] = torch.as_tensor(
+                    np.ascontiguousarray(v), device=device
+                )
+        self.t = dataclasses.replace(dev, **tensors)
+        self.J, self.R = dev.job_req.shape
+        self.S, self.M = dev.slot_members.shape
+        self.Q = dev.queue_weight.shape[0]
+        self.P = dev.priorities.shape[0]
+        self.C = dev.pc_priority.shape[0]
+        self.G = max(1, int(dev.num_key_groups))
+        self.dist = LOCAL
+        # Loops by kind (serial gang attempts, single-queue batched fills)
+        # and the host wall seconds spent in each, over the whole solve.
+        self.stats = {"gang_loops": 0, "fill_loops": 0, "gang_s": 0.0, "fill_s": 0.0}
+        self.zero_sel = torch.zeros_like(self.t.uni_value_bits[0])
+        self.queue_weight = [float(w) for w in dev.queue_weight]
+        self.penalty_f = _f(self.t.queue_short_penalty)
+        self.w_clip = torch.clamp(_f(self.t.queue_weight), min=1e-12)
+        self.kbits = None
+        kpath = dev.kernel_path
+        if kpath == "cuda":
+            self.kbits = pack_plan(dev, self.dist.n_shards)
+            if self.kbits is None:
+                # The reference's static rule: the fused path engages only
+                # where the key packs into one int64.
+                kpath = "lax"
+            else:
+                self.bits_t = torch.tensor(
+                    self.kbits, dtype=torch.int32, device=device
+                )
+        self.kpath = kpath
+        self.knbits = sum(self.kbits) if self.kbits else None
+
+    def up(self, arr, dtype=None):
+        """A host array on the round's device."""
+        return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+
+
+def _f(x):
+    return x.to(COST_DTYPE)
+
+
+def _pack_fill_keys(rd, n_local, keys):
+    """Fuse the best-fit candidate keys into ONE packed int64 when their
+    static bit widths fit, so the fill sort runs one single-key sort
+    instead of K+1 stable passes. Order-exact by mixed-radix packing:
+    every in-mask key is within [0, 2^bits). Keeps the multi-key list
+    when the widths overflow 62 bits."""
+    rank_bits = max(1, (n_local * rd.dist.n_shards - 1).bit_length())
+    bits = [max(1, int(b)) for b in rd.h.order_key_bits] + [rank_bits]
+    if len(bits) != len(keys) or sum(bits) > 62:
+        return keys
+    acc = torch.zeros(keys[0].shape, dtype=torch.int64, device=keys[0].device)
+    for k, b in zip(keys, bits):
+        acc = (acc << b) | torch.clamp(k, 0, (1 << b) - 1).to(torch.int64)
+    return [acc]
+
+
+def _drf_cost(alloc, total, mult):
+    """DRF cost (fairness.go:103-105); alloc [..., R]."""
+    safe = torch.where(total > 0, total, 1.0)
+    frac = torch.where(total > 0, alloc / safe, 0.0) * mult
+    return torch.clamp(torch.max(frac, dim=-1).values, min=0.0)
+
+
+def _policy_cost(rd, alloc):
+    """The queue-cost measure candidate ordering runs on (DRF)."""
+    return _drf_cost(alloc, rd.t.total_resources, rd.t.drf_multipliers)
+
+
+def _fair_shares(weights, demand_costs, total_is_zero):
+    """Water-filling fair shares (context/scheduling.go:252-331): at most
+    10 rounds, stopping once less than 0.01 of the pool is unallocated."""
+    Q = weights.shape[0]
+    zeros = torch.zeros(Q, dtype=COST_DTYPE, device=weights.device)
+    wsum = torch.sum(weights)
+    fair_share = torch.where(
+        wsum > 0.0, weights / torch.where(wsum > 0.0, wsum, 1.0), 0.0
+    )
+    demand = torch.where(total_is_zero, 1.0, demand_costs)
+    capped, uncapped = zeros, zeros
+    achieved = torch.zeros(Q, dtype=torch.bool, device=weights.device)
+    spare = zeros
+    unallocated = torch.tensor(1.0, dtype=COST_DTYPE, device=weights.device)
+    for _ in range(10):
+        if not bool(unallocated > 0.01):
+            break
+        total_weight = torch.sum(torch.where(achieved, 0.0, weights))
+        total_incl = total_weight + torch.where(achieved, weights, 0.0)
+        share = torch.where(
+            total_incl > 0,
+            weights / torch.where(total_incl > 0, total_incl, 1.0),
+            0.0,
+        )
+        uncapped = uncapped + share * (unallocated - spare)
+        live = total_weight > 0.0
+        capped = torch.where(
+            live & ~achieved,
+            capped + (weights / torch.where(live, total_weight, 1.0)) * unallocated,
+            capped,
+        )
+        new_spare = capped - demand
+        over = live & (new_spare > 0)
+        capped = torch.where(over, demand, capped)
+        achieved = achieved | over
+        spare = torch.where(over, new_spare, 0.0)
+        unallocated = torch.where(
+            live, torch.sum(torch.where(over, new_spare, 0.0)), 0.0
+        )
+    return fair_share, capped, uncapped
+
+
+def _static_ok(rd, j, extra_sel, extra_tol=None):
+    """StaticJobRequirementsMet over all nodes (nodematching.go:161-190)
+    for host job index j. extra_sel: additional required label bits (gang
+    uniformity value); extra_tol: additional tolerated-taint bits (away
+    node types)."""
+    t, h = rd.t, rd.h
+    tolerated = t.job_tolerated[j]
+    if extra_tol is not None:
+        tolerated = tolerated | extra_tol
+    taints_ok = torch.all((t.node_taints & ~tolerated) == 0, dim=-1)
+    sel_ok = bits_subset(t.job_selector[j] | extra_sel, t.node_labels)
+    total_ok = torch.all(t.job_req_fit[j] <= t.node_total, dim=-1)
+    n_idx = t.node_gid
+    excl_ok = torch.all(n_idx[:, None] != t.job_excluded_nodes[j][None, :], dim=-1)
+    ok = taints_ok & sel_ok & total_ok & excl_ok & ~t.node_unschedulable
+    a = int(h.job_affinity_group[j])
+    if a >= 0:
+        aff_bits = t.affinity_allowed[min(a, h.affinity_allowed.shape[0] - 1)]
+        word = aff_bits[torch.div(n_idx, 32, rounding_mode="floor").to(torch.int64)]
+        ok = ok & (((word >> (n_idx % 32)) & 1) != 0)
+    if not bool(h.job_possible[j]):
+        ok = torch.zeros_like(ok)
+    return ok
+
+
+def _order_keys(rd, alloc_row):
+    """Best-fit order keys of one allocation row [N, R]: each order
+    resource's allocatable // resolution, then the node id rank."""
+    keys = []
+    for k in range(rd.h.order_res_idx.shape[0]):
+        ri = int(rd.h.order_res_idx[k])
+        res = int(rd.h.order_res_resolution[k])
+        keys.append(torch.div(alloc_row[:, ri], res, rounding_mode="floor"))
+    keys.append(rd.t.node_id_rank)
+    return keys
+
+
+def _row(alloc, row):
+    """alloc[row] for a host int or a 0-d index tensor."""
+    if isinstance(row, int):
+        return alloc[row]
+    return at(alloc, row)
+
+
+def _select_at_row(rd, alloc, j, row, static_ok):
+    """First-fit in best-fit order at one priority row (nodedb.go:713-752)."""
+    a = _row(alloc, row)
+    dyn = torch.all(rd.t.job_req_fit[j] <= a, dim=-1)
+    return rd.dist.lex_argmin_nodes(_order_keys(rd, a), static_ok & dyn, rd.t.node_gid)
+
+
+def fair_preemption_order(c):
+    """The (node, -rank) walk order, computed once per pass: ranks are
+    fixed at assignment; only the active mask changes as evicted jobs are
+    consumed or rescheduled, which the per-select mask handles."""
+    rank = c.evict_rank
+    return masked_lexsort([c.job_node, BIG - rank], rank >= 0)
+
+
+def _fair_preemption(rd, c, j, static_ok, fp_order):
+    """Vectorized selectNodeForJobWithFairPreemption (nodedb.go:808-899).
+
+    Walk evicted jobs in reverse rank order; node n becomes selectable at the
+    first step where its cumulative freed resources cover the job. Choose the
+    node whose threshold step is earliest (largest rank)."""
+    t, dist = rd.t, rd.dist
+    rank = c.evict_rank
+    active = rank >= 0
+    node = c.job_node
+    order = fp_order
+    n_sorted = node[order]
+    a_sorted = active[order]
+    contrib = torch.where(a_sorted[:, None], t.job_req_fit[order], 0).to(torch.int64)
+    csum = torch.cumsum(contrib, dim=0)
+    pos = torch.arange(node.shape[0], device=node.device)
+    is_first = torch.cat(
+        [torch.ones(1, dtype=torch.bool, device=node.device), n_sorted[1:] != n_sorted[:-1]]
+    )
+    seg_first = torch.cummax(torch.where(is_first, pos, 0), dim=0).values
+    base = csum[seg_first] - contrib[seg_first]
+    cwithin = csum - base
+    safe_node = torch.clamp(n_sorted, 0, dist.num_nodes(c.alloc) - 1)
+    avail = dist.take_rows(c.alloc[0], safe_node).to(torch.int64) + cwithin
+    feasible = (
+        a_sorted
+        & torch.all(avail >= t.job_req_fit[j], dim=-1)
+        & dist.take_rows(static_ok, safe_node)
+    )
+    rank_sorted = rank[order]
+    idx, found = lex_argmin([-rank_sorted, pos.to(torch.int32)], feasible)
+    sel_node = at(safe_node, idx)
+    sel_rank = at(rank_sorted, idx)
+    consumed = active & (node == sel_node) & (rank >= sel_rank) & found
+    freed = torch.sum(
+        torch.where(consumed[:, None], t.job_req_fit, 0), dim=0
+    ).to(c.alloc.dtype)
+    new_alloc = dist.add_row_at(c.alloc, 0, sel_node, torch.where(found, freed, 0))
+    new_rank = torch.where(consumed, -2, rank)
+    preempted_at = torch.max(torch.where(consumed, c.job_prio, MIN_PRIORITY))
+    return sel_node, found, preempted_at, new_alloc, new_rank
+
+
+def _i32(x, device):
+    return torch.full((), x, dtype=torch.int32, device=device)
+
+
+def _select_chain(rd, c, j, prio, extra_sel, extra_tol, fp_order, any_evicted):
+    """selectNodeForJobWithTxnAtPriority (nodedb.go:597-662) at one target
+    priority (int32 0-d tensor) with optional extra tolerations (away node
+    types). Returns (node, found, preempted_at, new_alloc, new_evict_rank)."""
+    t = rd.t
+    dev = rd.device
+    alloc = c.alloc
+    row_p = torch.searchsorted(t.priorities, prio.reshape(1)).reshape(())
+    static_ok = _static_ok(rd, j, extra_sel, extra_tol)
+
+    n0, f0 = _select_at_row(rd, alloc, j, 0, static_ok)
+    _, fp = _select_at_row(rd, alloc, j, row_p, static_ok)
+
+    # Fair preemption involves a J-sized walk; skip it when the evicted-job
+    # index is empty (every queued-only round).
+    if any_evicted:
+        fpre_n, fpre_found, fpre_at, fpre_alloc, fpre_rank = _fair_preemption(
+            rd, c, j, static_ok, fp_order
+        )
+    else:
+        fpre_n = _i32(0, dev)
+        fpre_found = torch.zeros((), dtype=torch.bool, device=dev)
+        fpre_at = _i32(MIN_PRIORITY, dev)
+        fpre_alloc, fpre_rank = c.alloc, c.evict_rank
+
+    # Urgency: lowest priority row (ascending) where the job fits.
+    urg_n = _i32(0, dev)
+    urg_found = torch.zeros((), dtype=torch.bool, device=dev)
+    urg_at = _i32(MIN_PRIORITY, dev)
+    for r in range(1, rd.P):
+        pr = int(rd.h.priorities[r])
+        allowed = pr <= prio
+        nr, fr = _select_at_row(rd, alloc, j, r, static_ok)
+        take = allowed & fr & ~urg_found
+        urg_n = torch.where(take, nr, urg_n)
+        urg_at = torch.where(take, pr, urg_at)
+        urg_found = urg_found | take
+
+    found = f0 | (fp & (fpre_found | urg_found))
+    use_fpre = ~f0 & fp & fpre_found
+    node = torch.where(f0, n0, torch.where(use_fpre, fpre_n, urg_n))
+    preempted_at = torch.where(
+        f0, EVICTED_PRIORITY, torch.where(use_fpre, fpre_at, urg_at)
+    ).to(torch.int32)
+    new_alloc = torch.where(use_fpre, fpre_alloc, c.alloc)
+    new_rank = torch.where(use_fpre, fpre_rank, c.evict_rank)
+    return node, found, preempted_at, new_alloc, new_rank
+
+
+def _select_node(rd, c, j, extra_sel, fp_order, pinned, any_evicted):
+    """SelectNodeForJobWithTxn (nodedb.go:423-503): pinned reschedule, home
+    chain, then away node types at reduced priority. `pinned` is the job's
+    evicted flag (host bool). Returns
+    (node, found, preempted_at, new_alloc, new_evict_rank, sched_at)."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    prio = c.job_prio[j]
+    if pinned:
+        # Pinned (evicted) jobs only ever return to their node: the home
+        # chain's result would be discarded, so it is not computed.
+        row_p = torch.searchsorted(t.priorities, prio.reshape(1)).reshape(())
+        safe_home = torch.clamp(c.job_node[j], 0, dist.num_nodes(c.alloc) - 1)
+        home_col = dist.take_col(c.alloc, safe_home)
+        over_alloc = torch.any(home_col < 0)
+        home_fit = torch.all(t.job_req_fit[j] <= at(home_col, row_p)) | (
+            dist.take(t.node_unschedulable, safe_home) & over_alloc
+        )
+        return safe_home, home_fit, prio, c.alloc, c.evict_rank, prio
+
+    node, found, preempted_at, new_alloc, new_rank = _select_chain(
+        rd, c, j, prio, extra_sel, None, fp_order, any_evicted
+    )
+    sched_at = prio
+    pc = int(h.job_pc[j])
+    if h.has_away and int(h.pc_away_count[pc]) > 0 and not bool(found):
+        # Away node types (nodedb.go:487-501): extra tolerations for the
+        # well-known taints, the whole chain at the away priority, bound at
+        # that priority so home jobs can urgency-preempt later.
+        for a in range(int(h.pc_away_count[pc])):
+            a_prio = _i32(int(h.pc_away_prio[pc, a]), rd.device)
+            a_node, a_found, a_at, a_alloc, a_rank = _select_chain(
+                rd, c, j, a_prio, extra_sel, t.pc_away_tol[pc, a], fp_order,
+                any_evicted,
+            )
+            if bool(a_found):
+                return a_node, a_found, a_at, a_alloc, a_rank, a_prio
+    return node, found, preempted_at, new_alloc, new_rank, sched_at
+
+
+def _set(x, i, v):
+    """x with x[i] = v (host index or index tensor), as a new tensor."""
+    out = x.clone()
+    out[i] = v
+    return out
+
+
+def _bind(rd, c: Carry, j, n, at_prio, was_evicted) -> Carry:
+    """bindJobToNodeInPlace (nodedb.go:911-945) for host job index j on
+    node n (0-d) at priority at_prio (0-d); `was_evicted` is the job's
+    evicted flag (host bool)."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    if bool(h.job_preemptible[j]):
+        rows = t.priorities <= at_prio
+    else:
+        rows = torch.ones_like(t.priorities, dtype=torch.bool)
+    delta = torch.where(rows[:, None], t.job_req_fit[j], 0).to(c.alloc.dtype)
+    alloc = dist.add_col(c.alloc, n, -delta)
+    if was_evicted:
+        alloc = dist.add_row_at(alloc, 0, n, t.job_req_fit[j])
+    job_scheduled = c.job_scheduled
+    if not was_evicted and not bool(h.job_is_running[j]):
+        job_scheduled = _set(job_scheduled, j, True)
+    return c._replace(
+        alloc=alloc,
+        job_node=_set(c.job_node, j, n),
+        job_prio=_set(c.job_prio, j, at_prio),
+        job_evicted=_set(c.job_evicted, j, False),
+        job_scheduled=job_scheduled,
+        evict_rank=_set(c.evict_rank, j, -2) if was_evicted else c.evict_rank,
+    )
+
+
+def _constraint_codes(rd, c, slots, all_ev):
+    """Round/queue/rate-limit gates (gang_scheduler.go:100-145) for gang
+    attempts of the slots `slots` (int64 [K] device tensor of real slots,
+    or of anything for entries the caller ignores), on carry c. Returns
+    two int32 [K] tensors of OK/FAIL* codes: without the all-evicted
+    exemption (the fill gate) and with it for the slots whose members are
+    all evicted (`all_ev`, bool [K]: the gang attempt)."""
+    t, h = rd.t, rd.h
+    q = torch.clamp(t.slot_queue[slots], 0, rd.Q - 1).to(torch.int64)
+    pc = t.job_pc[torch.clamp(t.slot_members[slots, 0], 0, rd.J - 1).to(torch.int64)]
+    pc = pc.to(torch.int64)
+    card = _f(t.slot_count[slots])
+    req = _f(t.slot_req[slots])  # [K, R]
+
+    over_round = torch.any(c.scheduled_new > t.max_round_resources)
+    no_tokens = c.tokens < 1
+    gang_too_big = float(h.global_burst) < card
+    tokens_short = c.tokens < card
+    qtok = c.qtokens[q]
+    qno_tokens = qtok < 1
+    qgang_too_big = float(h.queue_burst) < card
+    qtokens_short = qtok < card
+    # Per-PC cap is would-exceed: the compared allocation includes the
+    # candidate gang (gang_scheduler.go:132-140, constraints.go:121-135).
+    pc_over = torch.any(c.qpc_alloc[q, pc] + req > t.queue_pc_limit[q, pc], dim=-1)
+    cordoned = t.queue_cordoned[q]
+
+    code = torch.where(
+        over_round | no_tokens,
+        FAIL_TERMINAL,
+        torch.where(
+            qno_tokens | cordoned,
+            FAIL_QUEUE_TERMINAL,
+            torch.where(
+                gang_too_big,
+                FAIL_GANG_PROPERTY,
+                torch.where(
+                    tokens_short | qgang_too_big | qtokens_short | pc_over,
+                    FAIL,
+                    OK,
+                ),
+            ),
+        ),
+    )
+    # Floating-resource pool caps apply to every gang, evicted included,
+    # except cross-pool away gangs (context/scheduling.go:546-557).
+    floating_over = torch.any(
+        t.floating_mask & (c.floating + req > t.floating_total), dim=-1
+    ) & ~t.slot_away[slots]
+    fill_code = torch.where((code == OK) & floating_over, FAIL, code)
+    gang_code = torch.where(all_ev & floating_over, FAIL, torch.where(all_ev, OK, fill_code))
+    return fill_code.to(torch.int32), gang_code.to(torch.int32)
+
+
+def _gang_attempt(rd, c: Carry, s, all_ev, code, fp_order, pinned_h, any_evicted):
+    """GangScheduler.Schedule + ScheduleManyWithTxn for host slot s, whose
+    constraint code `code` the caller computed on this carry. Returns
+    (carry, status code)."""
+    t, h = rd.t, rd.h
+    q = int(h.slot_queue[s])
+    count = int(h.slot_count[s])
+    card = float(count)
+    pc = int(h.job_pc[h.slot_members[s, 0]])
+
+    def attempt_members(c0, extra_sel):
+        """Place the members one by one on carry c0; returns
+        (carry, ok, mean preempted-at priority)."""
+        cc = c0
+        pat_sum = 0.0
+        for m in range(count):
+            j = int(np.clip(h.slot_members[s, m], 0, rd.J - 1))
+            pinned = bool(pinned_h[j])
+            node, found, pat, new_alloc, new_rank, sched_at = _select_node(
+                rd, cc, j, extra_sel, fp_order, pinned, any_evicted
+            )
+            found_h, pat_h = torch.stack(
+                [found.to(torch.int64), pat.to(torch.int64)]
+            ).tolist()
+            if not found_h:
+                return cc, False, pat_sum / max(card, 1.0)
+            cc = cc._replace(alloc=new_alloc, evict_rank=new_rank)
+            cc = _bind(rd, cc, j, node, sched_at, pinned)
+            pat_sum += float(pat_h)
+        return cc, True, pat_sum / max(card, 1.0)
+
+    start_ok = code == OK and int(h.slot_uni_start[s]) >= 0
+    ok = False
+    attempted = c
+    if start_ok:
+        uni_start, uni_end = int(h.slot_uni_start[s]), int(h.slot_uni_end[s])
+        if uni_end > uni_start:
+            # Node-uniformity search (gang_scheduler.go:150-224): evaluate
+            # each label value, keep the successful value with the best fit
+            # (lowest mean preempted-at priority, first wins ties), then
+            # re-attempt and commit that value.
+            best_v, best_mean, found_any = 0, float("inf"), False
+            for v in range(uni_start, uni_end):
+                _, ok_v, mean = attempt_members(c, t.uni_value_bits[v])
+                if ok_v and (not found_any or mean < best_mean):
+                    best_v, best_mean = v, mean
+                found_any = found_any or ok_v
+            if found_any:
+                attempted, ok, _ = attempt_members(c, t.uni_value_bits[best_v])
+        else:
+            attempted, ok, _ = attempt_members(c, rd.zero_sel)
+
+    # Commit or roll back.
+    new_carry = attempted if ok else c
+    slot_state = _set(new_carry.slot_state, s, DONE if ok else FAILED)
+    if not ok:
+        # Member placement failures are gang-property reasons (JobDoesNotFit
+        # / GangDoesNotFit, constraints.go:59-61).
+        status = code if code != OK else FAIL_GANG_PROPERTY
+        return new_carry._replace(slot_state=slot_state), status
+
+    # Success accounting (AddGangSchedulingContext + rate-limiter reserve).
+    req = _f(t.slot_req[s])
+    new_carry = new_carry._replace(
+        qalloc=_set(new_carry.qalloc, q, new_carry.qalloc[q] + req),
+        qpc_alloc=_set(new_carry.qpc_alloc, (q, pc), new_carry.qpc_alloc[q, pc] + req),
+        floating=new_carry.floating + torch.where(t.floating_mask, req, 0.0),
+        slot_state=slot_state,
+    )
+    if not all_ev:
+        new_carry = new_carry._replace(
+            tokens=new_carry.tokens - card,
+            qtokens=_set(new_carry.qtokens, q, new_carry.qtokens[q] - card),
+            scheduled_new=new_carry.scheduled_new + req,
+        )
+    return new_carry, OK
+
+
+def _slot_valid(rd, c, slots, all_ev_t, include_queued, use_key_skip, flags_t):
+    """Validity of the slots `slots` (index tensor) under QueuedGangIterator
+    yield semantics: the one predicate behind both the full scan and the
+    head-pointer advance."""
+    t, h = rd.t, rd.h
+    v = (c.slot_state[slots] == PENDING) & (t.slot_count[slots] > 0)
+    all_ev = all_ev_t[slots]
+    if include_queued:
+        only_ev_global, only_ev_queue, unfeasible = flags_t
+        only_ev = only_ev_global | only_ev_queue[torch.clamp(t.slot_queue[slots], 0, rd.Q - 1)]
+        running = t.slot_is_running[slots]
+        active = torch.where(running, all_ev, True)
+        v = v & active & (~only_ev | all_ev)
+        # Lookback: queued jobs beyond the limit stop yielding; 0 means
+        # unlimited (QueuedGangIterator.stopYieldingNewJobsIfLimitHit).
+        if h.max_lookback:
+            v = v & (running | all_ev | (t.slot_jobs_before[slots] < h.max_lookback))
+        if use_key_skip:
+            kg = t.slot_key_group[slots]
+            v = v & ~((kg >= 0) & unfeasible[torch.clamp(kg, 0, rd.G - 1)])
+    else:
+        v = v & all_ev
+    return v
+
+
+def _flags_t(rd, c):
+    """The carry's validity flags (only-evicted markers, unfeasible keys)
+    as device tensors for `_slot_valid`."""
+    return (
+        torch.tensor(bool(c.only_ev_global), device=rd.device),
+        rd.up(c.only_ev_queue),
+        rd.up(c.unfeasible),
+    )
+
+
+def _all_evicted(rd, c):
+    """Per slot: every member is evicted (stable within a pass)."""
+    t = rd.t
+    member_mask = torch.arange(rd.M, device=rd.device)[None, :] < t.slot_count[:, None]
+    safe = torch.clamp(t.slot_members, 0, rd.J - 1).to(torch.int64)
+    return torch.all(torch.where(member_mask, c.job_evicted[safe], True), dim=1)
+
+
+def _queue_heads(rd, valid):
+    """First valid slot per queue, or the queue's end (int32[Q])."""
+    t = rd.t
+    pos = torch.where(valid, torch.arange(rd.S, dtype=torch.int32, device=rd.device), BIG)
+    seg = torch.clamp(t.slot_queue, 0, rd.Q - 1).to(torch.int64)
+    heads = torch.full((rd.Q,), BIG, dtype=torch.int32, device=rd.device)
+    heads = heads.scatter_reduce(0, seg, pos, reduce="amin", include_self=True)
+    return torch.where(heads < BIG, heads, t.queue_slot_end)
+
+
+def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
+                   consider_priority, prefer_large):
+    """QueueScheduler.Schedule (queue_scheduler.go:91-276) as a host loop.
+
+    Per-queue candidate streams are walked with head pointers (host
+    int32[Q]): slots are sorted by (queue, segment, order), so each queue's
+    next candidate is an advancing index into its slot range. The O(S)
+    full validity scan runs at pass start and when a validity flag flips
+    (an only-evicted marker or a newly registered unfeasible key)."""
+    t, h = rd.t, rd.h
+    Q, S = rd.Q, rd.S
+    dev = rd.device
+    fill_enabled = (
+        h.batch_window > 0
+        and include_queued
+        and not h.market_driven
+        and not consider_priority
+    )
+    c = c._replace(stop=False, loops=0)
+    loop_cap = 2 * S + 4
+    stats = rd.stats
+
+    # all-evicted flags and the jobs' evicted flags are stable within a
+    # pass for every slot still PENDING (evictions happen between passes;
+    # a slot's own attempt is the only thing that rebinds its members).
+    all_ev_t = _all_evicted(rd, c)
+    all_ev_h = all_ev_t.cpu().numpy()
+    pinned_h = c.job_evicted.cpu().numpy()
+    # Fair-preemption walk order: one sort per pass, not per member select.
+    fp_order = fair_preemption_order(c)
+    any_evicted = bool(torch.any(c.evict_rank >= 0))
+    flags_t = _flags_t(rd, c)
+    arange_s = torch.arange(S, device=dev)
+
+    # Head pointers, kept on the host (for control flow) and mirrored on
+    # the device (for the per-loop key computation) so that no loop pays
+    # a host-to-device copy.
+    ptr = np.zeros(Q, dtype=np.int32)
+    ptr_t = torch.zeros(Q, dtype=torch.int32, device=dev)
+
+    def rescan(cc):
+        """Every queue's pointer from the full O(S) validity scan."""
+        nonlocal ptr, ptr_t
+        valid = _slot_valid(rd, cc, arange_s, all_ev_t, include_queued, use_key_skip, flags_t)
+        ptr_t = _queue_heads(rd, valid)
+        ptr = ptr_t.cpu().numpy().copy()
+
+    def move(cc, q, p):
+        """Set queue q's pointer to its first valid slot at or after p,
+        scanning a growing window of slots per device round trip."""
+        end = int(h.queue_slot_end[q])
+        width = 16
+        while p < end:
+            hi = min(end, p + width)
+            v = _slot_valid(
+                rd, cc, torch.arange(p, hi, device=dev), all_ev_t,
+                include_queued, use_key_skip, flags_t,
+            )
+            anyv, first = torch.stack(
+                [torch.any(v).to(torch.int64), torch.argmax(v.to(torch.int8))]
+            ).tolist()
+            if anyv:
+                p += first
+                break
+            p = hi
+            width = min(width * 4, 1 << 16)
+        ptr[q] = p
+        ptr_t[q] = p
+
+    rescan(c)
+    force_serial = False
+    name_rank = t.queue_name_rank
+
+    while not c.stop and c.loops < loop_cap:
+        t_loop = time.perf_counter()
+        any_head = bool(np.any(ptr < h.queue_slot_end))
+        has_head = ptr_t < t.queue_slot_end
+        heads = torch.clamp(ptr_t, 0, S - 1).to(torch.int64)
+
+        req_h = _f(t.slot_req[heads])  # [Q, R]
+        qalloc_cost = c.qalloc + rd.penalty_f
+        current = _policy_cost(rd, qalloc_cost) / rd.w_clip
+        proposed = _policy_cost(rd, qalloc_cost + req_h) / rd.w_clip
+        keys = []
+        if consider_priority:
+            members = t.slot_members[heads]
+            mmask = torch.arange(rd.M, device=dev)[None, :] < t.slot_count[heads][:, None]
+            safe = torch.clamp(members, 0, rd.J - 1).to(torch.int64)
+            pcp = torch.min(torch.where(mmask, c.job_prio[safe], I32_MAX), dim=1).values
+            keys.append(-pcp)
+        if prefer_large:
+            size = _policy_cost(rd, req_h) * _f(t.queue_weight)
+            over = (proposed > budgets).to(torch.int32)
+            keys += [
+                over,
+                torch.where(over == 1, proposed, current),
+                torch.where(over == 1, 0.0, -size),
+            ]
+        else:
+            keys.append(proposed)
+        keys.append(name_rank)
+
+        qstar_t, _ = lex_argmin(keys, has_head)
+        # The winner's constraint codes, for the fill gate (all-evicted
+        # exemption off) and the gang attempt (its own exemption); one
+        # device round trip brings them back with the winner.
+        fill_codes, gang_codes = _constraint_codes(rd, c, heads, all_ev_t[heads])
+        qstar, code_fill, code_gang = torch.stack(
+            [
+                qstar_t.to(torch.int64),
+                at(fill_codes, qstar_t).to(torch.int64),
+                at(gang_codes, qstar_t).to(torch.int64),
+            ]
+        ).tolist()
+        sstar = min(max(int(ptr[qstar]), 0), S - 1)
+
+        do_fill = (
+            fill_enabled
+            and any_head
+            and not force_serial
+            and int(h.slot_run_len[sstar]) > 0
+            and not bool(all_ev_h[sstar])
+            and code_fill == OK
+        )
+        if do_fill:
+            c, placed = _fill_step(
+                rd, c, qstar, sstar, keys, has_head, budgets, prefer_large
+            )
+            if placed:
+                move(c, qstar, sstar + placed)
+            force_serial = not placed
+            stats["fill_loops"] += 1
+            stats["fill_s"] += time.perf_counter() - t_loop
+        else:
+            flags_before = (
+                c.only_ev_global, c.only_ev_queue.copy(), c.unfeasible.copy()
+            )
+            if any_head:
+                c, status = _gang_attempt(
+                    rd, c, sstar, bool(all_ev_h[sstar]), code_gang, fp_order,
+                    pinned_h, any_evicted,
+                )
+                # Terminal handling (queue_scheduler.go:176-190).
+                sq = int(h.slot_queue[sstar])
+                if status == FAIL_TERMINAL and not c.only_ev_global:
+                    c = c._replace(only_ev_global=True)
+                if status == FAIL_QUEUE_TERMINAL and not c.only_ev_queue[sq]:
+                    only_ev_queue = c.only_ev_queue.copy()
+                    only_ev_queue[sq] = True
+                    c = c._replace(only_ev_queue=only_ev_queue)
+                # Register unfeasible keys: single-member, non-evicted slots
+                # with gang-property failures (gang_scheduler.go:80-95).
+                kg = int(h.slot_key_group[sstar])
+                if (
+                    status == FAIL_GANG_PROPERTY
+                    and int(h.slot_count[sstar]) == 1
+                    and kg >= 0
+                    and not bool(all_ev_h[sstar])
+                ):
+                    unfeasible = c.unfeasible.copy()
+                    unfeasible[min(kg, c.unfeasible.shape[0] - 1)] = True
+                    c = c._replace(unfeasible=unfeasible)
+                if any_evicted:
+                    any_evicted = bool(torch.any(c.evict_rank >= 0))
+            else:
+                c = c._replace(stop=True)
+            flags_changed = (
+                c.only_ev_global != flags_before[0]
+                or bool(np.any(c.only_ev_queue != flags_before[1]))
+                or bool(np.any(c.unfeasible != flags_before[2]))
+            )
+            # Consume the winning slot and advance its queue's pointer to the
+            # next valid slot; a flag flip can invalidate OTHER queues' heads,
+            # so it triggers the full O(S) recompute instead.
+            if flags_changed:
+                flags_t = _flags_t(rd, c)
+                rescan(c)
+            elif any_head:
+                move(c, qstar, sstar + 1)
+            force_serial = False
+            stats["gang_loops"] += 1
+            stats["gang_s"] += time.perf_counter() - t_loop
+        c = c._replace(loops=c.loops + 1)
+    return c
+
+
+def _f0_chain(rd, alloc0, j):
+    """Best-fit candidate-chain inputs for host job j against row-0
+    capacity: (fit0 mask, per-node placement caps, node order keys). The
+    "cuda" path scores with the fused kernel; "lax" runs the unfused graph."""
+    t, h = rd.t, rd.h
+    if rd.kbits is not None:
+        a = int(h.job_affinity_group[j])
+        aff_row = (
+            t.affinity_allowed[min(a, h.affinity_allowed.shape[0] - 1)]
+            if a >= 0
+            else None
+        )
+        fit0, caps, key = score_nodes(
+            alloc0, t.node_total, t.node_taints, t.node_labels, t.node_id_rank,
+            t.node_gid, t.node_unschedulable, aff_row, t.job_tolerated[j],
+            t.job_selector[j], t.job_req_fit[j], t.job_excluded_nodes[j],
+            t.order_res_idx, t.order_res_resolution, rd.bits_t,
+            int(h.batch_window), bool(h.job_possible[j]),
+        )
+        return fit0, caps, [key]
+    B = int(h.batch_window)
+    req_fit = t.job_req_fit[j]
+    static_ok = _static_ok(rd, j, rd.zero_sel)
+    fit0 = static_ok & torch.all(req_fit <= alloc0, dim=-1)
+    safe_req = torch.clamp(req_fit, min=1)
+    caps = torch.min(
+        torch.where(
+            req_fit[None, :] > 0,
+            torch.div(alloc0, safe_req[None, :], rounding_mode="floor"),
+            BIG,
+        ),
+        dim=-1,
+    ).values
+    caps = torch.clamp(caps, 0, B).to(torch.int32)
+    return fit0, caps, _pack_fill_keys(rd, alloc0.shape[0], _order_keys(rd, alloc0))
+
+
+def _fill_apply(rd, c, qstar, sstar, kmax):
+    """Place up to kmax jobs from the identical-singleton run headed at
+    sstar onto row-0-feasible nodes in best-fit order (the f0 chain,
+    nodedb.go:713-752): a node that wins the best-fit argmin keeps winning
+    until the job no longer fits on it, so identical jobs fill nodes to
+    capacity in best-fit order. Returns (carry, placed)."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    B = int(h.batch_window)
+    j = int(np.clip(h.slot_members[sstar, 0], 0, rd.J - 1))
+    prio = c.job_prio[j]
+    pc = int(h.job_pc[j])
+    req_fit = t.job_req_fit[j]
+    req_full = _f(t.job_req[j])
+
+    fit0, caps, nkeys = _f0_chain(rd, c.alloc[0], j)
+    cand_caps, cand_gids = dist.fill_candidates(
+        nkeys, fit0, caps, t.node_gid, B, rd.kpath, rd.knbits
+    )
+    prefix = torch.cumsum(cand_caps, dim=0, dtype=torch.int32)
+    total_cap = prefix[-1]
+    kstar = int(torch.clamp(
+        torch.minimum(kmax, total_cap), 0, min(int(h.slot_run_len[sstar]), B)
+    ))
+    if kstar == 0:
+        return c, 0
+
+    cnt = torch.clamp(kstar - (prefix - cand_caps), min=torch.zeros_like(cand_caps), max=cand_caps)
+    delta = dist.segment_to_nodes(
+        (cnt[:, None] * req_fit[None, :]).to(c.alloc.dtype), cand_gids, c.alloc.shape[1]
+    )
+    if bool(h.job_preemptible[j]):
+        rows = t.priorities <= prio
+    else:
+        rows = torch.ones_like(t.priorities, dtype=torch.bool)
+    alloc = c.alloc - torch.where(rows[:, None, None], delta[None, :, :], 0)
+
+    ivec = torch.arange(kstar, dtype=torch.int32, device=rd.device)
+    pos = torch.searchsorted(prefix, ivec, right=True)
+    node_w = cand_gids[torch.clamp(pos, 0, cand_gids.shape[0] - 1)]
+    wjobs = t.slot_members[sstar:sstar + kstar, 0].to(torch.int64)
+    k_f = float(kstar)
+    add = k_f * req_full
+    job_node = c.job_node.clone()
+    job_node[wjobs] = node_w.to(torch.int32)
+    job_prio = c.job_prio.clone()
+    job_prio[wjobs] = prio
+    job_scheduled = c.job_scheduled.clone()
+    job_scheduled[wjobs] = True
+    slot_state = c.slot_state.clone()
+    slot_state[sstar:sstar + kstar] = DONE
+    c2 = c._replace(
+        alloc=alloc,
+        qalloc=_set(c.qalloc, qstar, c.qalloc[qstar] + add),
+        qpc_alloc=_set(c.qpc_alloc, (qstar, pc), c.qpc_alloc[qstar, pc] + add),
+        job_node=job_node,
+        job_prio=job_prio,
+        job_scheduled=job_scheduled,
+        slot_state=slot_state,
+        tokens=c.tokens - k_f,
+        qtokens=_set(c.qtokens, qstar, c.qtokens[qstar] - k_f),
+        scheduled_new=c.scheduled_new + add,
+        floating=c.floating + torch.where(t.floating_mask, add, 0.0),
+    )
+    return c2, kstar
+
+
+def _fill_step(rd, c, qstar, sstar, qkeys, has_head, budgets, prefer_large):
+    """Exact single-queue batched fill: stop exactly where the serial loop
+    would have switched queues or hit a constraint gate. The queue's PQ
+    key after i placements is a closed form of i, so the crossover against
+    the (static) runner-up key is computed vectorized; every gate is
+    monotone in i, so the stop point is the min of the individual ones.
+    Returns (carry, placed); placed == 0 arms force-serial."""
+    t, h = rd.t, rd.h
+    dev = rd.device
+    B = int(h.batch_window)
+    j = int(np.clip(h.slot_members[sstar, 0], 0, rd.J - 1))
+    pc = int(h.job_pc[j])
+    req_full = _f(t.job_req[j])
+
+    # Runner-up queue's key tuple: static during the fill (no other
+    # queue's head or allocation changes while this queue wins).
+    mask2 = has_head & (torch.arange(rd.Q, device=dev) != qstar)
+    q2, found2 = lex_argmin(qkeys, mask2)
+    rup = [at(k, q2) for k in qkeys]
+
+    i_f = torch.arange(B, dtype=COST_DTYPE, device=dev)
+    qa_i = (c.qalloc[qstar] + rd.penalty_f[qstar])[None, :] + i_f[:, None] * req_full[None, :]
+    w_q = max(rd.queue_weight[qstar], 1e-12)
+    cur_i = _policy_cost(rd, qa_i) / w_q
+    prop_i = _policy_cost(rd, qa_i + req_full[None, :]) / w_q
+    if prefer_large:
+        size = _policy_cost(rd, req_full) * rd.queue_weight[qstar]
+        over_i = (prop_i > budgets[qstar]).to(torch.int32)
+        my_keys = [
+            over_i,
+            torch.where(over_i == 1, prop_i, cur_i),
+            torch.where(over_i == 1, 0.0, -size),
+        ]
+    else:
+        my_keys = [prop_i]
+    my_keys.append(
+        torch.full((B,), int(h.queue_name_rank[qstar]), dtype=torch.int32, device=dev)
+    )
+    win = torch.zeros(B, dtype=torch.bool, device=dev)
+    gt = torch.zeros(B, dtype=torch.bool, device=dev)
+    for a, b in zip(my_keys, rup):
+        win = win | (~gt & (a < b))
+        gt = gt | (a > b)
+    win = win | ~found2
+
+    # Constraint gates per step (the serial loop evaluates these before
+    # each attempt): i = number already placed.
+    tok_ok = (c.tokens - i_f) >= 1
+    qtok_ok = (c.qtokens[qstar] - i_f) >= 1
+    round_ok = ~torch.any(
+        c.scheduled_new[None, :] + i_f[:, None] * req_full[None, :]
+        > t.max_round_resources[None, :],
+        dim=-1,
+    )
+    pc_ok = ~torch.any(
+        c.qpc_alloc[qstar, pc][None, :] + (i_f + 1.0)[:, None] * req_full[None, :]
+        > t.queue_pc_limit[qstar, pc][None, :],
+        dim=-1,
+    )
+    float_ok = ~torch.any(
+        t.floating_mask[None, :]
+        & (
+            c.floating[None, :] + (i_f + 1.0)[:, None] * req_full[None, :]
+            > t.floating_total[None, :]
+        ),
+        dim=-1,
+    )
+    allowed = win & tok_ok & qtok_ok & round_ok & pc_ok & float_ok
+    kmax = torch.sum(torch.cumprod(allowed.to(torch.int32), dim=0)).to(torch.int32)
+
+    return _fill_apply(rd, c, qstar, sstar, kmax)
+
+
+def _apply_evictions(rd, c: Carry, evict_mask):
+    """Move evicted jobs' usage to the evicted row and update queue
+    accounting (EvictJobsFromNode + sctx.EvictJob)."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    req_f = _f(t.job_req)
+    alloc = c.alloc
+    ln = alloc.shape[1]
+    rows = []
+    for r in range(1, rd.P):
+        in_rows = torch.where(t.job_preemptible, int(h.priorities[r]) <= c.job_prio, True)
+        contrib = torch.where(
+            (evict_mask & in_rows)[:, None], t.job_req_fit, 0
+        ).to(alloc.dtype)
+        rows.append(alloc[r] + dist.segment_to_nodes(contrib, c.job_node, ln))
+    alloc = torch.stack([alloc[0]] + rows) if rows else alloc
+
+    # Requests are whole device units: their int64 sums, converted, are
+    # the float64 sums exactly.
+    qseg = torch.clamp(t.job_queue, 0, rd.Q - 1).to(torch.int64)
+    sub = torch.where(evict_mask[:, None], t.job_req, 0).to(torch.int64)
+    qsub = _f(segment_sum(sub, qseg, rd.Q))
+    pc_seg = qseg * rd.C + t.job_pc.to(torch.int64)
+    qpc_sub = _f(segment_sum(sub, pc_seg, rd.Q * rd.C)).reshape(c.qpc_alloc.shape)
+    floating_sub = torch.sum(
+        torch.where(evict_mask[:, None] & t.floating_mask[None, :], req_f, 0.0),
+        dim=0,
+    )
+    return c._replace(
+        alloc=alloc,
+        qalloc=c.qalloc - qsub,
+        qpc_alloc=c.qpc_alloc - qpc_sub,
+        floating=c.floating - floating_sub,
+        job_evicted=c.job_evicted | evict_mask,
+    )
+
+
+def _assign_evict_ranks(rd, c: Carry, budgets, prefer_large: bool):
+    """addEvictedJobsToNodeDb (preempting_queue_scheduler.go:584-633): walk
+    evicted slots in candidate order with static allocations, assigning a
+    global fairness rank to each member.
+
+    The allocations are static during the walk, so each eligible slot's
+    key tuple is fixed: the keys are computed for every eligible slot at
+    once on the device, and the walk itself (repeatedly the lex-smallest
+    queue head, by the same key comparison as lex_argmin) runs on the host
+    over those keys. Rank of step i's member m is i * M + m."""
+    t, h = rd.t, rd.h
+    M = rd.M
+    all_ev = _all_evicted(rd, c)
+    eligible = (c.slot_state == PENDING) & all_ev & (t.slot_count > 0)
+    slots_h = np.flatnonzero(eligible.cpu().numpy())
+    rank = torch.full((rd.J,), -1, dtype=torch.int32, device=rd.device)
+    if not len(slots_h):
+        return c._replace(evict_rank=rank)
+
+    q_h = h.slot_queue[slots_h].astype(np.int64)
+    s_t, q_t = rd.up(slots_h.astype(np.int64)), rd.up(q_h)
+    qalloc_cost = c.qalloc + rd.penalty_f
+    req = _f(t.slot_req[s_t])
+    w = rd.w_clip[q_t]
+    proposed = _policy_cost(rd, qalloc_cost[q_t] + req) / w
+    if prefer_large:
+        cur = _policy_cost(rd, qalloc_cost)[q_t] / w
+        size = _policy_cost(rd, req) * _f(t.queue_weight)[q_t]
+        over = proposed > budgets[q_t]
+        cols = [
+            over.to(COST_DTYPE),
+            torch.where(over, proposed, cur),
+            torch.where(over, 0.0, -size),
+        ]
+    else:
+        cols = [proposed]
+    keys = torch.stack(cols, dim=1).cpu().numpy()
+    name_rank = h.queue_name_rank
+
+    # Per queue, its eligible slots in slot order (the segment-min head
+    # order); each step takes the lex-smallest head key.
+    streams = {}
+    for i, q in enumerate(q_h.tolist()):
+        streams.setdefault(q, []).append(i)
+    pos = {q: 0 for q in streams}
+    order = []
+    while pos:
+        best_q, best_key = None, None
+        for q, p in pos.items():
+            k = tuple(keys[streams[q][p]].tolist()) + (int(name_rank[q]),)
+            if best_key is None or k < best_key:
+                best_q, best_key = q, k
+        order.append(streams[best_q][pos[best_q]])
+        pos[best_q] += 1
+        if pos[best_q] == len(streams[best_q]):
+            del pos[best_q]
+
+    members, values = [], []
+    for step, i in enumerate(order):
+        s = int(slots_h[i])
+        for m in range(int(h.slot_count[s])):
+            members.append(int(np.clip(h.slot_members[s, m], 0, rd.J - 1)))
+            values.append(step * M + m)
+    rank[rd.up(np.asarray(members, dtype=np.int64))] = rd.up(
+        np.asarray(values, dtype=np.int32)
+    )
+    # Larger rank = scheduled later = consumed first by fair preemption,
+    # matching ReverseLowerBound.
+    return c._replace(evict_rank=rank)
+
+
+def _oversubscribed_mask(rd, c: Carry):
+    """OversubscribedEvictor (eviction.go:133-180)."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    bound = (c.job_node >= 0) & ~c.job_evicted
+    mask = torch.zeros(rd.J, dtype=torch.bool, device=rd.device)
+    for r in range(1, rd.P):
+        over_nodes = torch.any(c.alloc[r] < 0, dim=-1)
+        at_prio = c.job_prio == int(h.priorities[r])
+        over_at_job = dist.take_rows(over_nodes, c.job_node)
+        mask = mask | (bound & t.job_preemptible & at_prio & over_at_job)
+    return mask & (t.job_queue >= 0)
+
+
+def _gang_complete_mask(rd, c: Carry, evict_mask):
+    """Extend an eviction mask to whole gangs (evictGangs)."""
+    t = rd.t
+    safe = torch.clamp(t.slot_members, 0, rd.J - 1).to(torch.int64)
+    member_mask = torch.arange(rd.M, device=rd.device)[None, :] < t.slot_count[:, None]
+    slot_has_evicted = torch.any(member_mask & evict_mask[safe], dim=1)
+    bound = (c.job_node >= 0) & ~c.job_evicted
+    slot_sel = slot_has_evicted & (t.slot_count > 1)
+    sel_flat = (slot_sel[:, None] & member_mask).reshape(-1).to(torch.int32)
+    hits = segment_sum(sel_flat, safe.reshape(-1), rd.J)
+    return evict_mask | ((hits > 0) & bound)
+
+
+def _round_setup(rd):
+    """Fair shares, initial carry, balance eviction, eviction ranks —
+    everything before pass 1. Returns
+    (carry, budgets, fair_share, demand_capped, uncapped)."""
+    t, h = rd.t, rd.h
+    J, Q, S, C, R = rd.J, rd.Q, rd.S, rd.C, rd.R
+    dev = rd.device
+
+    # Fair shares from constrained demand.
+    demand_capped_pc = torch.minimum(_f(t.queue_demand_pc), t.queue_pc_limit)
+    constrained = torch.sum(demand_capped_pc, dim=1)  # [Q, R]
+    total_is_zero = torch.all(t.total_resources == 0)
+    demand_costs = _policy_cost(rd, constrained)
+    w = _f(t.queue_weight)
+    fair_share, demand_capped, uncapped = _fair_shares(w, demand_costs, total_is_zero)
+    budgets = torch.where(t.queue_weight > 0, demand_capped / w, float("inf"))
+
+    req_f = _f(t.job_req)
+    qseg = (
+        torch.clamp(t.job_queue, 0, Q - 1).to(torch.int64) * C
+        + t.job_pc.to(torch.int64)
+    )
+    # Whole device units: the int64 sum, converted, is the float64 sum.
+    run_alloc = _f(segment_sum(
+        torch.where(
+            (t.job_is_running & (t.job_queue >= 0))[:, None], t.job_req, 0
+        ).to(torch.int64),
+        qseg,
+        Q * C,
+    )).reshape(Q, C, R)
+    G = max(1, int(h.num_key_groups))
+    c = Carry(
+        alloc=t.alloc0.to(torch.int32).clone(),
+        qalloc=_f(t.queue_alloc0),
+        qpc_alloc=run_alloc,
+        job_node=t.job_node.to(torch.int32).clone(),
+        job_prio=t.job_prio.to(torch.int32).clone(),
+        job_evicted=torch.zeros(J, dtype=torch.bool, device=dev),
+        job_scheduled=torch.zeros(J, dtype=torch.bool, device=dev),
+        slot_state=torch.zeros(S, dtype=torch.int8, device=dev),
+        evict_rank=torch.full((J,), -1, dtype=torch.int32, device=dev),
+        tokens=torch.tensor(float(h.global_tokens), dtype=COST_DTYPE, device=dev),
+        qtokens=_f(t.queue_tokens),
+        scheduled_new=torch.zeros(R, dtype=COST_DTYPE, device=dev),
+        floating=torch.sum(
+            torch.where(
+                (t.job_is_running & (t.job_node >= 0))[:, None]
+                & t.floating_mask[None, :],
+                req_f,
+                0.0,
+            ),
+            dim=0,
+        ),
+        spot_price=torch.tensor(float("nan"), dtype=COST_DTYPE, device=dev),
+        only_ev_global=False,
+        only_ev_queue=np.zeros(Q, dtype=bool),
+        unfeasible=np.zeros(G, dtype=bool),
+        stop=False,
+        loops=0,
+    )
+
+    # 1. Balance eviction (NodeEvictor + gang completion).
+    actual_cost = _policy_cost(rd, c.qalloc)
+    fs = torch.maximum(demand_capped, fair_share)
+    fraction = torch.where(fs > 0, actual_cost / fs, float("inf"))
+    evict_queue = fraction > float(h.protected_fraction)
+    qidx = torch.clamp(t.job_queue, 0, Q - 1).to(torch.int64)
+    evict0 = (
+        t.job_is_running
+        & t.job_preemptible
+        & (t.job_queue >= 0)
+        & (c.job_node >= 0)
+        & evict_queue[qidx]
+    )
+    evict0 = _gang_complete_mask(rd, c, evict0)
+    c = _apply_evictions(rd, c, evict0)
+    c = _assign_evict_ranks(rd, c, budgets, bool(h.prefer_large))
+    return c, budgets, fair_share, demand_capped, uncapped
+
+
+def _round_finish(rd, c, budgets, fair_share, demand_capped, uncapped):
+    """Oversubscription eviction, pass 2 and finalization into the result
+    dict (device tensors)."""
+    t = rd.t
+    # 3. Oversubscription eviction.
+    over = _oversubscribed_mask(rd, c)
+    over = _gang_complete_mask(rd, c, over)
+    # Back out per-round scheduled resources for re-evicted new jobs.
+    sched_backout = torch.sum(
+        torch.where((over & c.job_scheduled)[:, None], _f(t.job_req), 0.0), dim=0
+    )
+    c = _apply_evictions(rd, c, over)
+    c = c._replace(scheduled_new=c.scheduled_new - sched_backout)
+    # Re-open ONLY slots whose members were just oversubscription-evicted.
+    member_mask = torch.arange(rd.M, device=rd.device)[None, :] < t.slot_count[:, None]
+    safe = torch.clamp(t.slot_members, 0, rd.J - 1).to(torch.int64)
+    slot_all_over = torch.all(
+        torch.where(member_mask, over[safe], True), dim=1
+    ) & (t.slot_count > 0)
+    c = c._replace(
+        slot_state=torch.where(slot_all_over, PENDING, c.slot_state).to(torch.int8),
+        only_ev_global=False,
+        only_ev_queue=np.zeros(rd.Q, dtype=bool),
+    )
+    if bool(torch.any(over)):
+        c = _assign_evict_ranks(rd, c, budgets, bool(rd.h.prefer_large))
+        # 4. Pass 2: evicted only, considering priority-class priority.
+        c = _schedule_pass(
+            rd, c, budgets, include_queued=False, use_key_skip=False,
+            consider_priority=True, prefer_large=bool(rd.h.prefer_large),
+        )
+
+    # 5. Finalize.
+    preempted = t.job_is_running & c.job_evicted
+    scheduled = c.job_scheduled & ~c.job_evicted
+    assigned = torch.where(c.job_evicted, NO_NODE, c.job_node).to(torch.int32)
+    return {
+        "assigned_node": assigned,
+        "scheduled_priority": c.job_prio,
+        "scheduled_mask": scheduled,
+        "preempted_mask": preempted,
+        "fair_share": fair_share,
+        "demand_capped_fair_share": demand_capped,
+        "uncapped_fair_share": uncapped,
+        "num_loops": np.asarray(c.loops, dtype=np.int32),
+        "spot_price": c.spot_price,
+    }
+
+
+def solve_impl(rd: _Round):
+    c, budgets, fair_share, demand_capped, uncapped = _round_setup(rd)
+    # 2. Pass 1: evicted + queued.
+    c = _schedule_pass(
+        rd, c, budgets, include_queued=True, use_key_skip=True,
+        consider_priority=False, prefer_large=bool(rd.h.prefer_large),
+    )
+    return _round_finish(rd, c, budgets, fair_share, demand_capped, uncapped)
+
+
+def check_slice(dev: DeviceRound) -> None:
+    """Raise NotImplementedError for what this slice of the port does not
+    solve, naming the slice that brings it."""
+    if dev.market_driven:
+        raise NotImplementedError(
+            "market-driven rounds are not ported yet (the market-round slice)"
+        )
+    if tuple(dev.fairness_policy) != ("drf",):
+        raise NotImplementedError(
+            f"fairness policy {dev.fairness_policy!r} is not ported yet "
+            "(the fairness-policies slice); only ('drf',) is"
+        )
+    if dev.fast_fill and dev.batch_window > 0:
+        raise NotImplementedError(
+            "fast fill (merged multi-queue window fill) is not ported yet "
+            "(the fast-fill slice)"
+        )
+    if dev.kernel_path not in ("lax", "cuda"):
+        raise ValueError(f"kernel_path must be 'lax' or 'cuda', not {dev.kernel_path!r}")
+
+
+# Round readback trim (solve_round(readback_rows=...)): the per-job
+# decision arrays whose padded tail is inert by construction — pad rows
+# are impossible jobs bound nowhere (kernel_prep.pad_device_round).
+_JOB_READBACK = {
+    "assigned_node": NO_NODE,
+    "scheduled_priority": 0,
+    "scheduled_mask": False,
+    "preempted_mask": False,
+}
+_READBACK_CHUNK = 16384
+_readback_buckets: dict = {}
+
+
+def _readback_bucket(padded_j: int, rows: int) -> int:
+    need = min(padded_j, -(-max(int(rows), 1) // _READBACK_CHUNK) * _READBACK_CHUNK)
+    cur = _readback_buckets.get(padded_j, 0)
+    if need > cur:
+        _readback_buckets[padded_j] = need
+        cur = need
+    return cur
+
+
+def _numpy(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _materialize_out(out, dev, readback_rows):
+    """Device outputs -> numpy, reading back only the unpadded prefix of
+    the per-job decision arrays when the caller gave the live row count,
+    then re-expanding to the padded length with the inert pad fills, so
+    every consumer sees padded-shape arrays, byte-identical to a full
+    readback."""
+    padded_j = int(dev.job_req.shape[0])
+    if readback_rows is None or int(readback_rows) >= padded_j:
+        return {k: _numpy(v) for k, v in out.items()}
+    bucket = _readback_bucket(padded_j, readback_rows)
+    np_out = {}
+    for k, v in out.items():
+        if k in _JOB_READBACK and tuple(v.shape[:1]) == (padded_j,):
+            v = np.pad(
+                _numpy(v[:bucket]), (0, padded_j - bucket),
+                constant_values=_JOB_READBACK[k],
+            )
+        np_out[k] = _numpy(v)
+    return np_out
+
+
+def solve_round(
+    dev: DeviceRound,
+    *,
+    budget_s: float | None = None,
+    window: int | None = None,
+    profile: bool = False,
+    readback_rows: int | None = None,
+    device=None,
+    stats: dict | None = None,
+):
+    """Run the round solve on `device` (the CUDA card by default); returns
+    the same dict of numpy arrays under the same keys as the JAX package's
+    fused `solve_round`. `dev` is a padded host DeviceRound.
+
+    readback_rows (the unpadded live-job count) trims the device->host
+    readback of the per-job decision arrays to that prefix; the padded
+    tail is inert and re-expanded on the host. `stats`, when given, is
+    filled with the loop counts by kind and the host seconds in each.
+
+    The round budget (budget_s), the hot window (window) and the
+    per-segment profile belong to the host-driven driver slice and raise
+    NotImplementedError here."""
+    if budget_s:
+        raise NotImplementedError(
+            "budget_s: the round-budget driver is not ported yet "
+            "(the budget and hot-window driver slice)"
+        )
+    if window:
+        raise NotImplementedError(
+            "window: hot-window compaction is not ported yet "
+            "(the budget and hot-window driver slice)"
+        )
+    if profile:
+        raise NotImplementedError(
+            "profile: the segmented driver's profile is not ported yet "
+            "(the budget and hot-window driver slice)"
+        )
+    check_slice(dev)
+    rd = _Round(dev, resolve_device(device))
+    out = _materialize_out(solve_impl(rd), dev, readback_rows)
+    if stats is not None:
+        stats.update(rd.stats)
+    maybe_assert_finite(out, "armada_tpu_torch.solve_round")
+    return out

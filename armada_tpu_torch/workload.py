@@ -1,0 +1,73 @@
+"""The bench's scheduling round on the port's types.
+
+`build_inputs` is bench.py's `build_inputs` (the 1M x 50k flagship and
+the 100k x 5k tracking round): N nodes of 32 cpu / 256Gi, 10 equal-weight
+queues, queued jobs of 1/2/4/8 cpu drawn from a seed, plus running
+preemptible jobs of 2 cpu in one hog queue so that eviction and fair
+preemption run. It uses the scheduler's default fill configuration
+(batch fill window 512, fast fill off).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.config import PriorityClass, SchedulingConfig
+from .core.types import JobSpec, NodeSpec, QueueSpec, RunningJob
+
+N_QUEUES = 10
+N_RUNNING = 5000
+
+
+def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES):
+    """(config, pool, nodes, queues, running, queued) for
+    `build_round_snapshot`."""
+    cfg = SchedulingConfig(
+        priority_classes={
+            "high": PriorityClass("high", 30000, preemptible=False),
+            "low": PriorityClass("low", 1000, preemptible=True),
+        },
+        default_priority_class="low",
+        protected_fraction_of_fair_share=0.5 if n_running else 1.0,
+        enable_fast_fill=False,
+        batch_fill_window=512,
+    )
+    rng = np.random.default_rng(0)
+    nodes = [
+        NodeSpec(
+            id=f"node-{i:05d}",
+            pool="default",
+            total_resources={"cpu": "32", "memory": "256Gi"},
+        )
+        for i in range(n_nodes)
+    ]
+    queues = [QueueSpec(f"queue-{i:02d}", 1.0) for i in range(n_queues)]
+    cpus = rng.choice([1, 2, 4, 8], size=n_jobs)
+    qidx = rng.integers(0, n_queues, size=n_jobs)
+    queued = [
+        JobSpec(
+            id=f"job-{i:07d}",
+            queue=f"queue-{qidx[i]:02d}",
+            priority_class="low",
+            requests={"cpu": str(int(cpus[i])), "memory": f"{int(cpus[i]) * 2}Gi"},
+            submitted_ts=float(i),
+        )
+        for i in range(n_jobs)
+    ]
+    # Running jobs all in one hog queue: over its fair share, so evicted
+    # and mostly rescheduled, driving eviction and fair preemption.
+    running = [
+        RunningJob(
+            job=JobSpec(
+                id=f"run-{i:07d}",
+                queue="queue-00",
+                priority_class="low",
+                requests={"cpu": "2", "memory": "4Gi"},
+                submitted_ts=float(-n_running + i),
+            ),
+            node_id=f"node-{i % n_nodes:05d}",
+            scheduled_at_priority=1000,
+        )
+        for i in range(n_running)
+    ]
+    return cfg, "default", nodes, queues, running, queued

@@ -1,0 +1,149 @@
+"""The hand-written CUDA kernels against their plain torch versions, on
+the card (marker `cuda`; each test skips where there is no card). This
+file imports no JAX, so it also runs on a machine with only the port:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The input builders here are shared with tests/test_torch_kernels.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from armada_tpu_torch.ops import kernels as tk
+from armada_tpu_torch.ops.bitset import as_words
+
+SENTINEL = np.iinfo(np.int64).max
+
+
+def _score_inputs(rng, n, *, with_aff=True, job_ok=True):
+    r = 3
+    total = rng.integers(0, 40, size=(n, r)).astype(np.int32)
+    # Negative allocatable (over-allocated nodes) exercises floor division.
+    alloc0 = (total - rng.integers(-5, 45, size=(n, r))).astype(np.int32)
+    taints = np.where(
+        rng.random((n, 2)) < 0.3,
+        rng.integers(0, 2**32, size=(n, 2), dtype=np.uint64),
+        0,
+    ).astype(np.uint32)
+    taints[::7, 1] |= np.uint32(0x80000000)
+    labels = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint64).astype(np.uint32)
+    rank = rng.permutation(n).astype(np.int32)
+    gid = np.arange(n, dtype=np.int32)
+    unsched = rng.random(n) < 0.1
+    aff_row = rng.integers(0, 2**32, size=(n + 31) // 32, dtype=np.uint64).astype(np.uint32)
+    aff_row[0] |= np.uint32(0x80000000)
+    tolerated = np.array([0xFFFF0000, 0x8000FFFF], dtype=np.uint32)
+    selector = np.array([0x00000101, 0], dtype=np.uint32)
+    req_fit = np.array([3, 0, 7], dtype=np.int32)
+    excl = np.array([1, 5, -1, -1], dtype=np.int32)
+    oidx = np.array([0, 2], dtype=np.int32)
+    ores = np.array([1, 2], dtype=np.int32)
+    bits = (6, 5, max(1, (n - 1).bit_length()))
+    return dict(
+        alloc0=alloc0, node_total=total, taints=taints, labels=labels,
+        rank=rank, gid=gid, unsched=unsched,
+        aff_row=aff_row if with_aff else None, tolerated=tolerated,
+        selector=selector, req_fit=req_fit, excl=excl, oidx=oidx,
+        ores=ores, bits=bits, batch_window=8, job_ok=job_ok,
+    )
+
+
+def _port_args(a, device="cpu"):
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return dict(
+        alloc0=t(a["alloc0"]), node_total=t(a["node_total"]),
+        taints=t(as_words(a["taints"])), labels=t(as_words(a["labels"])),
+        rank=t(a["rank"]), gid=t(a["gid"]), unsched=t(a["unsched"]),
+        aff_row=None if a["aff_row"] is None else t(as_words(a["aff_row"])),
+        tolerated=t(as_words(a["tolerated"])), selector=t(as_words(a["selector"])),
+        req_fit=t(a["req_fit"]), excl=t(a["excl"]),
+        order_res_idx=t(a["oidx"]), order_res_resolution=t(a["ores"]),
+        bits=t(np.asarray(a["bits"], np.int32)),
+        batch_window=a["batch_window"], job_ok=a["job_ok"],
+    )
+
+
+# (n, B, key span, dead share, reference fill_take meets the contract)
+_TAKE_SPECS = (
+    (512, 64, 2**40, 0.4, True),    # distinct keys, sentinel entries
+    (1024, 256, 8, 0.3, False),     # heavy duplicates across the threshold
+    (256, 200, 2**30, 0.9, False),  # fewer real keys than B: sentinel tail
+    (100, 512, 2**20, 0.2, True),   # B > N
+    (64, 64, 4, 0.0, True),         # B == N, duplicates only
+)
+
+
+def _take_cases():
+    rng = np.random.default_rng(7)
+    cases = []
+    for n, b, span, dead, _ in _TAKE_SPECS:
+        keys = rng.integers(0, span, size=n, dtype=np.int64)
+        keys = np.where(rng.random(n) < dead, SENTINEL, keys)
+        cases.append((keys, b))
+    return cases
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(cuda_device):
+    a = _port_args(_score_inputs(np.random.default_rng(12), 4096), device="cuda")
+    got = tk.score_nodes(**a)
+    want = tk.score_nodes_plain(**a)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for keys, b in _take_cases():
+        kt = torch.as_tensor(keys, device=cuda_device)
+        got = tk.fill_take(kt, b)
+        want = tk.fill_take_plain(kt, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_round_on_card_equals_round_on_cpu(cuda_device):
+    """A small round of the bench's shape solves to the same arrays on the
+    card (kernels) and on the CPU (plain versions)."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    dev = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(2000, 100, n_running=200)
+    )))
+    K.reset_launches()
+    on_card = solve_round(dev)
+    assert K.LAUNCHES["score_nodes"] > 0 and K.LAUNCHES["fill_take"] > 0
+    on_cpu = solve_round(dev, device="cpu")
+    for k in on_cpu:
+        assert np.array_equal(on_card[k], on_cpu[k], equal_nan=True), k
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    a = _port_args(_score_inputs(np.random.default_rng(13), 256), device="cuda")
+    with pytest.raises(TypeError):
+        tk.score_nodes(**{**a, "alloc0": a["alloc0"].to(torch.int64)})
+    with pytest.raises(ValueError):
+        tk.score_nodes(**{**a, "node_total": a["node_total"].t().contiguous().t()})
+    with pytest.raises(ValueError):
+        tk.score_nodes(**{**a, "req_fit": a["req_fit"][:2]})
+    key = torch.arange(4096, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        tk.fill_take(key, tk.FILL_TAKE_MAX + 1)
+    with pytest.raises(TypeError):
+        tk.fill_take(key.to(torch.int32), 16)
+    with pytest.raises(ValueError):
+        tk.fill_take(key[::2], 16)

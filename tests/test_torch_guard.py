@@ -1,0 +1,100 @@
+"""The port stands alone: no module of armada_tpu_torch, and not
+chip_smoke.py, imports jax or armada_tpu; and the default device is the
+CUDA card, which raises where there is none."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GUARD = textwrap.dedent(
+    """
+    import importlib, importlib.util, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "armada_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, ROOT)
+    import armada_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        armada_tpu_torch.__path__, "armada_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT + "/chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    # Run the main path once on the CPU so lazy imports load too.
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.solver.validate import validate_round
+
+    from armada_tpu_torch.workload import build_inputs
+
+    inputs = build_inputs(60, 6, n_running=8)
+    dev = pad_device_round(prep_device_round(build_round_snapshot(*inputs)))
+    out = solve_round(dev, device="cpu")
+    assert validate_round(out, dev=dev) is None
+    assert int(out["scheduled_mask"].sum()) > 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
+    assert not loaded, loaded
+    print("GUARD_OK", len(names))
+    """
+)
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _GUARD],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "GUARD_OK" in r.stdout
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from armada_tpu_torch import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    assert device.COST_DTYPE == torch.float64 and device.KEY_DTYPE == torch.int64
+
+
+def test_solve_round_defaults_to_the_card(monkeypatch):
+    """With no device argument the solve asks for CUDA and raises here."""
+    from armada_tpu_torch.solver import kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel.solve_round(_tiny_round())
+
+
+def _tiny_round():
+    from armada_tpu_torch.core.config import SchedulingConfig
+    from armada_tpu_torch.core.types import JobSpec, NodeSpec, QueueSpec
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+
+    snap = build_round_snapshot(
+        SchedulingConfig(), "default",
+        [NodeSpec(id="n0", pool="default", total_resources={"cpu": "4", "memory": "4Gi"})],
+        [QueueSpec("q")], [],
+        [JobSpec(id="j0", queue="q", requests={"cpu": "1", "memory": "1Gi"})],
+    )
+    return pad_device_round(prep_device_round(snap))

@@ -1,0 +1,133 @@
+"""The port's kernel functions against the JAX package's.
+
+- `score_nodes_plain` against the Pallas `_score_kernel` (interpret mode,
+  through `_pallas_score`) and its body `_score_values`: fit0 and caps
+  equal, and the int64 key equal to `combine_hi_lo(hi, lo)`.
+- `fill_take_plain` against `jnp.lexsort` (the contract) with a sentinel
+  tail, duplicate keys and B > N, and against the reference `fill_take`
+  where that one meets the contract. The reference's threshold
+  compaction keeps the first `want` entries by index among keys <= the
+  threshold, so it drops smaller keys when duplicates straddle the
+  threshold, and real keys past index `want` when fewer than `want` keys
+  are real (the sentinel becomes the threshold); the port's top-B
+  selection equals the stable sort in both cases.
+- `pack_plan` agreeing, including the ineligible (None) case.
+- On CPU tensors the wrappers take the plain versions and count no launch.
+The kernels themselves, on the card, are tested in tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from armada_tpu.ops import pallas_kernels as pk
+from armada_tpu_torch.ops import kernels as tk
+from test_torch_cuda import _TAKE_SPECS, _port_args, _score_inputs, _take_cases
+
+
+def _reference_args(a):
+
+    n = a["alloc0"].shape[0]
+    if a["aff_row"] is None:
+        aff_ok = np.ones(n, np.int32)
+    else:
+        aff_ok = ((a["aff_row"][a["gid"] // 32] >> (a["gid"] % 32).astype(np.uint32)) & 1).astype(np.int32)
+    return tuple(
+        jnp.asarray(x)
+        for x in (
+            a["alloc0"], a["node_total"], a["taints"], a["labels"], a["rank"],
+            a["gid"], a["unsched"].astype(np.int32), aff_ok, a["tolerated"],
+            a["selector"], a["req_fit"], a["excl"],
+            np.array([int(a["job_ok"])], np.int32), a["oidx"], a["ores"],
+        )
+    )
+
+
+
+@pytest.mark.parametrize(
+    "n,seed,with_aff,job_ok",
+    [(1024, 0, True, True), (2048, 1, False, True), (1024, 2, True, False)],
+)
+def test_score_nodes_plain_matches_pallas_kernel(n, seed, with_aff, job_ok):
+    a = _score_inputs(np.random.default_rng(seed), n, with_aff=with_aff, job_ok=job_ok)
+    ref = _reference_args(a)
+    fit_v, caps_v, hi_v, lo_v = pk._score_values(*ref, a["bits"], a["batch_window"])
+    fit_k, caps_k, hi_k, lo_k = pk._pallas_score(ref, a["bits"], a["batch_window"])
+    fit, caps, key = tk.score_nodes_plain(**_port_args(a))
+    assert fit.dtype == torch.bool and caps.dtype == torch.int32 and key.dtype == torch.int64
+    for fit_r, caps_r, hi_r, lo_r in ((fit_v, caps_v, hi_v, lo_v), (fit_k, caps_k, hi_k, lo_k)):
+        np.testing.assert_array_equal(fit.numpy(), np.asarray(fit_r).astype(bool))
+        np.testing.assert_array_equal(caps.numpy(), np.asarray(caps_r))
+        np.testing.assert_array_equal(key.numpy(), np.asarray(pk.combine_hi_lo(hi_r, lo_r)))
+    assert fit.numpy().any() or not job_ok
+    assert (caps.numpy() > 0).any()
+
+
+def test_score_nodes_wrapper_takes_plain_version_on_cpu():
+    a = _port_args(_score_inputs(np.random.default_rng(4), 256))
+    tk.reset_launches()
+    got = tk.score_nodes(**a)
+    want = tk.score_nodes_plain(**a)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0}
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_fill_take_plain_matches_reference(case):
+    keys, b = _take_cases()[case]
+    jk = jnp.asarray(keys)
+    ref_take, ref_key = pk.fill_take(jk, b, nbits=63)
+    lex = np.asarray(jnp.lexsort((jk,))[:b])
+    take, taken = tk.fill_take_plain(torch.as_tensor(keys), b)
+    assert take.dtype == torch.int32 and taken.dtype == torch.int64
+    np.testing.assert_array_equal(take.numpy(), lex)
+    np.testing.assert_array_equal(taken.numpy(), keys[lex])
+    if _TAKE_SPECS[case][4]:
+        np.testing.assert_array_equal(take.numpy(), np.asarray(ref_take))
+        np.testing.assert_array_equal(taken.numpy(), np.asarray(ref_key))
+    else:
+        assert not np.array_equal(np.asarray(ref_take), lex)
+    # The wrapper takes the plain version on CPU tensors.
+    wt, wk = tk.fill_take(torch.as_tensor(keys), b)
+    assert torch.equal(wt, take) and torch.equal(wk, taken)
+
+
+def test_fill_sort_path_matches_reference():
+    rng = np.random.default_rng(9)
+    n, b = 300, 32
+    key = rng.integers(0, 2**20, size=n, dtype=np.int64)
+    mask = rng.random(n) < 0.6
+    ref_take, _ = pk.fill_sort_path([jnp.asarray(key)], jnp.asarray(mask), b, "blocked", 40)
+    take, mk = tk.fill_sort_path([torch.as_tensor(key)], torch.as_tensor(mask), b, "cuda", 40)
+    np.testing.assert_array_equal(take.numpy(), np.asarray(ref_take))
+    # Multi-key lists keep the chained stable sort.
+    k2 = rng.integers(0, 5, size=n).astype(np.int32)
+    ref_take, _ = pk.fill_sort_path(
+        [jnp.asarray(k2), jnp.asarray(key)], jnp.asarray(mask), b, "blocked", None
+    )
+    take, _ = tk.fill_sort_path(
+        [torch.as_tensor(k2), torch.as_tensor(key)], torch.as_tensor(mask), b, "cuda", None
+    )
+    np.testing.assert_array_equal(take.numpy(), np.asarray(ref_take))
+
+
+@dataclasses.dataclass
+class _Bits:
+    node_id_rank: np.ndarray
+    order_key_bits: tuple
+
+
+@pytest.mark.parametrize(
+    "n,bits",
+    [(8192, (15, 18)), (65536, (15, 18)), (1024, (31, 25)), (16, (40,)), (64, (20, 20, 20))],
+)
+def test_pack_plan_matches(n, bits):
+    dev = _Bits(np.zeros(n, np.int32), bits)
+    want = pk.pack_plan(dev, 1)
+    assert tk.pack_plan(dev, 1) == want
+    if n == 1024 or n == 16 or len(bits) == 3:
+        assert want is None

@@ -1,0 +1,164 @@
+"""Whole-round parity: the port's solve_round against the JAX package's.
+
+Both solvers consume one padded round: the reference's host prep builds
+it, and `from_reference_round` hands its fields to the port. The port's
+"cuda" path (on CPU tensors: the kernels' plain versions) is held against
+the reference's fused Pallas path (interpret mode), and the port's "lax"
+path against the reference's lax path:
+
+- the decisions (assigned_node, scheduled_priority, scheduled_mask,
+  preempted_mask), num_loops and spot_price are bit-exact;
+- the fair shares are within 4 ULP (fair_share, demand_capped_fair_share)
+  and 16 ULP (uncapped_fair_share): float64 sums taken in another order,
+  the bounds the reference holds its own kernel to;
+- the port's round firewall admits every round.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from armada_tpu.snapshot.round import build_round_snapshot
+from armada_tpu.solver import kernel as ref_kernel
+from armada_tpu.solver.kernel_prep import pad_device_round, prep_device_round
+from armada_tpu_torch.ops.kernels import pack_plan
+from armada_tpu_torch.solver import kernel as port_kernel
+from armada_tpu_torch.solver.kernel_prep import from_reference_round
+from armada_tpu_torch.solver.validate import validate_round
+from torch_scenarios import SCENARIOS
+
+EXACT_KEYS = (
+    "assigned_node", "scheduled_priority", "scheduled_mask", "preempted_mask",
+    "num_loops", "spot_price",
+)
+ULP_BOUNDS = {
+    "fair_share": 4,
+    "demand_capped_fair_share": 4,
+    "uncapped_fair_share": 16,
+}
+
+
+def _ordered(x):
+    i = np.ascontiguousarray(x, dtype=np.float64).view(np.int64)
+    return np.where(i < 0, np.int64(-(2**63)) - i, i)
+
+
+def _ulps(a, b):
+    return np.abs(_ordered(a) - _ordered(b))
+
+
+def _reference_round(name):
+    cfg, nodes, queues, running, queued = SCENARIOS[name]()
+    snap = build_round_snapshot(cfg, "default", nodes, queues, running, queued)
+    return pad_device_round(prep_device_round(snap))
+
+
+def _assert_same(name, got, want):
+    assert set(got) == set(want), name
+    for k in EXACT_KEYS:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, k)
+        assert np.array_equal(g, w, equal_nan=True), f"{name}: {k} diverged"
+    for k, bound in ULP_BOUNDS.items():
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype == np.float64 and g.shape == w.shape, (name, k)
+        assert int(_ulps(g, w).max()) <= bound, f"{name}: {k} beyond {bound} ULP"
+
+
+GATE_AND_GANG = (
+    "gang_atomicity", "gang_uniformity", "gang_uniformity_impossible",
+    "gang_uniformity_unknown_label", "lookback", "rate_limited", "round_fraction",
+)
+
+
+def check_round_matches_reference(name):
+    dev = _reference_round(name)
+    outs = {}
+    for ref_path, port_path in (("pallas", "cuda"), ("lax", "lax")):
+        d = dataclasses.replace(dev, kernel_path=ref_path)
+        want = ref_kernel.solve_round(d)
+        port_dev = from_reference_round(dataclasses.asdict(d))
+        assert port_dev.kernel_path == port_path
+        got = port_kernel.solve_round(port_dev, device="cpu")
+        _assert_same(f"{name}/{port_path}", got, want)
+        assert validate_round(got, dev=port_dev) is None, name
+        outs[port_path] = got
+    # The fused path engaged (the pack plan fits) and agrees with lax.
+    assert pack_plan(dev) is not None
+    for k in outs["lax"]:
+        assert np.array_equal(outs["cuda"][k], outs["lax"][k], equal_nan=True), k
+
+
+@pytest.mark.parametrize(
+    "name", sorted(set(SCENARIOS) - set(GATE_AND_GANG))
+)
+def test_round_matches_reference(name):
+    check_round_matches_reference(name)
+
+
+def test_fill_loops_ran():
+    """The batched fill (the kernels' caller) runs in the random rounds."""
+    dev = from_reference_round(dataclasses.asdict(_reference_round("random_queued")))
+    stats = {}
+    port_kernel.solve_round(dev, device="cpu", stats=stats)
+    assert stats["fill_loops"] > 0 and stats["gang_loops"] > 0
+
+
+def test_readback_rows_trim_is_byte_identical():
+    dev = from_reference_round(dataclasses.asdict(_reference_round("random_running")))
+    full = port_kernel.solve_round(dev, device="cpu")
+    trimmed = port_kernel.solve_round(dev, device="cpu", readback_rows=3)
+    for k in full:
+        assert full[k].dtype == trimmed[k].dtype
+        assert np.array_equal(full[k], trimmed[k], equal_nan=True), k
+
+
+def test_unported_paths_raise():
+    dev = from_reference_round(dataclasses.asdict(_reference_round("rate_limited")))
+    for bad in (
+        dataclasses.replace(dev, fast_fill=True),
+        dataclasses.replace(dev, market_driven=True, batch_window=0),
+        dataclasses.replace(dev, fairness_policy=("proportional",)),
+    ):
+        with pytest.raises(NotImplementedError):
+            port_kernel.solve_round(bad, device="cpu")
+    for kw in ({"budget_s": 1.0}, {"window": 64}, {"profile": True}):
+        with pytest.raises(NotImplementedError):
+            port_kernel.solve_round(dev, device="cpu", **kw)
+
+
+def test_fill_sort_follows_stable_sort_where_reference_top_b_drops_nodes():
+    """A nearly full pool with more nodes than the fill window: 13 nodes of
+    1 cpu, then 3 of 8 cpu, jobs of 2 cpu, batch_fill_window=4. Fewer than
+    4 nodes fit, so the reference's top-B (`fill_take`) takes the first 4
+    node indices, none of which fit: its fused path never fills and runs
+    21 loops where its lax path runs 4 (ROADMAP C). The port's top-B is the
+    stable sort, so both its paths equal the reference's lax path."""
+    from armada_tpu.core.config import SchedulingConfig
+    from armada_tpu.core.types import JobSpec, NodeSpec, QueueSpec
+
+    nodes = [
+        NodeSpec(id=f"n{i:02d}", pool="default",
+                 total_resources={"cpu": "1" if i < 13 else "8", "memory": "32Gi"})
+        for i in range(16)
+    ]
+    queued = [
+        JobSpec(id=f"j{i}", queue="q", requests={"cpu": "2", "memory": "1Gi"},
+                submitted_ts=i)
+        for i in range(10)
+    ]
+    snap = build_round_snapshot(
+        SchedulingConfig(batch_fill_window=4), "default", nodes, [QueueSpec("q")],
+        [], queued,
+    )
+    dev = pad_device_round(prep_device_round(snap))
+    want = ref_kernel.solve_round(dataclasses.replace(dev, kernel_path="lax"))
+    ref_fused = ref_kernel.solve_round(dataclasses.replace(dev, kernel_path="pallas"))
+    assert int(want["num_loops"]) == 4 and int(ref_fused["num_loops"]) == 21
+    for ref_path in ("pallas", "lax"):
+        port_dev = from_reference_round(
+            dataclasses.asdict(dataclasses.replace(dev, kernel_path=ref_path))
+        )
+        got = port_kernel.solve_round(port_dev, device="cpu")
+        _assert_same(f"top-b/{port_dev.kernel_path}", got, want)
