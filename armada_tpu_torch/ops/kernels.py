@@ -9,9 +9,17 @@ Two kernels carry the batched fill loop (once per loop each):
 - `fill_take` (csrc/fill_take.cu): the B smallest packed keys in
   stable-sort order. Replaces the JAX package's lax `fill_take`.
 
+One closes every candidate selection of the node-sharded round on a
+(hosts, chips) mesh (solver/dist_cuda.py):
+
+- `winner_reduce` (csrc/winner_reduce.cu): the lexicographic minimum of
+  the gathered per-host winner tuples. Replaces the JAX package's Pallas
+  `_winner_kernel`.
+
 Each wrapper takes the plain version for CPU tensors (the tests) and, for
 CUDA tensors, launches the kernel or raises; nothing falls back. Each
-counts its kernel launches in `LAUNCHES`.
+counts its kernel launches in `LAUNCHES`, under a lock: the shards of a
+sharded round launch from threads of their own.
 
 Build: each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its
 own shared library with a plain C interface, loaded with ctypes, at first
@@ -28,10 +36,12 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
+import numpy as np
 import torch
 
-from .select import lexsort, masked_keys
+from .select import lex_argmin, lexsort, masked_keys
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -40,21 +50,34 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("score_nodes", "fill_take")
+KERNELS = ("score_nodes", "fill_take", "winner_reduce")
 
 # Kernel launches since the last reset_launches(); only a wrapper's
-# kernel launch counts, never its plain version.
+# kernel launch counts, never its plain version. _LAUNCH_LOCK guards the
+# read-modify-write of a count.
 LAUNCHES = {name: 0 for name in KERNELS}
+_LAUNCH_LOCK = threading.Lock()
 
 BIG_I32 = 2**30
 FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: survivors sorted in shared memory
+WINNER_MAX_ROWS = 1024  # csrc/winner_reduce.cu: one block of at most 1024 threads
 
 _libs: dict = {}
+# Shard threads may reach a kernel's first use together: one builds and
+# loads it, the others wait.
+_BUILD_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to `name`'s launch count; safe from any thread."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] = LAUNCHES[name] + 1
 
 
 # ---------------------------------------------------------------------------
@@ -122,19 +145,26 @@ _SIGNATURES = {
         "armada_fill_take",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
     ),
+    "winner_reduce": (
+        "armada_winner_reduce",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    ),
 }
 
 
 def _fn(name: str):
     fn = _libs.get(name)
     if fn is None:
-        _finish_build(name, _start_build(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = fn
+        with _BUILD_LOCK:
+            fn = _libs.get(name)
+            if fn is None:
+                _finish_build(name, _start_build(name))
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                sym, argtypes = _SIGNATURES[name]
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _libs[name] = fn
     return fn
 
 
@@ -155,7 +185,7 @@ def _launch(name, *args):
     rc = _fn(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def _stream(device):
@@ -339,3 +369,96 @@ def fill_sort_path(keys, mask, B, path, nbits):
         take, _ = fill_take(mk[0], B)
         return take, mk
     return lexsort(mk)[:B], mk
+
+
+# ---------------------------------------------------------------------------
+# Winner reduction (the host stage of a hierarchical candidate selection)
+# ---------------------------------------------------------------------------
+
+_I32_MAX = int(np.iinfo(np.int32).max)
+
+
+def winner_rows(keys, found, gids):
+    """The reduction's input rows, built as the reference builds them
+    (`armada_tpu/ops/pallas_kernels.py:474-490`): int32[P, K + 2] of
+    (notfound, keys..., gid) per host, keys of not-found hosts replaced by
+    the int32 sentinel, then padded to P = the host count rounded up to a
+    power of two with not-found sentinel rows of gid 0.
+
+    keys: K int32[H] tensors; found: bool[H]; gids: int32[H]. Nothing is
+    cast: the reference casts every key to int32 (`:478`), and a key that
+    does not fit must fail here rather than wrap."""
+    for i, k in enumerate(keys):
+        if k.dtype != torch.int32:
+            raise TypeError(f"winner_reduce: key {i} has dtype {k.dtype}, expected torch.int32")
+    if gids.dtype != torch.int32:
+        raise TypeError(f"winner_reduce: gids have dtype {gids.dtype}, expected torch.int32")
+    if found.dtype != torch.bool:
+        raise TypeError(f"winner_reduce: found has dtype {found.dtype}, expected torch.bool")
+    h = int(found.shape[0])
+    p = 1 << max(0, (h - 1).bit_length())
+    nf = torch.where(found, 0, 1).to(torch.int32)
+    cols = [nf] + [torch.where(found, k, _I32_MAX) for k in keys] + [gids]
+    rows = torch.stack(cols, dim=1)
+    if p != h:
+        pad = torch.full((p - h, len(keys) + 2), _I32_MAX, dtype=torch.int32, device=rows.device)
+        pad[:, 0] = 1
+        pad[:, -1] = 0
+        rows = torch.cat([rows, pad])
+    return rows
+
+
+def winner_reduce_plain(rows):
+    """Plain torch version of the winner kernel: the row whose columns
+    0..K (notfound, keys) are lexicographically smallest, the lowest row
+    index on a tie; the gid column (last) is carried, not compared.
+    rows int32[P, K + 2] -> int32[K + 2]."""
+    width = rows.shape[1]
+    alive = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    idx, _ = lex_argmin([rows[:, c] for c in range(width - 1)], alive)
+    return rows.index_select(0, idx.reshape(1).to(torch.int64)).squeeze(0)
+
+
+def winner_reduce_rows(rows):
+    """The winning row of int32[P, K + 2] (see `winner_reduce_plain`),
+    1 <= P <= WINNER_MAX_ROWS, by the kernel on a CUDA tensor."""
+    if rows.device.type == "cpu":
+        return winner_reduce_plain(rows)
+    device = rows.device
+    if device.type != "cuda":
+        raise ValueError(f"winner_reduce: unsupported device {device}")
+    _check("winner_reduce.rows", rows, torch.int32, 2, device)
+    p, width = rows.shape
+    if not 1 <= p <= WINNER_MAX_ROWS:
+        raise ValueError(f"winner_reduce: {p} rows outside [1, {WINNER_MAX_ROWS}]")
+    if width < 2:
+        raise ValueError("winner_reduce: rows need a notfound and a gid column")
+    out = torch.empty(width, dtype=torch.int32, device=device)
+    _launch("winner_reduce", _ptr(rows), p, width, _ptr(out), _stream(device))
+    return out
+
+
+def winner_reduce(keys, found, gids, dist=None):
+    """The host-level winner argmin: (gid int32 0-d, found bool 0-d) of
+    the lexicographically smallest found tuple, exactly `lex_argmin(keys,
+    found)` and a gid pick when the last key is unique among found rows
+    (the node rank). Books the exchange into `dist.stats` as the
+    reference's `_book_winner` does."""
+    rows = winner_rows(keys, found, gids)
+    out = winner_reduce_rows(rows)
+    _book_winner(dist, int(rows.shape[0]), len(keys))
+    return out[-1], out[0] == 0
+
+
+def _book_winner(dist, p, n_keys):
+    """The reference's fabric booking of one winner exchange
+    (`armada_tpu/ops/pallas_kernels.py:503-513`): log2(P) tree steps, each
+    moving one (notfound, keys, gid) int32 tuple; the rows as VMEM bytes."""
+    stats = getattr(dist, "stats", None)
+    if stats is None or not hasattr(stats, "ring_steps"):
+        return
+    steps = max(1, int(np.log2(max(p, 2))))
+    stats.pallas_calls += 1
+    stats.ring_steps += steps
+    stats.ring_bytes += steps * (n_keys + 2) * 4
+    stats.pallas_vmem_bytes += p * (n_keys + 2) * 4

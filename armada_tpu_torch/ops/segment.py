@@ -7,11 +7,20 @@ every `index_add` through its sorting kernel, about a millisecond per
 call at 65k nodes on an H100. Float values are refused: the solver's
 float accounting sums integer-valued device units, so it sums them here
 as int64 and converts, which gives the float sum bit for bit.
+
+The deterministic switch is global to the process, so the shards of a
+sharded round (one thread each) flip it under one lock: a thread never
+reads the switch while another has it turned off, and so always restores
+the true setting.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+_SWITCH_LOCK = threading.Lock()
 
 
 def index_add_int(x, dim, index, values):
@@ -19,13 +28,14 @@ def index_add_int(x, dim, index, values):
     tensor, with the order-free (atomic) kernel."""
     if x.dtype.is_floating_point or x.dtype == torch.bool:
         raise TypeError(f"index_add_int: integer tensors only, not {x.dtype}")
-    enabled = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(False)
-    try:
-        return x.index_add(dim, index.to(torch.int64), values.to(x.dtype))
-    finally:
-        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+    with _SWITCH_LOCK:
+        enabled = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(False)
+        try:
+            return x.index_add(dim, index.to(torch.int64), values.to(x.dtype))
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
 
 
 def segment_sum(values, segments, n):

@@ -79,9 +79,15 @@ class _Round:
     """One padded round on a device: `h` is the host DeviceRound (numpy,
     read for static per-slot and per-job scalars without a device
     round trip), `t` the same fields as tensors on `device`. Bitset words
-    are int32 views of the uint32 host words."""
+    are int32 views of the uint32 host words.
 
-    def __init__(self, dev: DeviceRound, device: torch.device):
+    Under node sharding `dev` is the shard's round: its node-major fields
+    (alloc0 on axis 1; node_total, node_taints, node_labels, node_id_rank,
+    node_unschedulable and node_gid on axis 0) are the shard's slice, and
+    `dist` is bound to the shard (parallel/mesh.py). Every other field is
+    whole."""
+
+    def __init__(self, dev: DeviceRound, device: torch.device, dist=LOCAL):
         self.h = dev
         self.device = device
         tensors = {}
@@ -100,7 +106,7 @@ class _Round:
         self.P = dev.priorities.shape[0]
         self.C = dev.pc_priority.shape[0]
         self.G = max(1, int(dev.num_key_groups))
-        self.dist = LOCAL
+        self.dist = dist
         # Loops by kind (serial gang attempts, single-queue batched fills)
         # and the host wall seconds spent in each, over the whole solve.
         self.stats = {"gang_loops": 0, "fill_loops": 0, "gang_s": 0.0, "fill_s": 0.0}
@@ -111,6 +117,8 @@ class _Round:
         self.kbits = None
         kpath = dev.kernel_path
         if kpath == "cuda":
+            # dev holds the shard's nodes: the rank width covers the
+            # global node count, local count times shards.
             self.kbits = pack_plan(dev, self.dist.n_shards)
             if self.kbits is None:
                 # The reference's static rule: the fused path engages only
@@ -1354,7 +1362,18 @@ def solve_round(
             "(the budget and hot-window driver slice)"
         )
     check_slice(dev)
-    rd = _Round(dev, resolve_device(device))
+    return solve_shard(
+        dev, resolve_device(device), LOCAL, readback_rows=readback_rows, stats=stats
+    )
+
+
+def solve_shard(dev: DeviceRound, device: torch.device, dist, *,
+                readback_rows: int | None = None, stats: dict | None = None):
+    """The round on `device` through `dist`: the whole round with LOCAL,
+    or one shard's round (its slice of the node-major fields) with a dist
+    bound to that shard, on the shard's thread (parallel/mesh.py). Returns
+    the decision dict of numpy arrays; see `solve_round`."""
+    rd = _Round(dev, device, dist)
     out = _materialize_out(solve_impl(rd), dev, readback_rows)
     if stats is not None:
         stats.update(rd.stats)

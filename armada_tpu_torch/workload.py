@@ -6,6 +6,13 @@ queues, queued jobs of 1/2/4/8 cpu drawn from a seed, plus running
 preemptible jobs of 2 cpu in one hog queue so that eviction and fair
 preemption run. It uses the scheduler's default fill configuration
 (batch fill window 512, fast fill off).
+
+With `gang_every=k`, every k-th queued job opens a gang of 2, 4 or 8
+identical members (same queue and request), as the JAX package's
+mixed-fleet scenarios draw them (`parallel/scenarios.py`, `_gang_for`).
+Gangs are placed member by member through the node selection chain, so a
+round with gangs selects nodes where the bench's round only fills and
+returns evicted jobs to their own nodes.
 """
 
 from __future__ import annotations
@@ -13,13 +20,13 @@ from __future__ import annotations
 import numpy as np
 
 from .core.config import PriorityClass, SchedulingConfig
-from .core.types import JobSpec, NodeSpec, QueueSpec, RunningJob
+from .core.types import Gang, JobSpec, NodeSpec, QueueSpec, RunningJob
 
 N_QUEUES = 10
 N_RUNNING = 5000
 
 
-def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES):
+def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES, gang_every=0):
     """(config, pool, nodes, queues, running, queued) for
     `build_round_snapshot`."""
     cfg = SchedulingConfig(
@@ -44,16 +51,23 @@ def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES):
     queues = [QueueSpec(f"queue-{i:02d}", 1.0) for i in range(n_queues)]
     cpus = rng.choice([1, 2, 4, 8], size=n_jobs)
     qidx = rng.integers(0, n_queues, size=n_jobs)
-    queued = [
-        JobSpec(
+    gang, left, lead = None, 0, 0
+    queued = []
+    for i in range(n_jobs):
+        if left == 0 and gang_every and i % gang_every == 0:
+            card = int(rng.choice([2, 4, 8]))
+            gang, left, lead = Gang(id=f"gang-{i:07d}", cardinality=card), card, i
+        g = lead if left else i
+        queued.append(JobSpec(
             id=f"job-{i:07d}",
-            queue=f"queue-{qidx[i]:02d}",
+            queue=f"queue-{qidx[g]:02d}",
             priority_class="low",
-            requests={"cpu": str(int(cpus[i])), "memory": f"{int(cpus[i]) * 2}Gi"},
+            requests={"cpu": str(int(cpus[g])), "memory": f"{int(cpus[g]) * 2}Gi"},
             submitted_ts=float(i),
-        )
-        for i in range(n_jobs)
-    ]
+            gang=gang if left else None,
+        ))
+        if left:
+            left -= 1
     # Running jobs all in one hog queue: over its fair share, so evicted
     # and mostly rescheduled, driving eviction and fair preemption.
     running = [

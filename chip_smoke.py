@@ -22,12 +22,33 @@ version. Phases, each printing one JSON line with its seconds:
    round firewall admits it; both kernels launched.
 5. flagship: 1,000,000 jobs x 50,000 nodes x 10 queues plus the same
    running jobs, on the "cuda" path: admitted, both kernels launched.
+6. sharded: the node-sharded round on a 2x2 (hosts, chips) mesh, four
+   shard threads on cuda:k % card count, through
+   `resolve_solver("2x2", "cuda", devices=...)` (the host stage of every
+   node selection closed by the winner kernel). Each run is held to the
+   single-device "cuda" output of the same round on every array, num_loops
+   and spot_price included, and admitted by the round firewall:
+   - phase 4's round (its serial loops return evicted jobs to their own
+     nodes, so it selects no node: score_nodes and fill_take launched);
+   - gangs_100k: 100,000 queued jobs x 5,000 nodes, every 8th job opening
+     a gang of 2, 4 or 8, no running jobs, solved on one device and then
+     sharded (the gangs select nodes: all three kernels launched);
+   - phase 5's flagship at full width (fill kernels launched).
+   Prints each run's seconds, the shard-to-device map and the
+   CollectiveStats.
 
-Then one {"kernels": [...]} line (launch counts from the flagship run and
-from the 100k round; times at the flagship's shapes: `ms` per call from
-CUDA events, `device_ms` per launch from the profiler), the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}. Any failure exits non-zero before the
-last line. Needs one CUDA card; exits non-zero without one.
+Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
+3, 8, 32, 33, 1024} and K in {1, 3, 5} (duplicate-heavy leading keys, a
+permutation as the last key; some found, none found), rows equal.
+
+Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
+the run where all three kernels must launch; the other sharded runs' and
+the single-device counts beside it; times at
+the flagship's shapes, and winner_reduce's at the round's P = 2, K = 3:
+`ms` per call from CUDA events, `device_ms` per launch from the profiler),
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}. Any failure exits non-zero before the last line. Needs
+one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -218,9 +239,108 @@ def phase_kernels():
     return checks, timing
 
 
-def run_round(n_jobs, n_nodes, paths, warm):
+def winner_case(rng, p, n_keys, found_share):
+    """Gathered winner tuples of P hosts on the card: duplicate-heavy
+    leading keys and a permutation (the node rank) as the last key."""
+    import numpy as np
+    import torch
+
+    keys = [rng.integers(0, 3, size=p).astype(np.int32) for _ in range(n_keys - 1)]
+    keys.append(rng.permutation(p).astype(np.int32))
+    found = rng.random(p) < found_share
+    gids = rng.permutation(p).astype(np.int32)
+
+    def t(a):
+        return torch.as_tensor(a, device="cuda")
+
+    return [t(k) for k in keys], t(found), t(gids)
+
+
+def phase_winner():
+    """winner_reduce against its plain version on the card; timing at the
+    2x2 round's shape (P = 2 hosts, K = 3 keys)."""
+    import numpy as np
+    import torch
+
+    from armada_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(2)
+    checks = []
+    for p in (1, 2, 3, 8, 32, 33, 1024):
+        for n_keys in (1, 3, 5):
+            for share in (0.5, 0.0):
+                rows = K.winner_rows(*winner_case(rng, p, n_keys, share))
+                got = K.winner_reduce_rows(rows)
+                want = K.winner_reduce_plain(rows)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                equal = bool(torch.equal(got, want))
+                checks.append({"name": "winner_reduce", "p": p, "k": n_keys,
+                               "found_share": share, "equal": equal, "max_abs_err": err})
+                if not equal:
+                    raise AssertionError(
+                        f"winner_reduce disagrees with its plain version at P={p}, K={n_keys}, "
+                        f"found share {share}"
+                    )
+    rows = K.winner_rows(*winner_case(rng, 2, 3, 0.5))
+    p, width = rows.shape
+    timing = {
+        "ms": cuda_ms(lambda: K.winner_reduce_rows(rows), 200),
+        "device_ms": device_ms(lambda: K.winner_reduce_rows(rows), 50, "winner_reduce_kernel"),
+        "plain_ms": cuda_ms(lambda: K.winner_reduce_plain(rows), 50),
+        "bound_ms": (p * width * 4 + width * 4) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None,
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "shape": {"P": p, "K": width - 2},
+    }
+    return checks, timing
+
+
+def run_sharded(dev, want, label, readback_rows, required):
+    """One 2x2 sharded solve of `dev` on the "cuda" path, held to the
+    single-device output `want`, with every kernel in `required` launched;
+    returns its record."""
+    import numpy as np
+    import torch
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.parallel.multihost import resolve_solver
+    from armada_tpu_torch.solver.validate import validate_round
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{k % count}" for k in range(4)]
+    run = resolve_solver("2x2", "cuda", devices=devices)
+    d = pad_nodes(dev, run.n_shards)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = run(d, readback_rows=readback_rows)
+    for name in dict.fromkeys(devices):
+        torch.cuda.synchronize(name)
+    solve_s = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    for key in want:
+        x, y = np.asarray(out[key]), np.asarray(want[key])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{label}: sharded and single-device outputs differ on {key}")
+    violation = validate_round(out, dev=d)
+    if violation is not None:
+        raise AssertionError(f"validate_round rejected the sharded {label}: {violation}")
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched in the sharded run")
+    return {
+        "mesh": list(run.mesh_shape), "shards": {i: str(x) for i, x in enumerate(run.devices)},
+        "solve_s": solve_s, "loops": int(out["num_loops"]), "loop_kinds": run.loop_stats,
+        "launches": launches, "equals_single_device": True,
+        "collective_stats": run.last_stats.as_dict(),
+    }
+
+
+def run_round(n_jobs, n_nodes, paths, warm, **inputs_kw):
     """Host prep once, then one solve per kernel path (plus a warm repeat
-    of the first); returns timings, outputs and launch counts."""
+    of the first); returns timings, outputs by path and the padded round."""
     import dataclasses
 
     import numpy as np
@@ -235,17 +355,18 @@ def run_round(n_jobs, n_nodes, paths, warm):
     from armada_tpu_torch.workload import N_RUNNING, build_inputs
 
     t0 = time.time()
-    inputs = build_inputs(n_jobs, n_nodes)
+    inputs = build_inputs(n_jobs, n_nodes, **inputs_kw)
     specs_s = time.time() - t0
     t0 = time.time()
     snap = build_round_snapshot(*inputs)
     dev = pad_device_round(prep_device_round(snap))
     prep_s = time.time() - t0
     res = {
-        "jobs": n_jobs, "nodes": n_nodes, "running": N_RUNNING,
+        "jobs": n_jobs, "nodes": n_nodes, "running": inputs_kw.get("n_running", N_RUNNING),
+        "gang_every": inputs_kw.get("gang_every", 0),
         "padded": {"J": int(dev.job_req.shape[0]), "N": int(dev.node_total.shape[0]),
                    "S": int(dev.slot_members.shape[0])},
-        "specs_s": specs_s, "host_prep_s": prep_s,
+        "specs_s": specs_s, "host_prep_s": prep_s, "readback_rows": int(snap.num_jobs),
     }
     outs = {}
     for i, path in enumerate(paths):
@@ -273,11 +394,13 @@ def run_round(n_jobs, n_nodes, paths, warm):
         if violation is not None:
             raise AssertionError(f"validate_round rejected the {path} round: {violation}")
         if path == "cuda":
-            for name, count in res["cuda_cold_launches"].items():
-                if count <= 0:
+            # The single-device path's kernels; winner_reduce runs only
+            # on a mesh with more than one host (phase 6).
+            for name in ("score_nodes", "fill_take"):
+                if res["cuda_cold_launches"][name] <= 0:
                     raise AssertionError(f"kernel {name} was not launched on the cuda path")
         outs[path] = out
-    return res, outs
+    return res, outs, dev
 
 
 def main() -> int:
@@ -304,10 +427,12 @@ def main() -> int:
 
     t0 = time.time()
     checks, timing = phase_kernels()
-    emit({"phase": "kernels", "checks": checks, "timing": timing, "seconds": time.time() - t0})
+    wchecks, timing["winner_reduce"] = phase_winner()
+    emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
+          "seconds": time.time() - t0})
 
     t0 = time.time()
-    res, outs = run_round(100_000, 5000, ("cuda", "lax"), warm=True)
+    res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"), warm=True)
     a, b = outs["cuda"], outs["lax"]
     for key in a:
         x, y = np.asarray(a[key]), np.asarray(b[key])
@@ -317,13 +442,38 @@ def main() -> int:
     emit({"phase": "round", **res, "seconds": time.time() - t0})
 
     t0 = time.time()
-    flag, _ = run_round(1_000_000, 50_000, ("cuda",), warm=False)
+    flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",), warm=False)
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
 
-    launches = flag["cuda_cold_launches"]
+    t0 = time.time()
+    # Neither bench round selects a node: round_100k's 5,002 serial loops
+    # return evicted jobs to their own nodes (a pinned reschedule reads
+    # one node, it selects none) and the burst limit ends both rounds'
+    # fills. So they require the fill kernels, and the winner kernel runs
+    # in gangs_100k, whose gangs are placed member by member.
+    fill_kernels = ("score_nodes", "fill_take")
+    sharded = {"round_100k": run_sharded(
+        dev_100k, outs["cuda"], "round_100k", res["readback_rows"], fill_kernels
+    )}
+    del outs, dev_100k
+    gangs, gang_outs, dev_gangs = run_round(
+        100_000, 5000, ("cuda",), warm=False, n_running=0, gang_every=8
+    )
+    sharded["gangs_100k_single_device"] = gangs
+    sharded["gangs_100k"] = run_sharded(
+        dev_gangs, gang_outs["cuda"], "gangs_100k", gangs["readback_rows"], K.KERNELS
+    )
+    del gang_outs, dev_gangs
+    sharded["flagship_1m"] = run_sharded(
+        dev_flag, flag_outs["cuda"], "flagship_1m", flag["readback_rows"], fill_kernels
+    )
+    emit({"phase": "sharded", **sharded, "seconds": time.time() - t0})
+
+    launches = sharded["gangs_100k"]["launches"]
     replaces = {
         "score_nodes": "armada_tpu/ops/pallas_kernels.py:225 (_score_kernel; body _score_values :156, pallas_call :344)",
         "fill_take": "armada_tpu/ops/pallas_kernels.py:378 (fill_take)",
+        "winner_reduce": "armada_tpu/ops/pallas_kernels.py:439 (_winner_kernel via winner_reduce :463, pallas_call :494)",
     }
     entries = []
     for name in K.KERNELS:
@@ -334,7 +484,10 @@ def main() -> int:
             "source": f"armada_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": int(launches[name]),
-            "launches_round_100k": int(res["cuda_cold_launches"][name]),
+            "launches_sharded_round_100k": int(sharded["round_100k"]["launches"][name]),
+            "launches_sharded_flagship": int(sharded["flagship_1m"]["launches"][name]),
+            "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
+            "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -87,6 +87,16 @@ def _take_cases():
     return cases
 
 
+def _winner_inputs(rng, p, span, found_share):
+    """Gathered winner tuples of P hosts: two duplicate-heavy leading keys
+    and a permutation as the last key (the node rank), int32 throughout."""
+    keys = [rng.integers(0, span, size=p).astype(np.int32) for _ in range(2)]
+    keys.append(rng.permutation(p).astype(np.int32))
+    found = rng.random(p) < found_share
+    gids = (np.arange(p) + 7).astype(np.int32)
+    return keys, found, gids
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -147,3 +157,50 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tk.fill_take(key.to(torch.int32), 16)
     with pytest.raises(ValueError):
         tk.fill_take(key[::2], 16)
+
+
+@pytest.mark.cuda
+def test_winner_reduce_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(21)
+    for p in (1, 2, 3, 8, 32, 33, 1024):
+        for n_keys in (1, 3, 5):
+            for share in (0.0, 0.5):
+                keys, found, gids = _winner_inputs(rng, p, 3, share)
+                keys = (keys * 2)[:n_keys - 1] + [keys[-1]]
+                rows = tk.winner_rows(
+                    [torch.as_tensor(k, device=cuda_device) for k in keys],
+                    torch.as_tensor(found, device=cuda_device),
+                    torch.as_tensor(gids, device=cuda_device),
+                )
+                got = tk.winner_reduce_rows(rows)
+                want = tk.winner_reduce_plain(rows)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (p, n_keys, share)
+    with pytest.raises(TypeError):
+        tk.winner_reduce_rows(rows.to(torch.int64))
+    with pytest.raises(ValueError):
+        tk.winner_reduce_rows(torch.zeros((1025, 3), dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_sharded_round_on_card_equals_cpu(cuda_device):
+    """A 2x2 sharded round with its shards on the cards (cuda:k % count)
+    solves to the same arrays as on the CPU, through all three kernels."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.parallel.multihost import resolve_solver
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    dev = pad_nodes(pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(600, 24, n_running=60)
+    ))), 4)
+    count = torch.cuda.device_count()
+    on_card = resolve_solver("2x2", "cuda", devices=[f"cuda:{k % count}" for k in range(4)])
+    K.reset_launches()
+    got = on_card(dev)
+    assert all(K.LAUNCHES[name] > 0 for name in K.KERNELS), K.LAUNCHES
+    want = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)(dev)
+    for k in want:
+        assert np.array_equal(got[k], want[k], equal_nan=True), k

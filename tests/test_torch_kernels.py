@@ -12,16 +12,28 @@
   are real (the sentinel becomes the threshold); the port's top-B
   selection equals the stable sort in both cases.
 - `pack_plan` agreeing, including the ineligible (None) case.
-- On CPU tensors the wrappers take the plain versions and count no launch.
+- `winner_reduce_plain` against the Pallas `_winner_kernel` (interpret
+  mode) on the rows the port builds, and the `winner_reduce` wrapper
+  against the reference `winner_reduce`, on the cases of
+  tests/test_pallas_parity.py plus P = 3 and P = 33: duplicate-heavy
+  leading keys with a permutation as the last key, and none found.
+- On CPU tensors the wrappers take the plain versions and count no launch;
+  launch counts survive concurrent increments from shard threads.
 The kernels themselves, on the card, are tested in tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import functools
+import threading
+import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from jax.experimental import pallas as pl
 
 from armada_tpu.ops import pallas_kernels as pk
 from armada_tpu_torch.ops import kernels as tk
@@ -73,7 +85,7 @@ def test_score_nodes_wrapper_takes_plain_version_on_cpu():
     want = tk.score_nodes_plain(**a)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0}
+    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0}
 
 
 @pytest.mark.parametrize("case", range(5))
@@ -131,3 +143,79 @@ def test_pack_plan_matches(n, bits):
     assert tk.pack_plan(dev, 1) == want
     if n == 1024 or n == 16 or len(bits) == 3:
         assert want is None
+
+
+# (P, key span, found share): the reference's cases, then P = 3 and 33.
+_WINNER_SPECS = ((8, 1000, 0.6), (16, 3, 0.6), (5, 2, 0.6), (1, 10, 0.6), (3, 4, 0.6), (33, 3, 0.6), (33, 5, 0.0))
+
+
+def _winner_case(i):
+    from test_torch_cuda import _winner_inputs
+
+    p, span, share = _WINNER_SPECS[i]
+    return _winner_inputs(np.random.default_rng(5 + i), p, span, share)
+
+
+@pytest.mark.parametrize("case", range(len(_WINNER_SPECS)))
+def test_winner_reduce_plain_matches_reference(case):
+    keys, found, gids = _winner_case(case)
+    rows = tk.winner_rows(
+        [torch.as_tensor(k) for k in keys], torch.as_tensor(found), torch.as_tensor(gids)
+    )
+    p = rows.shape[0]
+    assert p == 1 << max(0, (len(found) - 1).bit_length()) and rows.dtype == torch.int32
+    ref_row = pl.pallas_call(
+        functools.partial(pk._winner_kernel, n_rows=p, n_keys=len(keys)),
+        out_shape=jax.ShapeDtypeStruct((len(keys) + 2,), jnp.int32),
+        interpret=True,
+    )(jnp.asarray(rows.numpy()))
+    row = tk.winner_reduce_plain(rows)
+    np.testing.assert_array_equal(row.numpy(), np.asarray(ref_row))
+    # The wrapper (plain version on CPU tensors) against the reference's.
+    want_gid, want_found = pk.winner_reduce(
+        [jnp.asarray(k) for k in keys], jnp.asarray(found), jnp.asarray(gids)
+    )
+    tk.reset_launches()
+    gid, got_found = tk.winner_reduce(
+        [torch.as_tensor(k) for k in keys], torch.as_tensor(found), torch.as_tensor(gids)
+    )
+    assert bool(got_found) == bool(want_found) == bool(found.any())
+    if found.any():
+        assert int(gid) == int(want_gid)
+    assert tk.LAUNCHES["winner_reduce"] == 0
+
+
+def test_winner_reduce_refuses_keys_that_are_not_int32():
+    keys, found, gids = _winner_case(0)
+    found, gids = torch.as_tensor(found), torch.as_tensor(gids)
+    with pytest.raises(TypeError):
+        tk.winner_reduce([torch.as_tensor(k).to(torch.int64) for k in keys], found, gids)
+    with pytest.raises(TypeError):
+        tk.winner_reduce([torch.as_tensor(k) for k in keys], found, gids.to(torch.int64))
+
+
+class _SlowCounts(dict):
+    """A launch table whose reads yield the interpreter, so that an
+    unguarded read-modify-write of a count would interleave."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        time.sleep(0)
+        return value
+
+
+def test_launch_counts_survive_concurrent_shards(monkeypatch):
+    monkeypatch.setattr(tk, "LAUNCHES", _SlowCounts({name: 0 for name in tk.KERNELS}))
+
+    def bump():
+        for _ in range(200):
+            tk.count_launch("winner_reduce")
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert tk.LAUNCHES["winner_reduce"] == 1600
+    tk.reset_launches()
+    assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}

@@ -2,7 +2,12 @@
 
 Inputs are made with numpy from a seed and go through both; the words of
 the bitset tests include ones with the high bit set (negative in the
-port's int32 view of the uint32 words)."""
+port's int32 view of the uint32 words). Also: the integer scatter-add
+leaves torch's deterministic switch as it found it when shard threads
+call it together."""
+
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,3 +122,37 @@ def test_integer_scatter_add_matches_and_restores_mode():
             index_add_int(torch.zeros(7, 3), 0, idx, vals.double())
     finally:
         torch.use_deterministic_algorithms(before)
+
+
+def test_index_add_int_keeps_the_deterministic_switch_across_threads(monkeypatch):
+    """index_add_int turns the process-wide deterministic switch off around
+    its scatter. Threads that flip it unguarded can read another thread's
+    "off" and restore that; the switch must end on, as it started."""
+    from armada_tpu_torch.ops import segment
+
+    real = torch.use_deterministic_algorithms
+
+    def yielding(mode, *, warn_only=False):
+        real(mode, warn_only=warn_only)
+        time.sleep(0)  # let another thread run between the flips
+
+    before = torch.are_deterministic_algorithms_enabled()
+    real(True)
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", yielding)
+    x = torch.zeros(8, dtype=torch.int64)
+    one = torch.ones(1, dtype=torch.int64)
+
+    def work():
+        for _ in range(200):
+            segment.index_add_int(x, 0, one, one)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        real(before)
