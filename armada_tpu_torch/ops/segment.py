@@ -8,10 +8,15 @@ call at 65k nodes on an H100. Float values are refused: the solver's
 float accounting sums integer-valued device units, so it sums them here
 as int64 and converts, which gives the float sum bit for bit.
 
-The deterministic switch is global to the process, so the shards of a
-sharded round (one thread each) flip it under one lock: a thread never
-reads the switch while another has it turned off, and so always restores
-the true setting.
+The deterministic switch is global to the process: while it is off, any
+op that any thread runs then is non-deterministic, and a float
+scatter or sum there would break the bit-exactness the round depends on.
+The shards of a sharded round (one thread each) are kept out of that
+window by the shard group's turns (parallel/comm.py): only the shard that
+holds the turn runs, and it gives the turn up only at a collective, never
+inside `index_add_int`. The lock does less: it keeps a save and its
+restore together, so a thread never reads the switch while another has
+it turned off and so always restores the true setting.
 """
 
 from __future__ import annotations

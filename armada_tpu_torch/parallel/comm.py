@@ -24,6 +24,14 @@ lock to another shard, a thread switch per operation. With turns the
 switches happen only at collectives. The device work a shard launches is
 asynchronous, so turns serialise nothing on the card.
 
+Turns are also what keeps the sharded round bit-exact, not only a speed
+measure: ops/segment.py turns torch's process-wide deterministic switch
+off around its integer scatter-adds, and a float op that another shard
+ran in that window would be non-deterministic. A shard gives up
+its turn only while it waits at a barrier, so no other shard runs while
+the switch is off. A change that lets shards run side by side (a turn
+released around device work, say) must first make that switch safe.
+
 Hand-over between devices and streams is explicit: the producer records
 a CUDA event on its current stream after publishing; the consumer makes
 its stream for the producer's device wait on that event and marks the

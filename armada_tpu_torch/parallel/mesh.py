@@ -26,7 +26,7 @@ from ..device import resolve_device
 from ..solver.dist import CollectiveStats, ShardDist
 from ..solver.kernel import check_slice, solve_shard
 from ..solver.kernel_prep import DeviceRound
-from .comm import DEFAULT_TIMEOUT_S, ShardGroup
+from .comm import ShardGroup
 
 # Node-axis position of every node-major field of a DeviceRound; every
 # other field stays whole on every shard.
@@ -127,7 +127,7 @@ def _same(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
 
 
-def sharded_solve(devices, dist, timeout: float = DEFAULT_TIMEOUT_S):
+def sharded_solve(devices, dist):
     """A round solve with the node axis sharded over `devices` (one per
     shard, row-major over the dist's mesh shape) through the dist seam.
 
@@ -139,7 +139,7 @@ def sharded_solve(devices, dist, timeout: float = DEFAULT_TIMEOUT_S):
     `.last_stats` (a copy of them after the latest solve), `.loop_stats`
     (shard 0's loops by kind and host seconds), `.n_shards`, `.mesh_shape`
     and `.devices`. A shard that raises makes the run raise; a collective
-    that waits more than `timeout` seconds raises TimeoutError."""
+    that waits longer than the shard group's timeout raises TimeoutError."""
     axis_names, shape = dist.mesh_axes()
     devices = tuple(torch.device(d) for d in devices)
     if len(devices) != dist.n_shards:
@@ -153,7 +153,7 @@ def sharded_solve(devices, dist, timeout: float = DEFAULT_TIMEOUT_S):
             resolve_device(d)
         if dist.stats is not None:
             dist.stats.begin_trace()
-        group = ShardGroup(axis_names, shape, devices, timeout)
+        group = ShardGroup(axis_names, shape, devices)
 
         def shard_fn(shard):
             stats = {}
@@ -184,11 +184,11 @@ def sharded_solve(devices, dist, timeout: float = DEFAULT_TIMEOUT_S):
     return run
 
 
-def node_sharded_solve(mesh: DeviceMesh, timeout: float = DEFAULT_TIMEOUT_S):
+def node_sharded_solve(mesh: DeviceMesh):
     """The 1D path: every shard is a standalone block of nodes and every
     collective is over the whole "nodes" axis. See parallel/multihost.py
     for the two-level (hosts, chips) form."""
     if mesh.axis_names != ("nodes",):
         raise ValueError(f'a 1D solve mesh must name its axis "nodes", got {mesh.axis_names}')
     dist = ShardDist("nodes", len(mesh.devices), stats=CollectiveStats())
-    return sharded_solve(mesh.devices, dist, timeout)
+    return sharded_solve(mesh.devices, dist)

@@ -22,7 +22,6 @@ import dataclasses
 import torch
 
 from ..solver.dist import CollectiveStats, HierarchicalDist
-from .comm import DEFAULT_TIMEOUT_S
 from .mesh import DeviceMesh, cuda_devices, make_node_mesh, node_sharded_solve, sharded_solve
 
 HOST_AXIS = "hosts"
@@ -42,8 +41,7 @@ def make_host_mesh(n_hosts: int, n_chips: int, devices=None) -> DeviceMesh:
     return DeviceMesh(tuple(devices[:need]), (n_hosts, n_chips), (HOST_AXIS, CHIP_AXIS))
 
 
-def hierarchical_sharded_solve(mesh: DeviceMesh, kernel_path: str = "cuda",
-                               timeout: float = DEFAULT_TIMEOUT_S):
+def hierarchical_sharded_solve(mesh: DeviceMesh, kernel_path: str = "cuda"):
     """The round solve over a 2D (hosts, chips) mesh through the
     two-level dist seam; same contract as mesh.sharded_solve (pad the
     node axis to a multiple of hosts * chips first). kernel_path "cuda"
@@ -62,7 +60,7 @@ def hierarchical_sharded_solve(mesh: DeviceMesh, kernel_path: str = "cuda",
     else:
         _Dist = HierarchicalDist
     dist = _Dist(HOST_AXIS, CHIP_AXIS, n_hosts, n_chips, stats=CollectiveStats())
-    return sharded_solve(mesh.devices, dist, timeout)
+    return sharded_solve(mesh.devices, dist)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +100,7 @@ def parse_mesh_spec(spec) -> MeshSpec:
     return MeshSpec(1, int(spec))
 
 
-def resolve_solver(spec, kernel_path: str = "cuda", devices=None,
-                   timeout: float = DEFAULT_TIMEOUT_S):
+def resolve_solver(spec, kernel_path: str = "cuda", devices=None):
     """Mesh spec -> solve runner with `.stats`, `.n_shards` and
     `.mesh_shape`, as the JAX package's `resolve_solver`.
 
@@ -117,8 +114,8 @@ def resolve_solver(spec, kernel_path: str = "cuda", devices=None,
     if isinstance(spec, DeviceMesh):
         parse_mesh_spec(spec)  # refuse ranks other than 1 and 2
         if len(spec.shape) == 2:
-            return hierarchical_sharded_solve(spec, kernel_path, timeout)
-        return node_sharded_solve(spec, timeout)
+            return hierarchical_sharded_solve(spec, kernel_path)
+        return node_sharded_solve(spec)
     ms = parse_mesh_spec(spec)
     if devices is None:
         devices = cuda_devices()
@@ -133,7 +130,5 @@ def resolve_solver(spec, kernel_path: str = "cuda", devices=None,
             f"mesh {ms.hosts}x{ms.chips} needs {ms.n_shards} devices, have {len(devices)}"
         )
     if ms.hosts == 1:
-        return node_sharded_solve(make_node_mesh(devices[: ms.n_shards]), timeout)
-    return hierarchical_sharded_solve(
-        make_host_mesh(ms.hosts, ms.chips, devices), kernel_path, timeout
-    )
+        return node_sharded_solve(make_node_mesh(devices[: ms.n_shards]))
+    return hierarchical_sharded_solve(make_host_mesh(ms.hosts, ms.chips, devices), kernel_path)

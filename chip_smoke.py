@@ -14,7 +14,11 @@ version. Phases, each printing one JSON line with its seconds:
 3. kernels: each kernel against its plain version on the card at the main
    path's shapes (score_nodes at N = 8192 and 65536, all outputs
    bit-equal; fill_take at N = 8192 and 65536 with B = 512 and 2048, with
-   duplicate keys, a sentinel tail and a B > N case, index-equal).
+   duplicate keys, a sentinel tail and a B > N case, index-equal). Both
+   also at a 2x2 shard's shapes, local N = 2048 and 16384 (B = 512): node
+   gids offset to the shard's block, the affinity row and the rank bits of
+   the global node count, and fill_take also on the masked key that
+   score_nodes returns there.
 4. round: 100,000 queued jobs x 5,000 nodes x 10 queues plus 5,000 running
    preemptible jobs in one queue, in the default configuration (batch
    fill window 512, fast fill off), on the "cuda" and the "lax" kernel
@@ -31,8 +35,10 @@ version. Phases, each printing one JSON line with its seconds:
    - phase 4's round (its serial loops return evicted jobs to their own
      nodes, so it selects no node: score_nodes and fill_take launched);
    - gangs_100k: 100,000 queued jobs x 5,000 nodes, every 8th job opening
-     a gang of 2, 4 or 8, no running jobs, solved on one device and then
-     sharded (the gangs select nodes: all three kernels launched);
+     a gang of 2, 4 or 8, no running jobs, solved on one device on the
+     "cuda" and "lax" paths (bit-equal, so the sharded run is held to a
+     path that runs none of the kernels) and then sharded (the gangs select
+     nodes: all three kernels launched);
    - phase 5's flagship at full width (fill kernels launched).
    Prints each run's seconds, the shard-to-device map and the
    CollectiveStats.
@@ -115,14 +121,21 @@ def device_ms(fn, iters, kernel):
     return sum(us) / len(us) / 1e3
 
 
-def score_case(n, seed):
+def score_case(n, seed, shards=1):
     """Inputs of score_nodes at N nodes (bench widths: R = 4, one taint and
-    one label word, 8 excluded-node slots, an affinity row), on the card."""
+    one label word, 8 excluded-node slots, an affinity row), on the card.
+    With shards > 1, the inputs of the last of `shards` equal node blocks
+    as a shard of the node-sharded round sees them: node gids offset to
+    the block, ranks a slice of a permutation of the global node count,
+    the affinity row over the global width, the rank bits of the global
+    node count."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     r = 4
+    n_global = n * shards
+    offset = n_global - n
     dev = torch.device("cuda")
 
     def t(a, dtype=None):
@@ -137,18 +150,20 @@ def score_case(n, seed):
         node_total=t(total),
         taints=t(np.where(rng.random((n, 1)) < 0.2, words((n, 1)), 0).astype(np.int32)),
         labels=t(words((n, 1))),
-        rank=t(rng.permutation(n).astype(np.int32)),
-        gid=t(np.arange(n, dtype=np.int32)),
+        rank=t(rng.permutation(n_global)[offset:].astype(np.int32)),
+        gid=t(np.arange(offset, n_global, dtype=np.int32)),
         unsched=t(rng.random(n) < 0.05),
-        aff_row=t(words((n + 31) // 32)),
+        aff_row=t(words((n_global + 31) // 32)),
         tolerated=t(words(1)),
         selector=t((words(1) & 0x0101).astype(np.int32)),
         req_fit=t(np.array([2000, 4096, 0, 0], np.int32)),
-        excl=t(np.array([3, 17, -1, -1, -1, -1, -1, -1], np.int32)),
+        # two excluded nodes in this block, one outside it
+        excl=t(np.array([offset + 3, offset + 17, 5 if offset else -1, -1, -1, -1, -1, -1],
+                        np.int32)),
         order_res_idx=t(np.array([0, 1], np.int32)),
         order_res_resolution=t(np.array([1, 1], np.int32)),
     )
-    rank_bits = max(1, (n - 1).bit_length())
+    rank_bits = max(1, (n_global - 1).bit_length())
     bits = (16, 19, rank_bits)
     if sum(bits) > 62:
         bits = (15, 16, rank_bits)
@@ -185,24 +200,40 @@ def take_case(n, b, seed, kind):
     return torch.as_tensor(key, device="cuda"), b
 
 
+def check_equal(name, got, want, **case):
+    """Hold a kernel's outputs to its plain version's; returns the check's
+    record, or raises when they differ."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
+    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    if not equal:
+        raise AssertionError(f"{name} disagrees with its plain version at {case}")
+    return {"name": name, **case, "equal": equal, "max_abs_err": err}
+
+
 def phase_kernels():
+    """score_nodes and fill_take against their plain versions at the
+    single-device round's node counts (N = 8192, 65536) and at a 2x2 shard's
+    (local N = 2048, 16384 of the same global counts); timing at N = 65536."""
     import torch
 
     from armada_tpu_torch.ops import kernels as K
 
     checks = []
     timing = {}
-    for n in (8192, 65536):
-        a = score_case(n, n)
+    sentinel = torch.iinfo(torch.int64).max
+    for n, shards in ((8192, 1), (65536, 1), (2048, 4), (16384, 4)):
+        a = score_case(n, n + shards, shards)
         got = K.score_nodes(**a)
-        want = K.score_nodes_plain(**a)
-        torch.cuda.synchronize()
-        errs = [int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want)]
-        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-        checks.append({"name": "score_nodes", "n": n, "equal": equal, "max_abs_err": max(errs)})
-        if not equal:
-            raise AssertionError(f"score_nodes disagrees with its plain version at N={n}")
-        if n == 65536:
+        checks.append(check_equal("score_nodes", got, K.score_nodes_plain(**a), n=n, shards=shards))
+        if shards > 1:
+            # The shard's masked fill key, as fill_sort_path hands it over.
+            key = torch.where(got[0], got[2], sentinel)
+            checks.append(check_equal("fill_take", K.fill_take(key, 512), K.fill_take_plain(key, 512),
+                                      n=n, b=512, shards=shards, keys="score_nodes"))
+        if (n, shards) == (65536, 1):
             kb, ops = score_bytes(a)
             timing["score_nodes"] = {
                 "ms": cuda_ms(lambda: K.score_nodes(**a), 200),
@@ -210,21 +241,16 @@ def phase_kernels():
                 "plain_ms": cuda_ms(lambda: K.score_nodes_plain(**a), 20),
                 "bound_ms": max(kb / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
                 "library_ms": None,
-                "max_abs_err": max(errs),
+                "max_abs_err": checks[-1]["max_abs_err"],
                 "shape": {"N": n, "R": 4},
             }
     cases = [(n, b, kind) for n in (8192, 65536) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
+    cases += [(n, 512, kind) for n in (2048, 16384) for kind in ("distinct", "dups", "tail")]
     cases.append((300, 512, "distinct"))  # B > N
     for n, b, kind in cases:
         key, b = take_case(n, b, n + b, kind)
-        take, tkey = K.fill_take(key, b)
-        ptake, pkey = K.fill_take_plain(key, b)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(take, ptake)) and bool(torch.equal(tkey, pkey))
-        err = int((take.to(torch.int64) - ptake.to(torch.int64)).abs().max())
-        checks.append({"name": "fill_take", "n": n, "b": b, "keys": kind, "equal": equal, "max_abs_err": err})
-        if not equal:
-            raise AssertionError(f"fill_take disagrees with its plain version at N={n}, B={b}, {kind}")
+        checks.append(check_equal("fill_take", K.fill_take(key, b), K.fill_take_plain(key, b),
+                                  n=n, b=b, keys=kind))
         if (n, b, kind) == (65536, 512, "distinct"):
             want = min(b, n)
             timing["fill_take"] = {
@@ -233,7 +259,7 @@ def phase_kernels():
                 "plain_ms": cuda_ms(lambda: K.fill_take_plain(key, b), 50),
                 "bound_ms": (n * 8 + want * 12) / HBM_BYTES_PER_S * 1e3,
                 "library_ms": cuda_ms(lambda: torch.sort(key, stable=True), 50),
-                "max_abs_err": err,
+                "max_abs_err": checks[-1]["max_abs_err"],
                 "shape": {"N": n, "B": b},
             }
     return checks, timing
@@ -260,7 +286,6 @@ def phase_winner():
     """winner_reduce against its plain version on the card; timing at the
     2x2 round's shape (P = 2 hosts, K = 3 keys)."""
     import numpy as np
-    import torch
 
     from armada_tpu_torch.ops import kernels as K
 
@@ -270,18 +295,10 @@ def phase_winner():
         for n_keys in (1, 3, 5):
             for share in (0.5, 0.0):
                 rows = K.winner_rows(*winner_case(rng, p, n_keys, share))
-                got = K.winner_reduce_rows(rows)
-                want = K.winner_reduce_plain(rows)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                equal = bool(torch.equal(got, want))
-                checks.append({"name": "winner_reduce", "p": p, "k": n_keys,
-                               "found_share": share, "equal": equal, "max_abs_err": err})
-                if not equal:
-                    raise AssertionError(
-                        f"winner_reduce disagrees with its plain version at P={p}, K={n_keys}, "
-                        f"found share {share}"
-                    )
+                checks.append(check_equal(
+                    "winner_reduce", [K.winner_reduce_rows(rows)], [K.winner_reduce_plain(rows)],
+                    p=p, k=n_keys, found_share=share,
+                ))
     rows = K.winner_rows(*winner_case(rng, 2, 3, 0.5))
     p, width = rows.shape
     timing = {
@@ -296,11 +313,20 @@ def phase_winner():
     return checks, timing
 
 
+def assert_same_outputs(got, want, what):
+    """Every output array of two solves equal in dtype, shape and bits."""
+    import numpy as np
+
+    for key in want:
+        x, y = np.asarray(got[key]), np.asarray(want[key])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what} differ on {key}")
+
+
 def run_sharded(dev, want, label, readback_rows, required):
     """One 2x2 sharded solve of `dev` on the "cuda" path, held to the
     single-device output `want`, with every kernel in `required` launched;
     returns its record."""
-    import numpy as np
     import torch
 
     from armada_tpu_torch.ops import kernels as K
@@ -320,10 +346,7 @@ def run_sharded(dev, want, label, readback_rows, required):
         torch.cuda.synchronize(name)
     solve_s = time.time() - t0
     launches = dict(K.LAUNCHES)
-    for key in want:
-        x, y = np.asarray(out[key]), np.asarray(want[key])
-        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
-            raise AssertionError(f"{label}: sharded and single-device outputs differ on {key}")
+    assert_same_outputs(out, want, f"{label}: the sharded and single-device outputs")
     violation = validate_round(out, dev=d)
     if violation is not None:
         raise AssertionError(f"validate_round rejected the sharded {label}: {violation}")
@@ -404,7 +427,6 @@ def run_round(n_jobs, n_nodes, paths, warm, **inputs_kw):
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -433,11 +455,7 @@ def main() -> int:
 
     t0 = time.time()
     res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"), warm=True)
-    a, b = outs["cuda"], outs["lax"]
-    for key in a:
-        x, y = np.asarray(a[key]), np.asarray(b[key])
-        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
-            raise AssertionError(f"round: cuda and lax paths differ on {key}")
+    assert_same_outputs(outs["cuda"], outs["lax"], "round: the cuda and lax paths")
     res["cuda_equals_lax"] = True
     emit({"phase": "round", **res, "seconds": time.time() - t0})
 
@@ -456,9 +474,14 @@ def main() -> int:
         dev_100k, outs["cuda"], "round_100k", res["readback_rows"], fill_kernels
     )}
     del outs, dev_100k
+    # Both sides of the sharded comparison below run score_nodes and
+    # fill_take, so the single-device round is also held to the "lax" path,
+    # which runs none of the kernels.
     gangs, gang_outs, dev_gangs = run_round(
-        100_000, 5000, ("cuda",), warm=False, n_running=0, gang_every=8
+        100_000, 5000, ("cuda", "lax"), warm=False, n_running=0, gang_every=8
     )
+    assert_same_outputs(gang_outs["cuda"], gang_outs["lax"], "gangs_100k: the cuda and lax paths")
+    gangs["cuda_equals_lax"] = True
     sharded["gangs_100k_single_device"] = gangs
     sharded["gangs_100k"] = run_sharded(
         dev_gangs, gang_outs["cuda"], "gangs_100k", gangs["readback_rows"], K.KERNELS

@@ -17,8 +17,13 @@ from armada_tpu_torch.ops.bitset import as_words
 SENTINEL = np.iinfo(np.int64).max
 
 
-def _score_inputs(rng, n, *, with_aff=True, job_ok=True):
+def _score_inputs(rng, n, *, with_aff=True, job_ok=True, shards=1):
+    """Inputs of score_nodes at n nodes; with shards > 1, those of the last
+    of `shards` node blocks as a shard of the sharded round sees them: gids
+    offset to the block, ranks, affinity row and rank bits global."""
     r = 3
+    n_global = n * shards
+    offset = n_global - n
     total = rng.integers(0, 40, size=(n, r)).astype(np.int32)
     # Negative allocatable (over-allocated nodes) exercises floor division.
     alloc0 = (total - rng.integers(-5, 45, size=(n, r))).astype(np.int32)
@@ -29,18 +34,18 @@ def _score_inputs(rng, n, *, with_aff=True, job_ok=True):
     ).astype(np.uint32)
     taints[::7, 1] |= np.uint32(0x80000000)
     labels = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint64).astype(np.uint32)
-    rank = rng.permutation(n).astype(np.int32)
-    gid = np.arange(n, dtype=np.int32)
+    rank = rng.permutation(n_global)[offset:].astype(np.int32)
+    gid = np.arange(offset, n_global, dtype=np.int32)
     unsched = rng.random(n) < 0.1
-    aff_row = rng.integers(0, 2**32, size=(n + 31) // 32, dtype=np.uint64).astype(np.uint32)
-    aff_row[0] |= np.uint32(0x80000000)
+    aff_row = rng.integers(0, 2**32, size=(n_global + 31) // 32, dtype=np.uint64).astype(np.uint32)
+    aff_row[offset // 32] |= np.uint32(0x80000000)
     tolerated = np.array([0xFFFF0000, 0x8000FFFF], dtype=np.uint32)
     selector = np.array([0x00000101, 0], dtype=np.uint32)
     req_fit = np.array([3, 0, 7], dtype=np.int32)
-    excl = np.array([1, 5, -1, -1], dtype=np.int32)
+    excl = np.array([offset + 1, offset + 5, -1, -1], dtype=np.int32)
     oidx = np.array([0, 2], dtype=np.int32)
     ores = np.array([1, 2], dtype=np.int32)
-    bits = (6, 5, max(1, (n - 1).bit_length()))
+    bits = (6, 5, max(1, (n_global - 1).bit_length()))
     return dict(
         alloc0=alloc0, node_total=total, taints=taints, labels=labels,
         rank=rank, gid=gid, unsched=unsched,
@@ -106,12 +111,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device):
-    a = _port_args(_score_inputs(np.random.default_rng(12), 4096), device="cuda")
-    got = tk.score_nodes(**a)
-    want = tk.score_nodes_plain(**a)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for n, shards in ((4096, 1), (2048, 4)):
+        a = _port_args(_score_inputs(np.random.default_rng(12), n, shards=shards), device="cuda")
+        got = tk.score_nodes(**a)
+        want = tk.score_nodes_plain(**a)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     for keys, b in _take_cases():
         kt = torch.as_tensor(keys, device=cuda_device)
         got = tk.fill_take(kt, b)

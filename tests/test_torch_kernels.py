@@ -65,6 +65,17 @@ def _reference_args(a):
 )
 def test_score_nodes_plain_matches_pallas_kernel(n, seed, with_aff, job_ok):
     a = _score_inputs(np.random.default_rng(seed), n, with_aff=with_aff, job_ok=job_ok)
+    _check_score_against_reference(a)
+
+
+def test_score_nodes_plain_matches_pallas_kernel_on_a_shard():
+    """The last node block of a 4-shard round: gids offset to the block,
+    ranks, affinity row and rank bits of the global node count."""
+    _check_score_against_reference(_score_inputs(np.random.default_rng(3), 1024, shards=4))
+
+
+def _check_score_against_reference(a):
+    job_ok = a["job_ok"]
     ref = _reference_args(a)
     fit_v, caps_v, hi_v, lo_v = pk._score_values(*ref, a["bits"], a["batch_window"])
     fit_k, caps_k, hi_k, lo_k = pk._pallas_score(ref, a["bits"], a["batch_window"])

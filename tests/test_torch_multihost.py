@@ -18,9 +18,9 @@ the port's sharded solves are held to it:
   tests/torch_scenarios.py with eviction and gangs, and 21 nodes padded
   to the mesh by `pad_nodes`.
 
-Also: the shard group's collectives, its failure and timeout behaviour,
-the node split, the pack plan of a shard, CollectiveStats, and the mesh
-spellings and device defaults of `resolve_solver`.
+Also: the shard group's collectives, its turns, its failure and timeout
+behaviour, the node split, the pack plan of a shard, CollectiveStats, and
+the mesh spellings and device defaults of `resolve_solver`.
 """
 
 import dataclasses
@@ -214,6 +214,50 @@ def test_a_stuck_shard_times_out():
         release.set()
 
 
+@pytest.mark.parametrize("turns", [True, False])
+def test_turns_keep_other_shards_out_while_the_switch_is_off(monkeypatch, turns):
+    """index_add_int turns torch's process-wide deterministic switch off;
+    a float op that another shard ran meanwhile would be
+    non-deterministic. The group's turns keep every other shard
+    stopped while one is inside it. With turns disabled another shard
+    does see the switch off, which shows the probe would catch it."""
+    from armada_tpu_torch.ops import segment
+
+    real = torch.use_deterministic_algorithms
+    seen_off, done = threading.Event(), threading.Event()
+
+    def slow_switch(mode, *, warn_only=False):
+        real(mode, warn_only=warn_only)
+        if not mode:
+            seen_off.wait(0.5)  # time for another shard to run, if it can
+
+    def fn(shard):
+        if shard.index == 0:
+            one = torch.ones(1, dtype=torch.int64)
+            segment.index_add_int(torch.zeros(4, dtype=torch.int64), 0, one, one)
+            done.set()
+        else:
+            deadline = time.time() + 2.0
+            while time.time() < deadline and not done.is_set():
+                if not torch.are_deterministic_algorithms_enabled():
+                    seen_off.set()
+                time.sleep(0.001)
+        shard.psum(torch.ones(1), "chips")
+
+    if not turns:
+        monkeypatch.setattr(comm.Shard, "_take_turn", lambda self: None)
+        monkeypatch.setattr(comm.Shard, "_give_turn", lambda self: None)
+    before = torch.are_deterministic_algorithms_enabled()
+    real(True)
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", slow_switch)
+    try:
+        _group_run(fn, shape=(1, 2))
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        real(before)
+    assert seen_off.is_set() is not turns
+
+
 def test_a_failing_shard_makes_the_solve_raise(monkeypatch):
     fill = HierarchicalDist.fill_candidates
 
@@ -223,7 +267,7 @@ def test_a_failing_shard_makes_the_solve_raise(monkeypatch):
         return fill(self, *args, **kwargs)
 
     monkeypatch.setattr(HierarchicalDist, "fill_candidates", failing)
-    run = resolve_solver("2x2", kernel_path="lax", devices=_cpu("2x2"), timeout=30.0)
+    run = resolve_solver("2x2", kernel_path="lax", devices=_cpu("2x2"))
     t0 = time.time()
     with pytest.raises(RuntimeError, match="fill failed on shard 1"):
         run(_port_round("home_away", "lax"))
