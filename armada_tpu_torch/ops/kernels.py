@@ -16,6 +16,13 @@ One closes every candidate selection of the node-sharded round on a
   the gathered per-host winner tuples. Replaces the JAX package's Pallas
   `_winner_kernel`.
 
+One is a collective of a process shard group (parallel/pgroup.py):
+
+- `ring_winner_exchange` (csrc/ring_exchange.cu): the same minimum as an
+  n - 1 step ring over peer memory, one member per process. Replaces the
+  JAX package's Pallas `ring_winner_exchange`; as there, the round does
+  not call it.
+
 Each wrapper takes the plain version for CPU tensors (the tests) and, for
 CUDA tensors, launches the kernel or raises; nothing falls back. Each
 counts its kernel launches in `LAUNCHES`, under a lock: the shards of a
@@ -31,6 +38,7 @@ so an edited source is rebuilt and a stale library is never loaded.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -50,7 +58,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("score_nodes", "fill_take", "winner_reduce")
+KERNELS = ("score_nodes", "fill_take", "winner_reduce", "ring_exchange")
 
 # Kernel launches since the last reset_launches(); only a wrapper's
 # kernel launch counts, never its plain version. _LAUNCH_LOCK guards the
@@ -61,6 +69,8 @@ _LAUNCH_LOCK = threading.Lock()
 BIG_I32 = 2**30
 FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: survivors sorted in shared memory
 WINNER_MAX_ROWS = 1024  # csrc/winner_reduce.cu: one block of at most 1024 threads
+RING_MAX_WIDTH = 32  # csrc/ring_exchange.cu: one warp, a lane per column
+RING_TIMEOUT_S = 5.0  # csrc/ring_exchange.cu: the spin's bound per step
 
 _libs: dict = {}
 # Shard threads may reach a kernel's first use together: one builds and
@@ -137,34 +147,48 @@ def build_all() -> dict:
 
 
 _SIGNATURES = {
-    "score_nodes": (
-        "armada_score_nodes",
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4,
-    ),
-    "fill_take": (
-        "armada_fill_take",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
-    ),
-    "winner_reduce": (
-        "armada_winner_reduce",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
-    ),
+    "score_nodes": {
+        "armada_score_nodes": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4,
+    },
+    "fill_take": {
+        "armada_fill_take": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    },
+    "winner_reduce": {
+        "armada_winner_reduce": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    },
+    "ring_exchange": {
+        "armada_ring_exchange": [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ],
+        "armada_ring_bytes": [ctypes.c_int, ctypes.c_int],
+        "armada_ring_alloc": [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
+        "armada_ring_open": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        "armada_ring_close": [ctypes.c_int, ctypes.c_void_p],
+        "armada_ring_free": [ctypes.c_int, ctypes.c_void_p],
+    },
 }
+_RESTYPES = {"armada_ring_bytes": ctypes.c_longlong}
 
 
-def _fn(name: str):
-    fn = _libs.get(name)
+def _fn(name: str, sym: str | None = None):
+    """The C function `sym` (default: the kernel's launcher, the first
+    entry of its signatures) of kernel library `name`, built and loaded
+    at first use."""
+    sym = sym or next(iter(_SIGNATURES[name]))
+    fn = _libs.get((name, sym))
     if fn is None:
         with _BUILD_LOCK:
-            fn = _libs.get(name)
+            fn = _libs.get((name, sym))
             if fn is None:
-                _finish_build(name, _start_build(name))
-                lib = ctypes.CDLL(str(_lib_path(name)))
-                sym, argtypes = _SIGNATURES[name]
+                lib = _libs.get(name)
+                if lib is None:
+                    _finish_build(name, _start_build(name))
+                    lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
                 fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _libs[name] = fn
+                fn.argtypes = _SIGNATURES[name][sym]
+                fn.restype = _RESTYPES.get(sym, ctypes.c_int)
+                _libs[(name, sym)] = fn
     return fn
 
 
@@ -462,3 +486,143 @@ def _book_winner(dist, p, n_keys):
     stats.ring_steps += steps
     stats.ring_bytes += steps * (n_keys + 2) * 4
     stats.pallas_vmem_bytes += p * (n_keys + 2) * 4
+
+
+# ---------------------------------------------------------------------------
+# Ring winner exchange (a collective of a process shard group)
+# ---------------------------------------------------------------------------
+
+IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
+
+
+def _lex_less(a, b):
+    """Row-wise a < b lexicographically over the columns of [n, c]."""
+    differ = a != b
+    first = differ.to(torch.int8).argmax(dim=1, keepdim=True)
+    return differ.any(dim=1) & (a < b).gather(1, first).squeeze(1)
+
+
+def ring_simulate(rows):
+    """Every member's result of the ring exchange, member i holding row i
+    of int32[n, w]: the reference loop (`armada_tpu/ops/pallas_kernels.py:
+    532-563`) for all members at once. Each of the n - 1 steps hands
+    member i the running best of member i - 1 (mod n), which replaces its
+    own, gid column included, only if strictly less over columns 0..w-2.
+    On ties a member keeps its row: with every row not-found each member
+    ends with its own gid, where `winner_reduce` returns row 0's."""
+    best = rows
+    for _ in range(rows.shape[0] - 1):
+        cand = torch.roll(best, 1, dims=0)
+        less = _lex_less(cand[:, :-1], best[:, :-1])
+        best = torch.where(less[:, None], cand, best)
+    return best
+
+
+def ring_winner_exchange_plain(row, group, axis):
+    """Plain torch version of the ring kernel: the axis's rows gathered
+    through the group, the same n - 1 steps simulated, this member's row."""
+    return ring_simulate(group.all_gather(row, axis))[group.axis_index(axis)]
+
+
+@dataclasses.dataclass
+class RingBuffers:
+    """One member's ring over one axis at one row width: its own buffer
+    (`mine`, exported) and its right neighbour's (`right`, opened), both
+    device pointers, 0 on an axis of one member (that ring takes no step).
+    `epoch` counts the calls; each call's parity picks its slots."""
+
+    device_index: int
+    n: int
+    mine: int = 0
+    right: int = 0
+    epoch: int = 0
+
+
+def _rc(sym, rc):
+    if rc != 0:
+        raise RuntimeError(f"ring_exchange: {sym} failed (cudaError {rc})")
+
+
+def ring_open(group, axis, width) -> RingBuffers:
+    """Allocate this member's ring buffer over `axis` (cudaMalloc in the
+    kernel's library, not torch's allocator: an IPC handle names a whole
+    allocation), gather every member's handle over the axis and open the
+    right neighbour's. Collective over the axis: every member calls it."""
+    n = group.axis_size(axis)
+    index = group.device.index if group.device.index is not None else torch.cuda.current_device()
+    ring = RingBuffers(index, n)
+    if n == 1:
+        return ring
+    nbytes = _fn("ring_exchange", "armada_ring_bytes")(n, width)
+    mine = ctypes.c_void_p()
+    handle = (ctypes.c_uint8 * IPC_HANDLE_BYTES)()
+    _rc("cudaMalloc", _fn("ring_exchange", "armada_ring_alloc")(index, nbytes, ctypes.byref(mine), handle))
+    ring.mine = mine.value
+    try:
+        mine_handle = torch.tensor(list(bytes(handle)), dtype=torch.uint8, device=group.device)
+        handles = group.all_gather(mine_handle, axis).cpu().numpy()
+        right_handle = handles[(group.axis_index(axis) + 1) % n].tobytes()
+        right = ctypes.c_void_p()
+        _rc("cudaIpcOpenMemHandle",
+            _fn("ring_exchange", "armada_ring_open")(index, right_handle, ctypes.byref(right)))
+        ring.right = right.value
+    except BaseException:
+        ring_free(ring)
+        raise
+    return ring
+
+
+def ring_close(ring: RingBuffers) -> None:
+    """Close the right neighbour's buffer; every member of the axis closes
+    before any frees its own (ring_free)."""
+    if ring.right:
+        right, ring.right = ring.right, 0
+        _rc("cudaIpcCloseMemHandle",
+            _fn("ring_exchange", "armada_ring_close")(ring.device_index, ctypes.c_void_p(right)))
+
+
+def ring_free(ring: RingBuffers) -> None:
+    if ring.mine:
+        mine, ring.mine = ring.mine, 0
+        _rc("cudaFree", _fn("ring_exchange", "armada_ring_free")(ring.device_index, ctypes.c_void_p(mine)))
+
+
+def ring_winner_exchange(row, group, axis):
+    """The lexicographic minimum of every member's winner tuple over `axis`
+    of a process shard group (parallel/pgroup.py), as `ring_simulate`
+    defines it: row int32[K + 2] (notfound, keys..., gid) on this member's
+    device; returns this member's result row. A collective: every member
+    of the axis calls it with a row of the same width.
+
+    On a CUDA tensor the kernel runs the ring over peer memory and the
+    call waits for it; a step that waits longer than RING_TIMEOUT_S for
+    its neighbour raises. A CPU tensor takes the plain version. Nothing is
+    booked in CollectiveStats, as the reference books nothing for it."""
+    if not isinstance(row, torch.Tensor):
+        raise TypeError("ring_winner_exchange: expected a tensor")
+    if row.dtype != torch.int32 or row.dim() != 1:
+        raise TypeError(f"ring_winner_exchange: expected int32[K + 2], got {row.dtype} {tuple(row.shape)}")
+    width = int(row.shape[0])
+    if not 2 <= width <= RING_MAX_WIDTH:
+        raise ValueError(f"ring_winner_exchange: width {width} outside [2, {RING_MAX_WIDTH}]")
+    if row.device.type == "cpu":
+        return ring_winner_exchange_plain(row, group, axis)
+    device = row.device
+    if device.type != "cuda":
+        raise ValueError(f"ring_winner_exchange: unsupported device {device}")
+    _check("ring_winner_exchange.row", row, torch.int32, 1, device)
+    ring = group.ring(axis, width)
+    ring.epoch += 1
+    out = torch.empty(width + 1, dtype=torch.int32, device=device)
+    _launch(
+        "ring_exchange", _ptr(row), width, ring.n, ctypes.c_void_p(ring.mine),
+        ctypes.c_void_p(ring.right), ring.epoch, int(RING_TIMEOUT_S * 1e9),
+        _ptr(out), _stream(device),
+    )
+    status = int(out[width])
+    if status:
+        raise RuntimeError(
+            f"ring_winner_exchange: step {status - 1} of {ring.n - 1} over {axis} "
+            f"waited more than {RING_TIMEOUT_S} s for its neighbour"
+        )
+    return out[:width]

@@ -52,15 +52,20 @@ def hierarchical_sharded_solve(mesh: DeviceMesh, kernel_path: str = "cuda"):
             f"expected a ({HOST_AXIS}, {CHIP_AXIS}) mesh, got {mesh.axis_names} "
             f"with shape {mesh.shape}"
         )
+    return sharded_solve(mesh.devices, two_level_dist(*mesh.shape, kernel_path))
+
+
+def two_level_dist(n_hosts: int, n_chips: int, kernel_path: str = "cuda"):
+    """The dist template of a (hosts, chips) grid with fresh
+    CollectiveStats: "cuda" closes each select's host stage with the
+    winner kernel (CudaHierarchicalDist), "lax" keeps HierarchicalDist."""
     if kernel_path not in KERNEL_PATHS:
         raise ValueError(f"kernel_path must be one of {KERNEL_PATHS}, not {kernel_path!r}")
-    n_hosts, n_chips = mesh.shape
     if kernel_path == "cuda":
         from ..solver.dist_cuda import CudaHierarchicalDist as _Dist
     else:
         _Dist = HierarchicalDist
-    dist = _Dist(HOST_AXIS, CHIP_AXIS, n_hosts, n_chips, stats=CollectiveStats())
-    return sharded_solve(mesh.devices, dist)
+    return _Dist(HOST_AXIS, CHIP_AXIS, n_hosts, n_chips, stats=CollectiveStats())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,119 @@
+"""Multi-process parity run: the node-sharded round with one process per
+shard against its single-device solve.
+
+The counterpart of the JAX package's `tools/dcn_dryrun.py`, with the same
+flags plus `--backend` and `--device`. It builds the bench round
+(`workload.build_inputs`: nodes of 32 cpu, 10 queues, every 8th queued
+job opening a gang of 2, 4 or 8, two running preemptible jobs per node in
+one hog queue), pads it to the mesh, solves it on one device in this
+process, launches hosts x chips workers (parallel/launcher.py) on the same
+round, and prints exactly ONE JSON line:
+
+  {"ok": true|false, "timed_out": ..., "hosts": 2, "chips": 4,
+   "backend": "gloo", "devices": [...], "parity": true|false,
+   "mismatch": [...], "single_solve_s": ..., "seconds": ...,
+   "rank_solve_s": [...], "collectives": {...}, "launches": {...}, ...}
+
+Exit code 0 iff ok: every worker exited 0 and rank 0's outputs equal the
+single-device solve on every array. The whole run is bounded by
+--timeout (hard kill of every worker).
+
+  python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --device cpu
+  python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --device cuda --backend gloo
+  python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --backend nccl --ring-calls 100
+
+With --ring-calls the workers then drive the ring kernel over every axis
+(parallel/launcher.py), each call held to its plain version; "ring"
+reports per rank and axis the checks, launches and times.
+
+On the CPU every rank is on the CPU. With --device cuda the ranks go to
+the cards round-robin under gloo (several ranks may share one card), and
+one card per rank under nccl, which raises when there are fewer cards.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--hosts", type=int, default=2)
+    ap.add_argument("--chips", type=int, default=4)
+    ap.add_argument("--nodes", type=int, default=512)
+    ap.add_argument("--jobs", type=int, default=2048)
+    ap.add_argument("--timeout", type=float, default=1500.0,
+                    help="hard kill for the whole worker fleet, seconds")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--ring-calls", type=int, default=0,
+                    help="after the solve, drive the ring kernel this many times per case "
+                         "over every axis in the same workers")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from ..ops import kernels
+    from ..parallel.launcher import launch, save_round
+    from ..parallel.mesh import pad_nodes
+    from ..snapshot.round import build_round_snapshot
+    from ..solver.kernel import solve_round
+    from ..solver.kernel_prep import pad_device_round, prep_device_round
+    from ..workload import build_inputs
+
+    world = args.hosts * args.chips
+    if args.device == "cpu":
+        if args.backend == "nccl":
+            ap.error("--backend nccl needs --device cuda (a card per rank)")
+        devices = ["cpu"] * world
+    else:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("--device cuda: no CUDA card is available")
+        # nccl: a card per rank, and launch raises when there are fewer
+        devices = None if args.backend == "nccl" else [f"cuda:{k % count}" for k in range(world)]
+        kernels.build_all()  # once here, not in every worker
+    inputs = build_inputs(args.jobs, args.nodes, n_running=0, gang_every=8)
+    snap = build_round_snapshot(*inputs)
+    dev = pad_nodes(pad_device_round(prep_device_round(snap)), world)
+    t0 = time.monotonic()
+    single = solve_round(dev, readback_rows=snap.num_jobs, device=args.device)
+    single_s = time.monotonic() - t0
+    with tempfile.TemporaryDirectory(prefix="dcn-dryrun-") as tmp:
+        path = save_round(dev, os.path.join(tmp, "round.npz"))
+        res = launch(path, args.hosts, args.chips, devices=devices, backend=args.backend,
+                     kernel_path="cuda", timeout_s=args.timeout, out_dir=tmp,
+                     readback_rows=snap.num_jobs, ring_calls=args.ring_calls)
+    res.pop("arrays", None)
+    multi = res.pop("outputs", None)
+    mismatch = None if multi is None else sorted(
+        k for k in single
+        if not np.array_equal(np.asarray(multi[k]), np.asarray(single[k]), equal_nan=True)
+    )
+    report = {
+        **res,
+        "ok": bool(res["ok"] and mismatch == []),
+        "parity": mismatch == [],
+        "single_mismatch": mismatch,
+        "n_nodes": args.nodes,
+        "n_jobs": args.jobs,
+        "loops": int(single["num_loops"]),
+        "scheduled": int(np.asarray(single["scheduled_mask"]).sum()),
+        "single_solve_s": single_s,
+        "rank_solve_s": [w["solve_s"] if w else None for w in res["workers"]],
+    }
+    if args.ring_calls:
+        report["ring"] = [w.get("ring") if w else None for w in res["workers"]]
+    print(json.dumps(report))
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,18 +43,37 @@ version. Phases, each printing one JSON line with its seconds:
    Prints each run's seconds, the shard-to-device map and the
    CollectiveStats.
 
+7. multiproc: phase 6's gangs_100k on a 2x2 grid of four worker
+   processes, one per shard, all on the card (cuda:k % card count) over
+   gloo, through `parallel.launcher.launch` on the padded round saved to
+   a temporary .npz: rank 0's outputs bit-equal to the single-device
+   "cuda" solve and admitted by the round firewall, every rank's equal,
+   score_nodes, fill_take and winner_reduce launched (summed over the
+   ranks), CollectiveStats equal to phase 6's in-process 2x2 run. The
+   round does not call the ring kernel (nor does the reference's), so the
+   same workers then drive it over the host and the chip axis (n = 2
+   each), and a second, ring-only launch on a 1x4 grid over its chip axis
+   (n = 4): per axis, 100 calls for each K in {1, 3, 5} and found share
+   0, 1/2 and 1 with fresh seeded rows (not-found rows tie), each call's
+   result equal to the plain version's row on that member; then `ms` per
+   call (CUDA events) and per step, the profiler's device ms, the plain
+   version's ms and that of a gather plus winner_reduce on the same rows.
+   Prints the backend, the rank-to-device map, each rank's solve seconds
+   and each launch's seconds.
+
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 3, 5} (duplicate-heavy leading keys, a
 permutation as the last key; some found, none found), rows equal.
 
 Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
-the run where all three kernels must launch; the other sharded runs' and
-the single-device counts beside it; times at
-the flagship's shapes, and winner_reduce's at the round's P = 2, K = 3:
-`ms` per call from CUDA events, `device_ms` per launch from the profiler),
-the card's name and power limit, and as the last line {"ok": true,
-"device": {...}}. Any failure exits non-zero before the last line. Needs
-one CUDA card; exits non-zero without one.
+the run where the round's three kernels must launch, and for the ring
+kernel from phase 7's ring drive; the other sharded runs' and the
+single-device counts beside them; times at the flagship's shapes,
+winner_reduce's at the round's P = 2, K = 3 and the ring's at n = 4,
+K = 3: `ms` per call from CUDA events, `device_ms` per launch from the
+profiler), the card's name and power limit, and as the last line {"ok":
+true, "device": {...}}. Any failure exits non-zero before the last line.
+Needs one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -63,6 +82,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -70,6 +90,9 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+# The kernels a round launches; the ring kernel is driven in phase 7.
+ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
+RING_CALLS = 100  # per axis, K and found share
 
 
 def emit(obj) -> None:
@@ -84,41 +107,15 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters):
-    """Mean milliseconds per call of fn() on the card (CUDA events)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, iters, kernel):
     """Mean device milliseconds per launch of the CUDA kernel whose name
     contains `kernel`, from torch.profiler over `iters` calls of fn()."""
-    import torch
+    from armada_tpu_torch.timing import device_ms as profiled
 
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
-    ]
-    if len(us) != iters:
-        raise AssertionError(f"profiler saw {len(us)} launches of {kernel}, expected {iters}")
-    return sum(us) / len(us) / 1e3
+    ms = profiled({kernel: fn}, iters, kernel)[kernel]
+    if ms is None:
+        raise AssertionError(f"the profiler did not see {iters} launches of {kernel}")
+    return ms
 
 
 def score_case(n, seed, shards=1):
@@ -220,6 +217,7 @@ def phase_kernels():
     import torch
 
     from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.timing import cuda_ms
 
     checks = []
     timing = {}
@@ -288,6 +286,7 @@ def phase_winner():
     import numpy as np
 
     from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.timing import cuda_ms
 
     rng = np.random.default_rng(2)
     checks = []
@@ -426,6 +425,113 @@ def run_round(n_jobs, n_nodes, paths, warm, **inputs_kw):
     return res, outs, dev
 
 
+def require_launch(res, what):
+    """Raise with every worker's last output when a launch failed."""
+    if not res["ok"]:
+        for rank, tail in enumerate(res.get("tails", [])):
+            print(f"--- {what}: worker {rank} ---\n{tail}", file=sys.stderr)
+        raise AssertionError(
+            f"{what}: launch failed (returncodes {res['returncodes']}, timed out "
+            f"{res['timed_out']}, mismatch {res.get('mismatch')})"
+        )
+
+
+def ring_record(res):
+    """Per axis of a launch's ring drive: n, launches and the worst error
+    summed and maxed over the ranks, each rank's times."""
+    out = {}
+    for axis in res["workers"][0]["ring"]:
+        per_rank = [w["ring"][axis] for w in res["workers"]]
+        if any(r["mismatches"] for r in per_rank):
+            raise AssertionError(f"ring_exchange disagrees with its plain version over {axis}")
+        keys = ("ms", "ms_per_step", "device_ms", "plain_ms", "gather_reduce_ms")
+        out[axis] = {
+            "n": per_rank[0]["n"],
+            "calls": sum(c["calls"] for c in per_rank[0]["cases"]),
+            "launches": sum(r["launches"] for r in per_rank),
+            "max_abs_err": max(r["max_abs_err"] for r in per_rank),
+            **{k: [r[k] for r in per_rank] for k in keys},
+        }
+    return out
+
+
+def phase_multiproc(dev, want, readback_rows, inproc_stats):
+    """gangs_100k on a 2x2 grid of worker processes on the card, held to
+    its single-device solve, then the ring drive; a ring-only 1x4 launch."""
+    import torch
+
+    from armada_tpu_torch.parallel.launcher import launch, save_round
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.solver.validate import validate_round
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{k % count}" for k in range(4)]
+    d = pad_nodes(dev, 4)
+    with tempfile.TemporaryDirectory(prefix="smoke-multiproc-") as tmp:
+        path = save_round(d, os.path.join(tmp, "round.npz"))
+        solve = launch(path, 2, 2, devices=devices, backend="gloo", kernel_path="cuda",
+                       timeout_s=600.0, out_dir=tmp, readback_rows=readback_rows,
+                       ring_calls=RING_CALLS)
+    require_launch(solve, "2x2 gangs_100k")
+    assert_same_outputs(solve["outputs"], want, "multiproc gangs_100k: rank 0 and the single device")
+    violation = validate_round(solve["outputs"], dev=d)
+    if violation is not None:
+        raise AssertionError(f"validate_round rejected the multi-process gangs_100k: {violation}")
+    for name in ROUND_KERNELS:
+        if solve["launches"][name] <= 0:
+            raise AssertionError(f"multiproc gangs_100k: kernel {name} was not launched")
+    if solve["collectives"] != inproc_stats:
+        raise AssertionError(
+            f"multiproc CollectiveStats {solve['collectives']} differ from the in-process "
+            f"run's {inproc_stats}"
+        )
+    ring = launch(None, 1, 4, devices=devices, backend="gloo", timeout_s=300.0,
+                  ring_calls=RING_CALLS)
+    require_launch(ring, "1x4 ring")
+    runs = {"gangs_100k_2x2": solve, "ring_1x4": ring}
+    rec = {
+        name: {
+            "mesh": [r["hosts"], r["chips"]], "backend": r["backend"],
+            "ranks": {w["rank"]: w["device"] for w in r["workers"]},
+            "init_s": [w["init_s"] for w in r["workers"]],
+            "launch_s": r["seconds"], "ring": ring_record(r),
+        }
+        for name, r in runs.items()
+    }
+    g = rec["gangs_100k_2x2"]
+    g["solve_s"] = [w["solve_s"] for w in solve["workers"]]
+    g["loops"] = solve["workers"][0]["loops"]
+    g["loop_kinds"] = solve["workers"][0]["loop_stats"]
+    g["launches"] = solve["launches"]
+    g["equals_single_device"] = True
+    g["collective_stats_equal_in_process"] = True
+    g["collective_stats"] = solve["collectives"]
+    return rec
+
+
+def ring_timing(rec):
+    """The ring kernel's line entries at n = 4, K = 3 (the 1x4 chip axis),
+    means over the members, and its launches over both launches."""
+    chips = rec["ring_1x4"]["ring"]["chips"]
+    mean = lambda xs: sum(xs) / len(xs) if all(x is not None for x in xs) else None  # noqa: E731
+    n, width = chips["n"], 3 + 2
+    launches = sum(a["launches"] for r in rec.values() for a in r["ring"].values())
+    if launches <= 0:
+        raise AssertionError("kernel ring_exchange was not launched in the multi-process runs")
+    return {
+        "ms": mean(chips["ms"]),
+        "ms_per_step": mean(chips["ms_per_step"]),
+        "device_ms": mean(chips["device_ms"]),
+        "plain_ms": mean(chips["plain_ms"]),
+        "gather_reduce_ms": mean(chips["gather_reduce_ms"]),
+        "bound_ms": (n - 1) * width * 4 / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None,
+        "max_abs_err": max(a["max_abs_err"] for r in rec.values() for a in r["ring"].values()),
+        "launches": launches,
+        "shape": {"n": n, "K": width - 2},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -484,19 +590,30 @@ def main() -> int:
     gangs["cuda_equals_lax"] = True
     sharded["gangs_100k_single_device"] = gangs
     sharded["gangs_100k"] = run_sharded(
-        dev_gangs, gang_outs["cuda"], "gangs_100k", gangs["readback_rows"], K.KERNELS
+        dev_gangs, gang_outs["cuda"], "gangs_100k", gangs["readback_rows"], ROUND_KERNELS
     )
-    del gang_outs, dev_gangs
     sharded["flagship_1m"] = run_sharded(
         dev_flag, flag_outs["cuda"], "flagship_1m", flag["readback_rows"], fill_kernels
     )
     emit({"phase": "sharded", **sharded, "seconds": time.time() - t0})
 
-    launches = sharded["gangs_100k"]["launches"]
+    t0 = time.time()
+    multiproc = phase_multiproc(
+        dev_gangs, gang_outs["cuda"], gangs["readback_rows"],
+        sharded["gangs_100k"]["collective_stats"],
+    )
+    del gang_outs, dev_gangs
+    timing["ring_exchange"] = ring_timing(multiproc)
+    emit({"phase": "multiproc", **multiproc, "seconds": time.time() - t0})
+
+    launches = dict(sharded["gangs_100k"]["launches"])
+    launches["ring_exchange"] = timing["ring_exchange"]["launches"]
+    mp_launches = multiproc["gangs_100k_2x2"]["launches"]
     replaces = {
         "score_nodes": "armada_tpu/ops/pallas_kernels.py:225 (_score_kernel; body _score_values :156, pallas_call :344)",
         "fill_take": "armada_tpu/ops/pallas_kernels.py:378 (fill_take)",
         "winner_reduce": "armada_tpu/ops/pallas_kernels.py:439 (_winner_kernel via winner_reduce :463, pallas_call :494)",
+        "ring_exchange": "armada_tpu/ops/pallas_kernels.py:521 (ring_winner_exchange, loop :532-563, pallas_call :566)",
     }
     entries = []
     for name in K.KERNELS:
@@ -511,6 +628,7 @@ def main() -> int:
             "launches_sharded_flagship": int(sharded["flagship_1m"]["launches"][name]),
             "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
             "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
+            "launches_multiproc_gangs_100k": int(mp_launches.get(name, 0)),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],
@@ -521,6 +639,8 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": tm["library_ms"],
             "shape": tm["shape"],
+            **({"ms_per_step": tm["ms_per_step"], "gather_reduce_ms": tm["gather_reduce_ms"]}
+               if name == "ring_exchange" else {}),
         })
     emit({"kernels": entries})
     print(nvidia_smi(), flush=True)

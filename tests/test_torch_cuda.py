@@ -15,6 +15,8 @@ from armada_tpu_torch.ops import kernels as tk
 from armada_tpu_torch.ops.bitset import as_words
 
 SENTINEL = np.iinfo(np.int64).max
+# The kernels a sharded round launches; the ring kernel is driven apart.
+ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
 
 
 def _score_inputs(rng, n, *, with_aff=True, job_ok=True, shards=1):
@@ -206,7 +208,54 @@ def test_sharded_round_on_card_equals_cpu(cuda_device):
     on_card = resolve_solver("2x2", "cuda", devices=[f"cuda:{k % count}" for k in range(4)])
     K.reset_launches()
     got = on_card(dev)
-    assert all(K.LAUNCHES[name] > 0 for name in K.KERNELS), K.LAUNCHES
+    assert all(K.LAUNCHES[name] > 0 for name in ROUND_KERNELS), K.LAUNCHES
     want = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)(dev)
     for k in want:
         assert np.array_equal(got[k], want[k], equal_nan=True), k
+
+
+def _card_devices(n):
+    count = torch.cuda.device_count()
+    return [f"cuda:{k % count}" for k in range(n)]
+
+
+@pytest.mark.cuda
+def test_ring_exchange_matches_plain_on_card(cuda_device, tmp_path):
+    """The ring kernel in four gloo processes on the cards (several may
+    share one): every call equals the plain version's row, over a 4-member
+    chip axis and a 1-member host axis."""
+    from armada_tpu_torch.parallel.launcher import launch
+
+    tk.build_all()
+    res = launch(None, 1, 4, devices=_card_devices(4), backend="gloo", timeout_s=300.0,
+                 out_dir=tmp_path, ring_calls=5)
+    assert res["ok"], res.get("tails")
+    for report in res["workers"]:
+        assert report["ring"]["chips"]["mismatches"] == 0
+        assert report["ring"]["chips"]["launches"] > 0
+
+
+@pytest.mark.cuda
+def test_multiprocess_round_on_card_equals_cpu(cuda_device, tmp_path):
+    """A 2x2 round in four processes on the cards solves to the same arrays
+    as the in-process group on the CPU, through the round's kernels."""
+    from armada_tpu_torch.parallel.launcher import launch, save_round
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.parallel.multihost import resolve_solver
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    tk.build_all()
+    dev = pad_nodes(pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(600, 24, n_running=60, gang_every=8)
+    ))), 4)
+    res = launch(save_round(dev, tmp_path / "round.npz"), 2, 2, devices=_card_devices(4),
+                 backend="gloo", kernel_path="cuda", timeout_s=300.0, out_dir=tmp_path)
+    assert res["ok"], res.get("tails") or res.get("mismatch")
+    assert all(res["launches"][name] > 0 for name in ROUND_KERNELS), res["launches"]
+    inproc = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)
+    want = inproc(dev)
+    for k in want:
+        assert np.array_equal(res["outputs"][k], want[k], equal_nan=True), k
+    assert res["collectives"] == inproc.last_stats.as_dict()

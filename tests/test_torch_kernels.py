@@ -17,6 +17,14 @@
   against the reference `winner_reduce`, on the cases of
   tests/test_pallas_parity.py plus P = 3 and P = 33: duplicate-heavy
   leading keys with a permutation as the last key, and none found.
+- `ring_winner_exchange_plain` against a numpy transcription of the
+  reference ring loop (`pallas_kernels.py:532-563`) for every member, at
+  n in {1, 2, 3, 4, 8}, K in {1, 3, 6} and found shares 0, 1/2 and 1,
+  all-not-found rows included (each member keeps its own gid), and
+  against the reference `winner_reduce` (interpret mode) wherever the
+  minimum is unique. The reference ring has no interpret mode (it uses
+  `make_async_remote_copy`), so it cannot run here. The ring over two
+  gloo processes (plain path) is held to the same transcription.
 - On CPU tensors the wrappers take the plain versions and count no launch;
   launch counts survive concurrent increments from shard threads.
 The kernels themselves, on the card, are tested in tests/test_torch_cuda.py.
@@ -96,7 +104,7 @@ def test_score_nodes_wrapper_takes_plain_version_on_cpu():
     want = tk.score_nodes_plain(**a)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0}
+    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0, "ring_exchange": 0}
 
 
 @pytest.mark.parametrize("case", range(5))
@@ -230,3 +238,108 @@ def test_launch_counts_survive_concurrent_shards(monkeypatch):
     assert tk.LAUNCHES["winner_reduce"] == 1600
     tk.reset_launches()
     assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}
+
+
+def _ring_reference(rows):
+    """Numpy transcription of the reference ring (`armada_tpu/ops/
+    pallas_kernels.py:532-563`), member by member: each step every member
+    copies its comm buffer into its right neighbour's, then takes the
+    arrival when strictly less over columns 0..w-2 (the gid column is not
+    compared) and puts its running best back into its comm buffer."""
+    n, w = rows.shape
+    best = [rows[i].copy() for i in range(n)]
+    comm = [rows[i].copy() for i in range(n)]
+    for _ in range(n - 1):
+        comm = [comm[(i - 1) % n].copy() for i in range(n)]
+        for i in range(n):
+            cand, b_less = comm[i], False
+            for c in range(w - 2, -1, -1):
+                b_less = cand[c] < best[i][c] or (cand[c] == best[i][c] and b_less)
+            if b_less:
+                best[i] = cand.copy()
+            comm[i] = best[i].copy()
+    return np.stack(best)
+
+
+class _Gathered:
+    """The axis as one member sees it: every member's row is known."""
+
+    def __init__(self, rows, index):
+        self.rows, self.index = torch.as_tensor(rows), index
+
+    def all_gather(self, x, axis):
+        assert torch.equal(x, self.rows[self.index])
+        return self.rows
+
+    def axis_index(self, axis):
+        return self.index
+
+
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("n_keys", [1, 3, 6])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_ring_plain_matches_reference_loop(n, n_keys, share):
+    from armada_tpu_torch.parallel.launcher import ring_rows
+
+    seed = (n, n_keys, int(share * 2))
+    rows = ring_rows(seed, n, n_keys, share)
+    # Ties among found rows too: every column drawn from two values.
+    tied = np.random.default_rng(seed).integers(0, 2, size=rows.shape).astype(np.int32)
+    tk.reset_launches()
+    for m in (rows, tied):
+        want = _ring_reference(m)
+        for i in range(n):
+            got = tk.ring_winner_exchange_plain(torch.as_tensor(m[i]), _Gathered(m, i), "x")
+            np.testing.assert_array_equal(got.numpy(), want[i])
+            wrapped = tk.ring_winner_exchange(torch.as_tensor(m[i]), _Gathered(m, i), "x")
+            assert torch.equal(wrapped, got)
+    assert tk.LAUNCHES["ring_exchange"] == 0
+    found = rows[:, 0] == 0
+    result = _ring_reference(rows)
+    if not found.any():
+        # Every row ties: each member ends with its own gid.
+        np.testing.assert_array_equal(result, rows)
+        return
+    # A unique minimum: every member holds the reference winner_reduce's.
+    want_gid, want_found = pk.winner_reduce(
+        [jnp.asarray(rows[:, 1 + k]) for k in range(n_keys)], jnp.asarray(found),
+        jnp.asarray(rows[:, -1]),
+    )
+    assert bool(want_found)
+    assert (result[:, 0] == 0).all() and (result[:, -1] == int(want_gid)).all()
+
+
+def test_ring_wrapper_refuses_what_the_kernel_does_not_take():
+    rows = np.zeros((2, 5), np.int32)
+    with pytest.raises(TypeError):
+        tk.ring_winner_exchange(torch.zeros(5, dtype=torch.int64), _Gathered(rows, 0), "x")
+    with pytest.raises(TypeError):
+        tk.ring_winner_exchange(torch.zeros((1, 5), dtype=torch.int32), _Gathered(rows, 0), "x")
+    for width in (1, tk.RING_MAX_WIDTH + 1):
+        m = np.zeros((2, width), np.int32)
+        with pytest.raises(ValueError):
+            tk.ring_winner_exchange(torch.zeros(width, dtype=torch.int32), _Gathered(m, 0), "x")
+
+
+def test_ring_over_two_gloo_processes(tmp_path):
+    """The process group's ring on the CPU (the plain path through the
+    group's all_gather) on a 1x2 grid: every call of every case, on both
+    members, equals the transcription of the reference loop."""
+    from armada_tpu_torch.parallel.launcher import RING_KEYS, RING_SHARES, launch
+
+    res = launch(None, 1, 2, devices=["cpu", "cpu"], backend="gloo", timeout_s=120.0,
+                 out_dir=tmp_path, ring_calls=3)
+    assert res["ok"], res.get("tails")
+    for rank, arrays in enumerate(res["arrays"]):
+        report = res["workers"][rank]["ring"]
+        assert report["chips"]["n"] == 2 and report["hosts"]["n"] == 1
+        for axis, member in (("chips", rank), ("hosts", 0)):
+            assert report[axis]["mismatches"] == 0 and report[axis]["launches"] == 0
+            for k in RING_KEYS:
+                for share in RING_SHARES:
+                    tag = f"ring:{axis}:{k}:{share}"
+                    rows, got = arrays[f"{tag}:rows"], arrays[f"{tag}:got"]
+                    assert rows.shape == (3, report[axis]["n"], k + 2)
+                    for call in range(3):
+                        want = _ring_reference(rows[call])[member]
+                        np.testing.assert_array_equal(got[call], want)
