@@ -5,9 +5,13 @@ Two kernels carry the batched fill loop (once per loop each):
 
 - `score_nodes` (csrc/score_nodes.cu): one job's fit mask, per-node
   placement caps and packed best-fit key over every node. Replaces the
-  JAX package's Pallas `_score_kernel`.
+  JAX package's Pallas `_score_kernel`. The fill loop calls it through a
+  per-round `ScorePlan` (`plan.score(alloc0, j)`), which checks the
+  round's tables once and lets the kernel read job j's rows itself.
 - `fill_take` (csrc/fill_take.cu): the B smallest packed keys in
-  stable-sort order. Replaces the JAX package's lax `fill_take`.
+  stable-sort order, a radix select over a thread block cluster
+  (`fill_take_config` picks its shape; `fill_take_cluster_simulate` is
+  its algorithm on the CPU). Replaces the JAX package's lax `fill_take`.
 
 One closes every candidate selection of the node-sharded round on a
 (hosts, chips) mesh (solver/dist_cuda.py):
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -68,6 +73,10 @@ _LAUNCH_LOCK = threading.Lock()
 
 BIG_I32 = 2**30
 FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: survivors sorted in shared memory
+FILL_TAKE_MAX_KEYS = 2**31 - 2**11  # index arithmetic stays in int32
+FILL_TAKE_CTA_KEYS = 8192  # keys a CTA of the cluster aims at
+FILL_TAKE_MAX_CLUSTER = 8  # the portable cluster size
+FILL_TAKE_RESIDENT_KEYS = 16384  # csrc/fill_take.cu kResidentKeys: most keys a CTA holds
 WINNER_MAX_ROWS = 1024  # csrc/winner_reduce.cu: one block of at most 1024 threads
 RING_MAX_WIDTH = 32  # csrc/ring_exchange.cu: one warp, a lane per column
 RING_TIMEOUT_S = 5.0  # csrc/ring_exchange.cu: the spin's bound per step
@@ -146,12 +155,31 @@ def build_all() -> dict:
     return {name: str(_lib_path(name)) for name in KERNELS}
 
 
+# csrc/score_nodes.cu struct ScorePlan: the same fields in the same order
+# (tests/test_torch_kernels.py parses the source and holds them together).
+_PLAN_POINTERS = (
+    "node_total", "taints", "labels", "rank", "gid", "unsched", "tolerated",
+    "selector", "req_fit", "excl", "aff_group", "possible", "affinity", "oidx",
+    "ores", "bits",
+)
+_PLAN_INTS = (
+    "n", "r", "wt", "wl", "k_excl", "n_order", "n_aff", "aff_words", "batch_window",
+)
+
+
+class _ScorePlanC(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in _PLAN_POINTERS] + [
+        (f, ctypes.c_int) for f in _PLAN_INTS
+    ]
+
+
 _SIGNATURES = {
     "score_nodes": {
-        "armada_score_nodes": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4,
+        "armada_score_plan": [_ScorePlanC, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
     },
     "fill_take": {
-        "armada_fill_take": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+        "armada_fill_take": [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
+        "armada_fill_take_prepare": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
     },
     "winner_reduce": {
         "armada_winner_reduce": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
@@ -213,11 +241,14 @@ def _launch(name, *args):
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The device's current CUDA stream as a pointer, read without building
+    the Stream object that `torch.cuda.current_stream` returns, which the
+    fill loop would otherwise build twice per loop."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
+    return t.data_ptr() if t is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +308,136 @@ def score_nodes_plain(
     return fit0, caps, key
 
 
+class ScorePlan:
+    """The round's node and job tables for `score_nodes`, checked once, so
+    that the fill loop scores job j with `plan.score(alloc0, j)`.
+
+    Node tables: node_total int32[N, R], taints/labels int32[N, W] (uint32
+    bit patterns), rank/gid int32[N], unsched bool[N]. Job tables, one row
+    per job: tolerated/selector int32[J, W], req_fit int32[J, R], excl
+    int32[J, K], aff_group int32[J] (-1: no group), possible bool[J];
+    affinity int32[A, ceil(N_global / 32)] (None: no job has a group).
+    Order keys: order_res_idx and order_res_resolution int32[Ko], bits
+    int32[Ko + 1] (the pack plan). On the CPU, `score` indexes job j's rows
+    and takes the plain version; on a card, the tables are checked here and
+    their pointers go into one C struct that every launch passes by value."""
+
+    def __init__(
+        self, node_total, taints, labels, rank, gid, unsched, tolerated,
+        selector, req_fit, excl, aff_group, possible, affinity,
+        order_res_idx, order_res_resolution, bits, batch_window,
+    ):
+        self.node_total, self.taints, self.labels = node_total, taints, labels
+        self.rank, self.gid, self.unsched = rank, gid, unsched
+        self.tolerated, self.selector, self.req_fit = tolerated, selector, req_fit
+        self.excl, self.aff_group, self.possible = excl, aff_group, possible
+        self.affinity = affinity
+        self.order_res_idx, self.order_res_resolution = order_res_idx, order_res_resolution
+        self.bits, self.batch_window = bits, int(batch_window)
+        self.device = node_total.device
+        self.n, self.r = node_total.shape
+        self.jobs = tolerated.shape[0]
+        self.c_plan = None
+        if self.device.type == "cuda":
+            self.c_plan = self.struct()
+        elif self.device.type != "cpu":
+            raise ValueError(f"score_nodes: unsupported device {self.device}")
+
+    def struct(self) -> _ScorePlanC:
+        """Check every table (device, dtype, rank, contiguity, shapes) and
+        return the C struct of their pointers and widths."""
+        i32 = torch.int32
+        tables = {
+            "node_total": (self.node_total, i32, 2), "taints": (self.taints, i32, 2),
+            "labels": (self.labels, i32, 2), "rank": (self.rank, i32, 1),
+            "gid": (self.gid, i32, 1), "unsched": (self.unsched, torch.bool, 1),
+            "tolerated": (self.tolerated, i32, 2), "selector": (self.selector, i32, 2),
+            "req_fit": (self.req_fit, i32, 2), "excl": (self.excl, i32, 2),
+            "aff_group": (self.aff_group, i32, 1), "possible": (self.possible, torch.bool, 1),
+            "affinity": (self.affinity, i32, 2), "oidx": (self.order_res_idx, i32, 1),
+            "ores": (self.order_res_resolution, i32, 1), "bits": (self.bits, i32, 1),
+        }
+        for name, (t, dtype, ndim) in tables.items():
+            if t is not None or name != "affinity":
+                _check(f"score_nodes.{name}", t, dtype, ndim, self.device)
+        n, r, jobs = self.n, self.r, self.jobs
+        wt, wl = self.taints.shape[1], self.labels.shape[1]
+        n_order = self.order_res_idx.shape[0]
+        n_aff, aff_words = (0, 0) if self.affinity is None else self.affinity.shape
+        if (
+            self.taints.shape[0] != n or self.labels.shape[0] != n
+            or self.rank.shape[0] != n or self.gid.shape[0] != n
+            or self.unsched.shape[0] != n or self.tolerated.shape != (jobs, wt)
+            or self.selector.shape != (jobs, wl) or self.req_fit.shape != (jobs, r)
+            or self.excl.shape[0] != jobs or self.aff_group.shape[0] != jobs
+            or self.possible.shape[0] != jobs
+            or self.order_res_resolution.shape[0] != n_order
+            or self.bits.shape[0] != n_order + 1
+        ):
+            raise ValueError("score_nodes: inconsistent shapes")
+        if self.affinity is not None and (n_aff == 0 or aff_words * 32 < n):
+            raise ValueError("score_nodes: affinity rows have fewer words than nodes")
+        return _ScorePlanC(
+            **{name: None if t is None else t.data_ptr() for name, (t, _, _) in tables.items()},
+            n=n, r=r, wt=wt, wl=wl, k_excl=self.excl.shape[1], n_order=n_order,
+            n_aff=n_aff, aff_words=aff_words, batch_window=self.batch_window,
+        )
+
+    @classmethod
+    def one_job(
+        cls, node_total, taints, labels, rank, gid, unsched, aff_row, tolerated,
+        selector, req_fit, excl, order_res_idx, order_res_resolution, bits,
+        batch_window, job_ok,
+    ):
+        """A plan of a single job (index 0) from its vectors, as
+        `score_nodes` takes them."""
+        device = node_total.device
+        group = torch.tensor([-1 if aff_row is None else 0], dtype=torch.int32, device=device)
+        possible = torch.tensor([bool(job_ok)], dtype=torch.bool, device=device)
+
+        def row(t):
+            return t[None] if isinstance(t, torch.Tensor) else t
+
+        return cls(
+            node_total, taints, labels, rank, gid, unsched, row(tolerated), row(selector),
+            row(req_fit), row(excl), group, possible, row(aff_row), order_res_idx,
+            order_res_resolution, bits, batch_window,
+        )
+
+    def score(self, alloc0, j: int):
+        """Job j against every node at capacity alloc0 int32[N, R]:
+        (fit0 bool[N], caps int32[N], key int64[N])."""
+        if self.c_plan is None:
+            a = int(self.aff_group[j])
+            aff_row = self.affinity[min(a, self.affinity.shape[0] - 1)] if a >= 0 else None
+            return score_nodes_plain(
+                alloc0, self.node_total, self.taints, self.labels, self.rank,
+                self.gid, self.unsched, aff_row, self.tolerated[j], self.selector[j],
+                self.req_fit[j], self.excl[j], self.order_res_idx,
+                self.order_res_resolution, self.bits, self.batch_window,
+                bool(self.possible[j]),
+            )
+        if not 0 <= j < self.jobs:
+            raise IndexError(f"score_nodes: job {j} outside [0, {self.jobs})")
+        if not (
+            isinstance(alloc0, torch.Tensor) and alloc0.device == self.device
+            and alloc0.dtype == torch.int32 and alloc0.is_contiguous()
+            and alloc0.shape == (self.n, self.r)
+        ):
+            _check("score_nodes.alloc0", alloc0, torch.int32, 2, self.device)
+            raise ValueError("score_nodes: alloc0 does not match the plan's nodes")
+        # One allocation per output: on the card's host, views of a shared
+        # buffer cost more than the allocations they would save.
+        key = torch.empty(self.n, dtype=torch.int64, device=self.device)
+        caps = torch.empty(self.n, dtype=torch.int32, device=self.device)
+        fit0 = torch.empty(self.n, dtype=torch.bool, device=self.device)
+        _launch(
+            "score_nodes", self.c_plan, _ptr(alloc0), j, _ptr(key), _ptr(caps),
+            _ptr(fit0), _stream(self.device),
+        )
+        return fit0, caps, key
+
+
 def score_nodes(
     alloc0, node_total, taints, labels, rank, gid, unsched, aff_row,
     tolerated, selector, req_fit, excl, order_res_idx, order_res_resolution,
@@ -288,56 +449,21 @@ def score_nodes(
     unsched bool[N]. Job vectors: aff_row int32[ceil(N/32)] (None when the
     job has no affinity group), tolerated/selector int32[W], req_fit
     int32[R], excl int32[K]. Order keys: order_res_idx and
-    order_res_resolution int32[Ko], bits int32[Ko + 1] (the pack plan)."""
+    order_res_resolution int32[Ko], bits int32[Ko + 1] (the pack plan).
+    On a card it builds a one-job `ScorePlan` and launches its kernel; the
+    round scores through its own plan instead."""
     if alloc0.device.type == "cpu":
         return score_nodes_plain(
             alloc0, node_total, taints, labels, rank, gid, unsched, aff_row,
             tolerated, selector, req_fit, excl, order_res_idx,
             order_res_resolution, bits, batch_window, job_ok,
         )
-    device = alloc0.device
-    if device.type != "cuda":
-        raise ValueError(f"score_nodes: unsupported device {device}")
-    n, r = alloc0.shape
-    i32 = torch.int32
-    for nm, t, dt, nd in (
-        ("alloc0", alloc0, i32, 2), ("node_total", node_total, i32, 2),
-        ("taints", taints, i32, 2), ("labels", labels, i32, 2),
-        ("rank", rank, i32, 1), ("gid", gid, i32, 1),
-        ("unsched", unsched, torch.bool, 1), ("tolerated", tolerated, i32, 1),
-        ("selector", selector, i32, 1), ("req_fit", req_fit, i32, 1),
-        ("excl", excl, i32, 1), ("order_res_idx", order_res_idx, i32, 1),
-        ("order_res_resolution", order_res_resolution, i32, 1),
-        ("bits", bits, i32, 1),
-    ):
-        _check(f"score_nodes.{nm}", t, dt, nd, device)
-    if aff_row is not None:
-        _check("score_nodes.aff_row", aff_row, i32, 1, device)
-        if aff_row.shape[0] * 32 < n:
-            raise ValueError("score_nodes: aff_row has fewer words than nodes")
-    wt, wl = taints.shape[1], labels.shape[1]
-    n_order = order_res_idx.shape[0]
-    if (
-        node_total.shape != (n, r) or taints.shape[0] != n or labels.shape[0] != n
-        or rank.shape[0] != n or gid.shape[0] != n or unsched.shape[0] != n
-        or tolerated.shape[0] != wt or selector.shape[0] != wl
-        or req_fit.shape[0] != r or order_res_resolution.shape[0] != n_order
-        or bits.shape[0] != n_order + 1
-    ):
-        raise ValueError("score_nodes: inconsistent shapes")
-    fit0 = torch.empty(n, dtype=torch.bool, device=device)
-    caps = torch.empty(n, dtype=i32, device=device)
-    key = torch.empty(n, dtype=torch.int64, device=device)
-    _launch(
-        "score_nodes",
-        _ptr(alloc0), _ptr(node_total), _ptr(taints), _ptr(labels), _ptr(rank),
-        _ptr(gid), _ptr(unsched), _ptr(aff_row), _ptr(tolerated),
-        _ptr(selector), _ptr(req_fit), _ptr(excl), _ptr(order_res_idx),
-        _ptr(order_res_resolution), _ptr(bits), n, r, wt, wl, excl.shape[0],
-        n_order, int(batch_window), int(bool(job_ok)), _ptr(fit0), _ptr(caps),
-        _ptr(key), _stream(device),
+    plan = ScorePlan.one_job(
+        node_total, taints, labels, rank, gid, unsched, aff_row, tolerated,
+        selector, req_fit, excl, order_res_idx, order_res_resolution, bits,
+        batch_window, job_ok,
     )
-    return fit0, caps, key
+    return plan.score(alloc0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -353,10 +479,135 @@ def fill_take_plain(key, B):
     return order.to(torch.int32), key[order]
 
 
+@dataclasses.dataclass(frozen=True)
+class FillTakeConfig:
+    """The launch shape of csrc/fill_take.cu for N keys and want outputs:
+    `cluster` CTAs, each owning `keys_per_cta` keys (even, so every slice of
+    an aligned tensor starts 16-byte aligned); `resident` when a CTA holds
+    its slice in shared memory; `smem_bytes` of dynamic shared memory."""
+
+    cluster: int
+    keys_per_cta: int
+    smem_bytes: int
+    resident: bool
+
+
+@functools.lru_cache(maxsize=256)
+def fill_take_config(n: int, want: int) -> FillTakeConfig:
+    """The smallest power-of-two cluster (at most FILL_TAKE_MAX_CLUSTER)
+    whose CTAs take at most FILL_TAKE_CTA_KEYS keys each; past 8 x 8,192
+    the CTAs take more, resident in shared memory up to
+    FILL_TAKE_RESIDENT_KEYS each and streamed from global memory beyond.
+    The shared-memory layout is the kernel's: survivor keys and indices
+    (want rounded up to a power of two, 12 bytes each), then from a
+    16-byte boundary the resident keys with one slot of slack."""
+    if not 1 <= want <= min(n, FILL_TAKE_MAX):
+        raise ValueError(f"fill_take: min(B, N) = {want} outside [1, {FILL_TAKE_MAX}]")
+    if n > FILL_TAKE_MAX_KEYS:
+        raise ValueError(f"fill_take: more than {FILL_TAKE_MAX_KEYS} keys")
+    cluster = 1
+    while cluster < FILL_TAKE_MAX_CLUSTER and -(-n // cluster) > FILL_TAKE_CTA_KEYS:
+        cluster *= 2
+    per_cta = -(-n // cluster)
+    per_cta += per_cta & 1
+    resident = per_cta <= FILL_TAKE_RESIDENT_KEYS
+    p2 = 1 << (want - 1).bit_length()
+    smem = (p2 * 12 + 15) // 16 * 16 + ((per_cta + 1) * 8 if resident else 0)
+    return FillTakeConfig(cluster, per_cta, smem, resident)
+
+
+def fill_take_cluster_simulate(key, B, n_ctas):
+    """The cluster kernel's algorithm on the CPU, CTA by CTA, for any
+    cluster size: (take int32[want], key[take] int64). Slices of
+    `fill_take_config`'s width in index order; per byte pass, each slice's
+    histogram of the keys matching the prefix, summed in rank order to
+    pick the digit, down to T, the want-th key, and need_eq, the keys == T
+    among the first want. When the k-th key is the last of its bin the
+    select stops at that pass: T is the bin's largest possible key, every
+    key <= T is kept and none == T is budgeted. Then each slice counts its
+    keys < T and == T, keeps its keys < T and its first max(0, need_eq -
+    (== T in earlier slices)) keys == T at the offset of the earlier
+    slices' survivors, and the index-ordered survivors are sorted stably
+    by key."""
+    keys = key.cpu().numpy().astype(np.int64)
+    n = keys.shape[0]
+    want = min(int(B), n)
+    u = keys.view(np.uint64) ^ np.uint64(1 << 63)
+    per_cta = -(-n // n_ctas)
+    per_cta += per_cta & 1
+    starts = [min(q * per_cta, n) for q in range(n_ctas)]
+    slices = [u[s:min(s + per_cta, n)] for s in starts]
+    prefix, mask, rank = 0, 0, want
+    inclusive = False
+    for shift in range(56, -1, -8):
+        hists = [
+            np.bincount(((s[(s & np.uint64(mask)) == np.uint64(prefix)] >> np.uint64(shift))
+                         & np.uint64(255)).astype(np.int64), minlength=256)
+            for s in slices
+        ]
+        cum = np.cumsum(np.sum(hists, axis=0))
+        digit = int(np.searchsorted(cum, rank))
+        # The k-th key is the last of its bin: stop, keeping every key up
+        # to the bin.
+        inclusive = int(cum[digit]) == rank
+        prefix |= digit << shift
+        if inclusive:
+            prefix |= (1 << shift) - 1
+            rank = 0
+            break
+        rank -= int(cum[digit - 1]) if digit else 0
+        mask |= 255 << shift
+    thr, need_eq = np.uint64(prefix), rank
+    is_lt = [(s < thr) | ((s == thr) & inclusive) for s in slices]
+    is_eq = [(s == thr) & (not inclusive) for s in slices]
+    eq = [int(m.sum()) for m in is_eq]
+    out_key = np.empty(want, np.uint64)
+    out_idx = np.empty(want, np.int64)
+    off = eq_before = 0
+    for q, s in enumerate(slices):
+        budget = max(0, need_eq - eq_before)
+        keep = is_lt[q] | (is_eq[q] & (np.cumsum(is_eq[q]) <= budget))
+        kept = np.nonzero(keep)[0]
+        out_key[off:off + len(kept)] = s[kept]
+        out_idx[off:off + len(kept)] = kept + starts[q]
+        off += len(kept)
+        eq_before += eq[q]
+    if off != want:
+        raise AssertionError("fill_take_cluster_simulate: survivors disagree")
+    order = np.argsort(out_key, kind="stable")
+    take = torch.as_tensor(out_idx[order].astype(np.int32))
+    return take, torch.as_tensor((out_key[order] ^ np.uint64(1 << 63)).view(np.int64))
+
+
+_cluster_checked: set = set()
+
+
+def _fill_take_fits(device, cfg: FillTakeConfig) -> None:
+    """Once per device and launch shape: raise the kernel's shared-memory
+    limit and check that at least one cluster of this shape can run."""
+    tag = (device.index, cfg)
+    if tag in _cluster_checked:
+        return
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _fn("fill_take", "armada_fill_take_prepare")(
+            cfg.cluster, cfg.smem_bytes, int(cfg.resident), ctypes.byref(count)
+        )
+    if rc != 0:
+        raise RuntimeError(f"fill_take: cluster occupancy query failed (cudaError {rc})")
+    if count.value < 1:
+        raise RuntimeError(
+            f"fill_take: a cluster of {cfg.cluster} CTAs with {cfg.smem_bytes} bytes of "
+            "shared memory each does not fit on this card"
+        )
+    _cluster_checked.add(tag)
+
+
 def fill_take(key, B):
     """Indices of the B smallest entries of an int64 key in stable-sort
     order, masked sentinel tail included: (take int32[min(B, N)],
-    key[take] int64). The kernel takes 1 <= min(B, N) <= FILL_TAKE_MAX."""
+    key[take] int64). The kernel takes 1 <= min(B, N) <= FILL_TAKE_MAX
+    and N <= FILL_TAKE_MAX_KEYS."""
     if key.device.type == "cpu":
         return fill_take_plain(key, B)
     device = key.device
@@ -365,15 +616,13 @@ def fill_take(key, B):
     _check("fill_take.key", key, torch.int64, 1, device)
     n = key.shape[0]
     want = min(int(B), n)
-    if not 1 <= want <= FILL_TAKE_MAX:
-        raise ValueError(f"fill_take: min(B, N) = {want} outside [1, {FILL_TAKE_MAX}]")
-    if n > 2**31 - 2**11:
-        raise ValueError("fill_take: more than 2^31 - 2^11 keys")
+    cfg = fill_take_config(n, want)
+    _fill_take_fits(device, cfg)
     take = torch.empty(want, dtype=torch.int32, device=device)
     take_key = torch.empty(want, dtype=torch.int64, device=device)
     _launch(
-        "fill_take", _ptr(key), n, want, _ptr(take), _ptr(take_key),
-        _stream(device),
+        "fill_take", _ptr(key), n, want, cfg.keys_per_cta, cfg.cluster, int(cfg.resident),
+        cfg.smem_bytes, _ptr(take), _ptr(take_key), _stream(device),
     )
     return take, take_key
 

@@ -32,7 +32,7 @@ import torch
 from ..core.priorities import EVICTED_PRIORITY, MIN_PRIORITY
 from ..device import COST_DTYPE, resolve_device
 from ..ops.bitset import as_words, bits_subset
-from ..ops.kernels import pack_plan, score_nodes
+from ..ops.kernels import ScorePlan, pack_plan
 from ..ops.segment import segment_sum
 from ..ops.select import lex_argmin, masked_lexsort
 from .dist import LOCAL, at
@@ -125,8 +125,17 @@ class _Round:
                 # where the key packs into one int64.
                 kpath = "lax"
             else:
-                self.bits_t = torch.tensor(
-                    self.kbits, dtype=torch.int32, device=device
+                # The fused scoring's tables, checked once for the round
+                # (the shard's nodes under node sharding).
+                t = self.t
+                self.plan = ScorePlan(
+                    t.node_total, t.node_taints, t.node_labels, t.node_id_rank,
+                    t.node_gid, t.node_unschedulable, t.job_tolerated,
+                    t.job_selector, t.job_req_fit, t.job_excluded_nodes,
+                    t.job_affinity_group, t.job_possible, t.affinity_allowed,
+                    t.order_res_idx, t.order_res_resolution,
+                    torch.tensor(self.kbits, dtype=torch.int32, device=device),
+                    dev.batch_window,
                 )
         self.kpath = kpath
         self.knbits = sum(self.kbits) if self.kbits else None
@@ -814,19 +823,7 @@ def _f0_chain(rd, alloc0, j):
     "cuda" path scores with the fused kernel; "lax" runs the unfused graph."""
     t, h = rd.t, rd.h
     if rd.kbits is not None:
-        a = int(h.job_affinity_group[j])
-        aff_row = (
-            t.affinity_allowed[min(a, h.affinity_allowed.shape[0] - 1)]
-            if a >= 0
-            else None
-        )
-        fit0, caps, key = score_nodes(
-            alloc0, t.node_total, t.node_taints, t.node_labels, t.node_id_rank,
-            t.node_gid, t.node_unschedulable, aff_row, t.job_tolerated[j],
-            t.job_selector[j], t.job_req_fit[j], t.job_excluded_nodes[j],
-            t.order_res_idx, t.order_res_resolution, rd.bits_t,
-            int(h.batch_window), bool(h.job_possible[j]),
-        )
+        fit0, caps, key = rd.plan.score(alloc0, j)
         return fit0, caps, [key]
     B = int(h.batch_window)
     req_fit = t.job_req_fit[j]

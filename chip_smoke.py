@@ -12,13 +12,19 @@ version. Phases, each printing one JSON line with its seconds:
 2. build: the nvcc build of armada_tpu_torch/csrc/ (one nvcc per source,
    started together).
 3. kernels: each kernel against its plain version on the card at the main
-   path's shapes (score_nodes at N = 8192 and 65536, all outputs
-   bit-equal; fill_take at N = 8192 and 65536 with B = 512 and 2048, with
-   duplicate keys, a sentinel tail and a B > N case, index-equal). Both
-   also at a 2x2 shard's shapes, local N = 2048 and 16384 (B = 512): node
-   gids offset to the shard's block, the affinity row and the rank bits of
-   the global node count, and fill_take also on the masked key that
-   score_nodes returns there.
+   path's shapes, all outputs bit-equal. score_nodes at N = 8192 and
+   65536 and at a 2x2 shard's shapes, local N = 2048 and 16384 (node gids
+   offset to the shard's block, the affinity row and the rank bits of the
+   global node count), through the full-argument wrapper and through a
+   round-like ScorePlan of 8 jobs (affinity group none, 0 or 1) as the
+   fill loop calls it, `plan.score(alloc0, j)`. fill_take at TAKE_SHAPES:
+   N = 8192 and 65536 with B = 512 and 2048, N = 2048 and 16384 with B =
+   512, with distinct keys, duplicates and a sentinel tail; a B > N case;
+   every cluster size (1 CTA at 8192, 2 at 16384, 4 at 32768, 8 at
+   65536); ragged slices (4097, 20001); a key view that starts 8 bytes
+   into its allocation (a ragged head); N = 262144, beyond the cluster's
+   shared memory (streamed); and score_nodes' masked keys at N = 65536
+   and on the shards.
 4. round: 100,000 queued jobs x 5,000 nodes x 10 queues plus 5,000 running
    preemptible jobs in one queue, in the default configuration (batch
    fill window 512, fast fill off), on the "cuda" and the "lax" kernel
@@ -32,8 +38,11 @@ version. Phases, each printing one JSON line with its seconds:
    node selection closed by the winner kernel). Each run is held to the
    single-device "cuda" output of the same round on every array, num_loops
    and spot_price included, and admitted by the round firewall:
-   - phase 4's round (its serial loops return evicted jobs to their own
-     nodes, so it selects no node: score_nodes and fill_take launched);
+   - round_50k, round_100k at half its shape (50,000 jobs x 2,500 nodes
+     x 2,500 running jobs), solved on one device first: its 2,502 serial
+     loops return evicted jobs to their own nodes, so it selects no node
+     (score_nodes and fill_take launched). Half the shape halves the
+     serial loops, which cost most of the phase on four shard threads;
    - gangs_100k: 100,000 queued jobs x 5,000 nodes, every 8th job opening
      a gang of 2, 4 or 8, no running jobs, solved on one device on the
      "cuda" and "lax" paths (bit-equal, so the sharded run is held to a
@@ -71,7 +80,11 @@ kernel from phase 7's ring drive; the other sharded runs' and the
 single-device counts beside them; times at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 and the ring's at n = 4,
 K = 3: `ms` per call from CUDA events, `device_ms` per launch from the
-profiler), the card's name and power limit, and as the last line {"ok":
+profiler; fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's
+time there) and its cluster size, score_nodes' also through the plan,
+`plan_ms` and `plan_device_ms`), one line of ptxas's registers and
+shared memory for fill_take_kernel's two instantiations (`nvcc -Xptxas
+-v`), the card's name and power limit, and as the last line {"ok":
 true, "device": {...}}. Any failure exits non-zero before the last line.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -110,12 +123,7 @@ def nvidia_smi() -> str:
 def device_ms(fn, iters, kernel):
     """Mean device milliseconds per launch of the CUDA kernel whose name
     contains `kernel`, from torch.profiler over `iters` calls of fn()."""
-    from armada_tpu_torch.timing import device_ms as profiled
-
-    ms = profiled({kernel: fn}, iters, kernel)[kernel]
-    if ms is None:
-        raise AssertionError(f"the profiler did not see {iters} launches of {kernel}")
-    return ms
+    return device_ms_many({kernel: fn}, iters, kernel)[kernel]
 
 
 def score_case(n, seed, shards=1):
@@ -210,13 +218,81 @@ def check_equal(name, got, want, **case):
     return {"name": name, **case, "equal": equal, "max_abs_err": err}
 
 
+def plan_case(a, n_jobs=8):
+    """A round-like ScorePlan over score_case's nodes: n_jobs jobs whose
+    rows are the case's job with its request scaled per job, the case's
+    affinity row and a second one as the affinity table (job j in group
+    j % 3 - 1: none, 0 or 1), every job possible."""
+    import torch
+
+    from armada_tpu_torch.ops import kernels as kt
+
+    dev = a["alloc0"].device
+    jobs = torch.arange(1, n_jobs + 1, dtype=torch.int32, device=dev)
+    plan = kt.ScorePlan(
+        a["node_total"], a["taints"], a["labels"], a["rank"], a["gid"], a["unsched"],
+        a["tolerated"].repeat(n_jobs, 1), a["selector"].repeat(n_jobs, 1),
+        (a["req_fit"][None, :] * jobs[:, None] // 2).contiguous(),
+        a["excl"].repeat(n_jobs, 1), ((jobs - 1) % 3 - 1).to(torch.int32),
+        torch.ones(n_jobs, dtype=torch.bool, device=dev),
+        torch.stack([a["aff_row"], a["aff_row"].roll(1)]).contiguous(),
+        a["order_res_idx"], a["order_res_resolution"], a["bits"], a["batch_window"],
+    )
+    return plan
+
+
+def plan_args(a, plan, j):
+    """score_nodes' arguments for job j of a plan_case plan."""
+    g = int(plan.aff_group[j])
+    return {**a, "req_fit": plan.req_fit[j], "aff_row": plan.affinity[g] if g >= 0 else None}
+
+
+def time_fill_take(key, b, checks):
+    """fill_take's times at one shape: the wrapper (CUDA events), the
+    kernel on the device (profiler), its plain version, torch.sort."""
+    import torch
+
+    from armada_tpu_torch.ops import kernels as kt
+    from armada_tpu_torch.timing import cuda_ms
+
+    n = key.shape[0]
+    want = min(b, n)
+    return {
+        "ms": cuda_ms(lambda: kt.fill_take(key, b), 200),
+        "device_ms": device_ms(lambda: kt.fill_take(key, b), 50, "fill_take_kernel"),
+        "plain_ms": cuda_ms(lambda: kt.fill_take_plain(key, b), 50),
+        "bound_ms": (n * 8 + want * 12) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": cuda_ms(lambda: torch.sort(key, stable=True), 50),
+        "max_abs_err": checks[-1]["max_abs_err"],
+        "cluster": kt.fill_take_config(n, want).cluster,
+        "shape": {"N": n, "B": b},
+    }
+
+
+# fill_take's shapes on the card: the single-device rounds' N (8,192 and
+# 65,536) and a 2x2 shard's (2,048, 16,384), B = 512 and 2,048, with
+# duplicate keys and a sentinel tail; B > N; every cluster size (N = 8,192:
+# 1 CTA, 16,384: 2, 32,768: 4, 65,536: 8); ragged slices (4,097: an odd
+# slice, 20,001: four CTAs of unequal length); a key view 8 bytes past an
+# allocation (a ragged head); and N = 262,144, beyond the cluster's shared
+# memory (streamed).
+TAKE_SHAPES = (
+    [(n, b, kind) for n in (8192, 65536) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
+    + [(n, 512, kind) for n in (2048, 16384) for kind in ("distinct", "dups", "tail")]
+    + [(300, 512, "distinct")]
+    + [(n, b, kind) for n in (4097, 20001, 32768, 262144) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
+)
+
+
 def phase_kernels():
     """score_nodes and fill_take against their plain versions at the
     single-device round's node counts (N = 8192, 65536) and at a 2x2 shard's
-    (local N = 2048, 16384 of the same global counts); timing at N = 65536."""
+    (local N = 2048, 16384 of the same global counts), score_nodes also
+    through a round-like plan; fill_take at every TAKE_SHAPES case. Timing
+    at N = 65536 (fill_take also at 8192)."""
     import torch
 
-    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.ops import kernels as kt
     from armada_tpu_torch.timing import cuda_ms
 
     checks = []
@@ -224,43 +300,122 @@ def phase_kernels():
     sentinel = torch.iinfo(torch.int64).max
     for n, shards in ((8192, 1), (65536, 1), (2048, 4), (16384, 4)):
         a = score_case(n, n + shards, shards)
-        got = K.score_nodes(**a)
-        checks.append(check_equal("score_nodes", got, K.score_nodes_plain(**a), n=n, shards=shards))
+        got = kt.score_nodes(**a)
+        checks.append(check_equal("score_nodes", got, kt.score_nodes_plain(**a), n=n, shards=shards))
+        plan = plan_case(a)
+        for j in range(plan.jobs):
+            checks.append(check_equal(
+                "score_nodes", plan.score(a["alloc0"], j), kt.score_nodes_plain(**plan_args(a, plan, j)),
+                n=n, shards=shards, plan_job=j, aff_group=int(plan.aff_group[j]),
+            ))
         if shards > 1:
             # The shard's masked fill key, as fill_sort_path hands it over.
             key = torch.where(got[0], got[2], sentinel)
-            checks.append(check_equal("fill_take", K.fill_take(key, 512), K.fill_take_plain(key, 512),
+            checks.append(check_equal("fill_take", kt.fill_take(key, 512), kt.fill_take_plain(key, 512),
                                       n=n, b=512, shards=shards, keys="score_nodes"))
         if (n, shards) == (65536, 1):
             kb, ops = score_bytes(a)
+            alloc0 = a["alloc0"]
+            times = device_ms_many(
+                {"full": lambda: kt.score_nodes(**a), "plan": lambda: plan.score(alloc0, 3)},
+                50, "score_nodes_kernel",
+            )
             timing["score_nodes"] = {
-                "ms": cuda_ms(lambda: K.score_nodes(**a), 200),
-                "device_ms": device_ms(lambda: K.score_nodes(**a), 50, "score_nodes_kernel"),
-                "plain_ms": cuda_ms(lambda: K.score_nodes_plain(**a), 20),
+                "ms": cuda_ms(lambda: kt.score_nodes(**a), 200),
+                "device_ms": times["full"],
+                "plan_ms": cuda_ms(lambda: plan.score(alloc0, 3), 500),
+                "plan_device_ms": times["plan"],
+                "plain_ms": cuda_ms(lambda: kt.score_nodes_plain(**a), 20),
                 "bound_ms": max(kb / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
                 "library_ms": None,
-                "max_abs_err": checks[-1]["max_abs_err"],
+                "max_abs_err": max(c["max_abs_err"] for c in checks if c["name"] == "score_nodes"),
                 "shape": {"N": n, "R": 4},
             }
-    cases = [(n, b, kind) for n in (8192, 65536) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
-    cases += [(n, 512, kind) for n in (2048, 16384) for kind in ("distinct", "dups", "tail")]
-    cases.append((300, 512, "distinct"))  # B > N
-    for n, b, kind in cases:
+    for n, b, kind in TAKE_SHAPES:
         key, b = take_case(n, b, n + b, kind)
-        checks.append(check_equal("fill_take", K.fill_take(key, b), K.fill_take_plain(key, b),
-                                  n=n, b=b, keys=kind))
+        checks.append(check_equal("fill_take", kt.fill_take(key, b), kt.fill_take_plain(key, b),
+                                  n=n, b=b, keys=kind, cluster=kt.fill_take_config(n, min(n, b)).cluster,
+                                  resident=kt.fill_take_config(n, min(n, b)).resident))
+        if (n, b, kind) == (8192, 512, "distinct"):
+            at_8192 = time_fill_take(key, b, checks)
         if (n, b, kind) == (65536, 512, "distinct"):
-            want = min(b, n)
-            timing["fill_take"] = {
-                "ms": cuda_ms(lambda: K.fill_take(key, b), 200),
-                "device_ms": device_ms(lambda: K.fill_take(key, b), 50, "fill_take_kernel"),
-                "plain_ms": cuda_ms(lambda: K.fill_take_plain(key, b), 50),
-                "bound_ms": (n * 8 + want * 12) / HBM_BYTES_PER_S * 1e3,
-                "library_ms": cuda_ms(lambda: torch.sort(key, stable=True), 50),
-                "max_abs_err": checks[-1]["max_abs_err"],
-                "shape": {"N": n, "B": b},
-            }
+            timing["fill_take"] = time_fill_take(key, b, checks)
+            # The same keys 8 bytes into a larger allocation: a ragged head.
+            base = torch.cat([key[:1], key])
+            view = base[1:]
+            checks.append(check_equal("fill_take", kt.fill_take(view, b), kt.fill_take_plain(view, b),
+                                      n=n, b=b, keys=kind, offset_bytes=8))
+    # The flagship's own fill keys: score_nodes' masked key at N = 65,536.
+    a = score_case(65536, 11)
+    fit0, _, key = kt.score_nodes(**a)
+    masked = torch.where(fit0, key, sentinel)
+    checks.append(check_equal("fill_take", kt.fill_take(masked, 512), kt.fill_take_plain(masked, 512),
+                              n=65536, b=512, keys="score_nodes"))
+    ft = timing["fill_take"]
+    ft["ms_at_8192"] = at_8192["ms"]
+    ft["at_8192"] = at_8192
+    ft["ms_score_keys"] = cuda_ms(lambda: kt.fill_take(masked, 512), 200)
+    ft["max_abs_err"] = max(c["max_abs_err"] for c in checks if c["name"] == "fill_take")
     return checks, timing
+
+
+def device_ms_many(fns, iters, kernel):
+    """device_ms for several callables in one profiler session."""
+    from armada_tpu_torch.timing import device_ms as profiled
+
+    out = profiled(fns, iters, kernel)
+    for label, ms in out.items():
+        if ms is None:
+            raise AssertionError(f"the profiler did not see {iters} launches of {kernel} ({label})")
+    return out
+
+
+def ptxas_start():
+    """Start nvcc -Xptxas -v on csrc/fill_take.cu (beside the build)."""
+    from armada_tpu_torch.ops import kernels as kt
+
+    tmp = tempfile.mkdtemp(prefix="smoke-ptxas-")
+    flags = [f for f in kt.NVCC_FLAGS if f != "-shared"]
+    cmd = [kt._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, "fill_take.cubin"),
+           str(kt.CSRC / "fill_take.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def ptxas_finish(job):
+    """Registers, shared memory, stack and spills of each fill_take_kernel
+    instantiation, from ptxas's report."""
+    import re
+    import shutil
+
+    from armada_tpu_torch.ops import kernels as kt
+
+    proc, tmp = job
+    log, _ = proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed for fill_take.cu:\n{log}")
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            entry = ("fill_take_kernel<resident>" if "ILb1E" in name else "fill_take_kernel<streamed>")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            stack = re.search(r"(\d+) bytes cumulative stack", line)
+            out[entry] = {
+                "registers": int(m.group(1)),
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                "stack_bytes": int(stack.group(1)) if stack else 0,
+                "dynamic_smem_bytes_max": kt.fill_take_config(131072, kt.FILL_TAKE_MAX).smem_bytes,
+            }
+            entry = None
+    spills = [line.strip() for line in log.splitlines() if "spill" in line and "0 bytes spill" not in line]
+    if spills:
+        out["spills"] = spills
+    return out
 
 
 def winner_case(rng, p, n_keys, found_share):
@@ -360,9 +515,9 @@ def run_sharded(dev, want, label, readback_rows, required):
     }
 
 
-def run_round(n_jobs, n_nodes, paths, warm, **inputs_kw):
-    """Host prep once, then one solve per kernel path (plus a warm repeat
-    of the first); returns timings, outputs by path and the padded round."""
+def run_round(n_jobs, n_nodes, paths, **inputs_kw):
+    """Host prep once, then one solve per kernel path; returns timings,
+    outputs by path and the padded round."""
     import dataclasses
 
     import numpy as np
@@ -391,21 +546,16 @@ def run_round(n_jobs, n_nodes, paths, warm, **inputs_kw):
         "specs_s": specs_s, "host_prep_s": prep_s, "readback_rows": int(snap.num_jobs),
     }
     outs = {}
-    for i, path in enumerate(paths):
+    for path in paths:
         d = dataclasses.replace(dev, kernel_path=path)
-        reps = 2 if (i == 0 and warm) else 1
-        for rep in range(reps):
-            K.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.time()
-            stats = {}
-            out = kernel_mod.solve_round(d, readback_rows=snap.num_jobs, stats=stats)
-            torch.cuda.synchronize()
-            dt = time.time() - t0
-            launches = dict(K.LAUNCHES)
-            label = f"{path}_{'cold' if rep == 0 else 'warm'}"
-            res[f"{label}_solve_s"] = dt
-            res[f"{label}_launches"] = launches
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stats = {}
+        out = kernel_mod.solve_round(d, readback_rows=snap.num_jobs, stats=stats)
+        torch.cuda.synchronize()
+        res[f"{path}_cold_solve_s"] = time.time() - t0
+        res[f"{path}_cold_launches"] = dict(K.LAUNCHES)
         res[f"{path}_loops"] = int(out["num_loops"])
         res[f"{path}_loop_kinds"] = stats
         res[f"{path}_scheduled"] = int(np.asarray(out["scheduled_mask"]).sum())
@@ -550,8 +700,10 @@ def main() -> int:
           "seconds": time.time() - t0})
 
     t0 = time.time()
+    ptxas = ptxas_start()
     libs = K.build_all()
     emit({"phase": "build", "libraries": libs, "seconds": time.time() - t0})
+    ptxas = ptxas_finish(ptxas)
 
     t0 = time.time()
     checks, timing = phase_kernels()
@@ -560,13 +712,14 @@ def main() -> int:
           "seconds": time.time() - t0})
 
     t0 = time.time()
-    res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"), warm=True)
+    res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"))
     assert_same_outputs(outs["cuda"], outs["lax"], "round: the cuda and lax paths")
     res["cuda_equals_lax"] = True
+    del outs, dev_100k
     emit({"phase": "round", **res, "seconds": time.time() - t0})
 
     t0 = time.time()
-    flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",), warm=False)
+    flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -574,17 +727,25 @@ def main() -> int:
     # return evicted jobs to their own nodes (a pinned reschedule reads
     # one node, it selects none) and the burst limit ends both rounds'
     # fills. So they require the fill kernels, and the winner kernel runs
-    # in gangs_100k, whose gangs are placed member by member.
+    # in gangs_100k, whose gangs are placed member by member. The sharded
+    # eviction round is round_100k at half its shape (round_50k: 50,000
+    # jobs x 2,500 nodes x 2,500 running, 2,502 serial loops of pinned
+    # returns and 998 fills), held to its own single-device solve: the
+    # same paths at half the serial loops, which cost most of the phase.
     fill_kernels = ("score_nodes", "fill_take")
-    sharded = {"round_100k": run_sharded(
-        dev_100k, outs["cuda"], "round_100k", res["readback_rows"], fill_kernels
-    )}
-    del outs, dev_100k
+    half, half_outs, dev_half = run_round(50_000, 2500, ("cuda",), n_running=2500)
+    sharded = {
+        "round_50k_single_device": half,
+        "round_50k": run_sharded(
+            dev_half, half_outs["cuda"], "round_50k", half["readback_rows"], fill_kernels
+        ),
+    }
+    del half_outs, dev_half
     # Both sides of the sharded comparison below run score_nodes and
     # fill_take, so the single-device round is also held to the "lax" path,
     # which runs none of the kernels.
     gangs, gang_outs, dev_gangs = run_round(
-        100_000, 5000, ("cuda", "lax"), warm=False, n_running=0, gang_every=8
+        100_000, 5000, ("cuda", "lax"), n_running=0, gang_every=8
     )
     assert_same_outputs(gang_outs["cuda"], gang_outs["lax"], "gangs_100k: the cuda and lax paths")
     gangs["cuda_equals_lax"] = True
@@ -624,7 +785,7 @@ def main() -> int:
             "source": f"armada_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": int(launches[name]),
-            "launches_sharded_round_100k": int(sharded["round_100k"]["launches"][name]),
+            "launches_sharded_round_50k": int(sharded["round_50k"]["launches"][name]),
             "launches_sharded_flagship": int(sharded["flagship_1m"]["launches"][name]),
             "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
             "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
@@ -641,8 +802,18 @@ def main() -> int:
             "shape": tm["shape"],
             **({"ms_per_step": tm["ms_per_step"], "gather_reduce_ms": tm["gather_reduce_ms"]}
                if name == "ring_exchange" else {}),
+            **({"cluster": tm["cluster"], "ms_at_8192": tm["ms_at_8192"],
+                "device_ms_at_8192": tm["at_8192"]["device_ms"],
+                "library_ms_at_8192": tm["at_8192"]["library_ms"],
+                "plain_ms_at_8192": tm["at_8192"]["plain_ms"],
+                "bound_ms_at_8192": tm["at_8192"]["bound_ms"],
+                "ms_score_keys": tm["ms_score_keys"]}
+               if name == "fill_take" else {}),
+            **({"plan_ms": tm["plan_ms"], "plan_device_ms": tm["plan_device_ms"]}
+               if name == "score_nodes" else {}),
         })
     emit({"kernels": entries})
+    emit({"ptxas": ptxas})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

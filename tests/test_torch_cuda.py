@@ -111,21 +111,71 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _score_plan_on(a, device):
+    """A ScorePlan of three jobs over the nodes of _score_inputs' `a`: job 0
+    is a's job (affinity group 0), job 1 the same without a group, job 2 in
+    group 1 and not possible."""
+    p = _port_args(a, device=device)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    three = lambda v: np.stack([v, v, v])  # noqa: E731
+    aff = as_words(np.stack([a["aff_row"], np.roll(a["aff_row"], 1)]))
+    plan = tk.ScorePlan(
+        p["node_total"], p["taints"], p["labels"], p["rank"], p["gid"], p["unsched"],
+        t(three(as_words(a["tolerated"]))), t(three(as_words(a["selector"]))),
+        t(three(a["req_fit"])), t(three(a["excl"])), t(np.array([0, -1, 1], np.int32)),
+        t(np.array([True, True, False])), t(aff), p["order_res_idx"],
+        p["order_res_resolution"], p["bits"], a["batch_window"],
+    )
+    rows = [
+        {**p, "aff_row": t(aff[0])},
+        {**p, "aff_row": None},
+        {**p, "aff_row": t(aff[1]), "job_ok": False},
+    ]
+    return p, plan, rows
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device):
-    for n, shards in ((4096, 1), (2048, 4)):
-        a = _port_args(_score_inputs(np.random.default_rng(12), n, shards=shards), device="cuda")
-        got = tk.score_nodes(**a)
-        want = tk.score_nodes_plain(**a)
+    for n, shards in ((4096, 1), (2048, 4), (65536, 1)):
+        a = _score_inputs(np.random.default_rng(12), n, shards=shards)
+        p, plan, rows = _score_plan_on(a, "cuda")
+        got = tk.score_nodes(**p)
+        want = tk.score_nodes_plain(**p)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+        for j, row in enumerate(rows):
+            got = plan.score(p["alloc0"], j)
+            want = tk.score_nodes_plain(**row)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (n, shards, j)
     for keys, b in _take_cases():
         kt = torch.as_tensor(keys, device=cuda_device)
         got = tk.fill_take(kt, b)
         want = tk.fill_take_plain(kt, b)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # Every cluster size, ragged slices, a ragged head, the streamed path.
+    rng = np.random.default_rng(14)
+    for n, cluster, resident in (
+        (8192, 1, True), (16384, 2, True), (32768, 4, True), (65536, 8, True),
+        (4097, 1, True), (20001, 4, True), (262144, 8, False),
+    ):
+        cfg = tk.fill_take_config(n, 512)
+        assert (cfg.cluster, cfg.resident) == (cluster, resident)
+        keys = rng.integers(0, 2**40, size=n + 1, dtype=np.int64)
+        keys[rng.random(n + 1) < 0.3] = SENTINEL
+        base = torch.as_tensor(keys, device=cuda_device)
+        for kt in (base[:n], base[1:]):
+            for b in (1, 512, 2048):
+                got = tk.fill_take(kt, b)
+                want = tk.fill_take_plain(kt, b)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, b)
 
 
 @pytest.mark.cuda
@@ -158,6 +208,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tk.score_nodes(**{**a, "node_total": a["node_total"].t().contiguous().t()})
     with pytest.raises(ValueError):
         tk.score_nodes(**{**a, "req_fit": a["req_fit"][:2]})
+    a = _score_inputs(np.random.default_rng(13), 256)
+    p, plan, _ = _score_plan_on(a, "cuda")
+    with pytest.raises(TypeError):
+        plan.score(p["alloc0"].to(torch.int64), 0)
+    with pytest.raises(ValueError):
+        plan.score(p["alloc0"][:128].contiguous(), 0)
+    with pytest.raises(ValueError):
+        plan.score(p["alloc0"].cpu(), 0)
+    with pytest.raises(IndexError):
+        plan.score(p["alloc0"], 3)
+    with pytest.raises(ValueError):
+        tk.ScorePlan(
+            plan.node_total, plan.taints, plan.labels, plan.rank, plan.gid, plan.unsched,
+            plan.tolerated, plan.selector, plan.req_fit, plan.excl, plan.aff_group[:2],
+            plan.possible, plan.affinity, plan.order_res_idx, plan.order_res_resolution,
+            plan.bits, plan.batch_window,
+        )
     key = torch.arange(4096, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
         tk.fill_take(key, tk.FILL_TAKE_MAX + 1)
@@ -165,6 +232,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tk.fill_take(key.to(torch.int32), 16)
     with pytest.raises(ValueError):
         tk.fill_take(key[::2], 16)
+    # A cluster shape or shared-memory request the card cannot run raises
+    # rather than launching.
+    for cfg in (
+        tk.FillTakeConfig(16, 8192, 71688, True),
+        tk.FillTakeConfig(8, 30000, 300000, True),
+    ):
+        with pytest.raises(RuntimeError):
+            tk._fill_take_fits(cuda_device, cfg)
 
 
 @pytest.mark.cuda

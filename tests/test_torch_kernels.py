@@ -30,6 +30,7 @@
 The kernels themselves, on the card, are tested in tests/test_torch_cuda.py.
 """
 
+import ctypes
 import dataclasses
 import functools
 import threading
@@ -45,6 +46,7 @@ from jax.experimental import pallas as pl
 
 from armada_tpu.ops import pallas_kernels as pk
 from armada_tpu_torch.ops import kernels as tk
+from armada_tpu_torch.ops.bitset import as_words
 from test_torch_cuda import _TAKE_SPECS, _port_args, _score_inputs, _take_cases
 
 
@@ -343,3 +345,212 @@ def test_ring_over_two_gloo_processes(tmp_path):
                     for call in range(3):
                         want = _ring_reference(rows[call])[member]
                         np.testing.assert_array_equal(got[call], want)
+
+
+# ---------------------------------------------------------------------------
+# The cluster fill_take: its CPU model, its launch shape
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", range(len(_TAKE_SPECS)))
+def test_fill_take_cluster_model_matches_reference(case, n_ctas):
+    """The cluster algorithm, CTA by CTA, equals the stable sort (the plain
+    version) and, on the lexsort-exact cases, the reference fill_take."""
+    keys, b = _take_cases()[case]
+    take, taken = tk.fill_take_cluster_simulate(torch.as_tensor(keys), b, n_ctas)
+    want_take, want_key = tk.fill_take_plain(torch.as_tensor(keys), b)
+    assert take.dtype == torch.int32 and taken.dtype == torch.int64
+    assert torch.equal(take, want_take) and torch.equal(taken, want_key)
+    if _TAKE_SPECS[case][4]:
+        ref_take, ref_key = pk.fill_take(jnp.asarray(keys), b, nbits=63)
+        np.testing.assert_array_equal(take.numpy(), np.asarray(ref_take))
+        np.testing.assert_array_equal(taken.numpy(), np.asarray(ref_key))
+
+
+def _cluster_keys(kind, n, b, rng):
+    if kind == "distinct":
+        return rng.integers(-(2**62), 2**62, size=n, dtype=np.int64)
+    if kind == "dups":
+        return rng.integers(0, max(2, n // 64), size=n).astype(np.int64) << 20
+    if kind == "equal":
+        return np.full(n, 5, np.int64)
+    if kind == "two":  # one value and the sentinel, as a masked fill key with one fit
+        return np.where(rng.random(n) < 0.5, 3, SENTINEL).astype(np.int64)
+    keys = rng.integers(0, 2**40, size=n, dtype=np.int64)  # "tail": fewer real keys than B
+    keys[rng.permutation(n)[: max(0, n - b // 3)]] = SENTINEL
+    return keys
+
+
+SENTINEL = np.iinfo(np.int64).max
+
+
+@pytest.mark.parametrize("n_ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["distinct", "dups", "equal", "two", "tail"])
+@pytest.mark.parametrize(
+    "n,b",
+    [(4097, 512), (8193, 2048), (3001, 2048), (100, 512), (1, 1), (7, 3)],
+)
+def test_fill_take_cluster_model_matches_stable_sort(n, b, kind, n_ctas):
+    """Ragged slices (N not a multiple of the cluster size, empty tail
+    slices), all-equal keys, a sentinel tail, B > N and want = 2,048, each
+    against the stable sort."""
+    rng = np.random.default_rng(n * 31 + b)
+    keys = torch.as_tensor(_cluster_keys(kind, n, b, rng))
+    take, taken = tk.fill_take_cluster_simulate(keys, b, n_ctas)
+    want_take, want_key = tk.fill_take_plain(keys, b)
+    assert torch.equal(take, want_take) and torch.equal(taken, want_key)
+
+
+@pytest.mark.parametrize(
+    "n,want,cluster,per_cta,resident",
+    [
+        (300, 300, 1, 300, True),
+        (2048, 512, 1, 2048, True),
+        (8192, 512, 1, 8192, True),
+        (16384, 512, 2, 8192, True),
+        (65536, 512, 8, 8192, True),
+        (65536, 2048, 8, 8192, True),
+        (4097, 512, 1, 4098, True),
+        (8193, 512, 2, 4098, True),
+        (131072, 512, 8, 16384, True),
+        (131073, 512, 8, 16386, False),
+        (262144, 512, 8, 32768, False),
+    ],
+)
+def test_fill_take_config(n, want, cluster, per_cta, resident):
+    cfg = tk.fill_take_config(n, want)
+    assert (cfg.cluster, cfg.keys_per_cta, cfg.resident) == (cluster, per_cta, resident)
+    assert cfg.cluster * cfg.keys_per_cta >= n and cfg.keys_per_cta % 2 == 0
+    p2 = 1 << (want - 1).bit_length()
+    survivors = (p2 * 12 + 15) // 16 * 16
+    assert cfg.smem_bytes == survivors + ((per_cta + 1) * 8 if resident else 0)
+    # The largest resident launch stays inside a CTA's 227 KB of shared memory.
+    assert cfg.smem_bytes <= 232448 - 4096
+
+
+def test_fill_take_config_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        tk.fill_take_config(4096, tk.FILL_TAKE_MAX + 1)
+    with pytest.raises(ValueError):
+        tk.fill_take_config(4096, 0)
+    with pytest.raises(ValueError):
+        tk.fill_take_config(tk.FILL_TAKE_MAX_KEYS + 2, 512)
+
+
+# ---------------------------------------------------------------------------
+# The per-round scoring plan
+# ---------------------------------------------------------------------------
+
+
+def _plan_tables(rng, n, shards=1):
+    """A round's node tables and four jobs: job 0 in affinity group 0, job 1
+    in none, job 2 in group 1 but not possible, job 3 in group 5 (past the
+    table: the last row, as the round clamps it)."""
+    base = _score_inputs(rng, n, shards=shards)
+    jobs = [base] + [_score_inputs(np.random.default_rng(seed), n, shards=shards) for seed in (40, 41, 42)]
+    groups = np.array([0, -1, 1, 5], np.int32)
+    possible = np.array([True, True, False, True])
+    affinity = np.stack([jobs[0]["aff_row"], jobs[2]["aff_row"]])
+    tables = dict(
+        tolerated=np.stack([j["tolerated"] for j in jobs]),
+        selector=np.stack([j["selector"] for j in jobs]),
+        req_fit=np.stack([j["req_fit"] for j in jobs]),
+        excl=np.stack([j["excl"] for j in jobs]),
+        groups=groups, possible=possible, affinity=affinity,
+    )
+    per_job = []
+    for j in range(len(jobs)):
+        a = dict(base)
+        a.update(
+            tolerated=tables["tolerated"][j], selector=tables["selector"][j],
+            req_fit=tables["req_fit"][j], excl=tables["excl"][j],
+            aff_row=None if groups[j] < 0 else affinity[min(groups[j], len(affinity) - 1)],
+            job_ok=bool(possible[j]),
+        )
+        per_job.append(a)
+    return base, tables, per_job
+
+
+def _plan(base, tables):
+    p = _port_args(base)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x))
+
+    return tk.ScorePlan(
+        p["node_total"], p["taints"], p["labels"], p["rank"], p["gid"], p["unsched"],
+        t(as_words(tables["tolerated"])), t(as_words(tables["selector"])),
+        t(tables["req_fit"]), t(tables["excl"]), t(tables["groups"]),
+        t(tables["possible"]), t(as_words(tables["affinity"])), p["order_res_idx"],
+        p["order_res_resolution"], p["bits"], base["batch_window"],
+    )
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("j", range(4))
+def test_score_plan_matches_reference(j, shards):
+    """plan.score(alloc0, j) on the CPU equals the plain version on job j's
+    hand-indexed rows, and the reference's `_score_values` and interpret-mode
+    `_pallas_score` on the same rows: with and without an affinity group,
+    a job that is not possible, a group past the table, and on a shard
+    (gids offset, rank bits and affinity width global)."""
+    base, tables, per_job = _plan_tables(np.random.default_rng(30 + j), 512, shards)
+    plan = _plan(base, tables)
+    tk.reset_launches()
+    got = plan.score(torch.as_tensor(base["alloc0"]), j)
+    want = tk.score_nodes_plain(**_port_args(per_job[j]))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tk.LAUNCHES["score_nodes"] == 0
+    _check_score_against_reference(per_job[j])
+
+
+def test_score_plan_struct_mirrors_the_kernel_source():
+    """ops/kernels.py's ctypes mirror and csrc/score_nodes.cu's struct
+    ScorePlan name the same fields, of the same kinds, in the same order
+    (parsed from the source: nothing compiles here)."""
+    import re
+
+    src = (tk.CSRC / "score_nodes.cu").read_text()
+    body = re.search(r"struct ScorePlan \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        m = re.fullmatch(r"(const )?(\w+)(\*)? (\w+);", line)
+        assert m, line
+        fields.append((m.group(4), "pointer" if m.group(3) else m.group(2)))
+    mirror = [
+        (name, "pointer" if ctype is ctypes.c_void_p else "int")
+        for name, ctype in tk._ScorePlanC._fields_
+    ]
+    assert fields == mirror
+
+
+def test_score_plan_checks_a_rounds_tables():
+    """The plan a round builds (`kernel_path="cuda"`) passes its checks and
+    fills the C struct with the round's widths; the checks run on a card,
+    so here they are called on the CPU tables directly."""
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import _Round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    dev = pad_device_round(prep_device_round(build_round_snapshot(*build_inputs(200, 16, n_running=10))))
+    rd = _Round(dataclasses.replace(dev, kernel_path="cuda"), torch.device("cpu"))
+    c = rd.plan.struct()
+    assert (c.n, c.r) == tuple(dev.node_total.shape)
+    assert rd.plan.jobs == dev.job_req.shape[0] and c.k_excl == dev.job_excluded_nodes.shape[1]
+    assert (c.n_aff, c.aff_words) == tuple(dev.affinity_allowed.shape)
+    assert c.n_order == len(dev.order_res_idx) and c.batch_window == dev.batch_window
+    assert c.node_total == rd.t.node_total.data_ptr() and c.affinity == rd.t.affinity_allowed.data_ptr()
+    with pytest.raises(ValueError):
+        tk.ScorePlan(
+            rd.t.node_total, rd.t.node_taints, rd.t.node_labels, rd.t.node_id_rank,
+            rd.t.node_gid, rd.t.node_unschedulable, rd.t.job_tolerated, rd.t.job_selector,
+            rd.t.job_req_fit[:, :1].contiguous(), rd.t.job_excluded_nodes, rd.t.job_affinity_group,
+            rd.t.job_possible, rd.t.affinity_allowed, rd.t.order_res_idx,
+            rd.t.order_res_resolution, rd.plan.bits, dev.batch_window,
+        ).struct()
