@@ -1,52 +1,72 @@
 // ring_exchange: the lexicographic minimum of one winner tuple per member of
-// a process shard group's axis, passed around a ring of n - 1 steps through
-// peer memory; the result lands on every member.
+// a process shard group's axis, exchanged in one shot through peer memory;
+// the result lands on every member.
 //
 // Replaces the Pallas kernel `ring_winner_exchange` in
 // armada_tpu/ops/pallas_kernels.py (loop at :532-563, `pallas_call` :566),
-// where each step DMAs the running best to the right neighbour with
-// `make_async_remote_copy` and waits on a semaphore.
+// where each of n - 1 steps DMAs the running best to the right neighbour
+// with `make_async_remote_copy` and waits on a semaphore.
 //
-// What it computes, exactly the reference loop: the running best starts as
-// the member's own row; each of the n - 1 steps sends the running best to the
-// right neighbour and receives the left neighbour's; the candidate replaces
-// the running best, gid column included, only if it is strictly less,
-// lexicographically over columns 0..w-2 (column 0, notfound, most
-// significant). The last column, the gid, is not compared. So on a tie a
-// member keeps the row it holds, and when every row is not-found each member
-// ends with its own gid (winner_reduce keeps row 0 there instead).
+// What it computes, exactly the reference loop: there the running best
+// starts as the member's own row, and each step hands member i the running
+// best of member i - 1, which replaces the held row, gid column included,
+// only if it is strictly less, lexicographically over columns 0..w-2
+// (column 0, notfound, most significant; the gid is not compared). Unrolled,
+// member i ends with its own row folded with rows i - 1, i - 2, ...,
+// i - n + 1 (mod n), in that order, each replacing the held row only if
+// strictly less: after s steps the ring's best of member i is the minimum
+// over rows i..i-s, and on a tie its own row, else the nearest in that
+// order, which is what the fold keeps. So on a tie a member keeps the row
+// it holds, and when every row is not-found each member ends with its own
+// gid (winner_reduce keeps row 0 there instead). ops/kernels.py
+// `ring_oneshot_simulate` is this fold on the CPU, held to the loop.
 //
 // Peer memory: each member owns one buffer, allocated here with cudaMalloc
-// (an IPC handle names a whole allocation) and opened by its left neighbour
+// (an IPC handle names a whole allocation) and opened by every other member
 // with cudaIpcOpenMemHandle: on another card over NVLink, or on the same
-// card from another process. Layout, in 32-bit words:
-//   slots: [2 parities][n - 1 steps][w]  the left neighbour's running best
-//   flags: [2 parities][n - 1 steps]      the epoch whose slot has landed
+// card from another process. cudaIpcOpenMemHandle refuses a handle that
+// the calling process exported, so a member reaches its own buffer by its
+// own pointer; its own row never leaves its registers. Layout, in 32-bit
+// words:
+//   slots: [2 parities][n][w]  member j's row in slot j
+//   flags: [2 parities][n]     the epoch whose slot j has landed
 // Call e (a per-buffer counter from 1, so the buffer is never reset) uses
-// parity e & 1. Step s writes the running best into the right neighbour's
-// slot (e & 1, s), then publishes the right neighbour's flag (e & 1, s) as e
-// with a system-scope release; the member then waits until its own flag
-// (e & 1, s) reads e with a system-scope acquire. Send and receive use
-// separate slots (the reference DMAs out of and into the same buffer). Two
-// parities suffice: a member finishes call e + 1 only after its last step's
-// arrival, which carries its right neighbour's row of call e + 1, so the
-// right neighbour has left call e and no longer reads its parity-e slots
-// when call e + 2 writes them.
+// parity e & 1. Member i stores its row into slot (e & 1, i) of every
+// peer's buffer, then, after a system fence, publishes flag (e & 1, i) of
+// every peer as e with a system-scope release. It then waits, in one
+// bounded spin with a system-scope acquire per peer (lane j spins on flag
+// j), until its own n - 1 flags read e; lane j then reads slot j into
+// shared memory, and the warp folds the n rows in the order above, a lane
+// per column. Two parities suffice: a member finishes call e + 1 only after
+// every peer has written its row of call e + 1, and a peer writes that row
+// only after its own call e has ended, so after it read its parity-e slots;
+// the stores of call e + 2 into a member's parity-e slots therefore follow
+// that member's reads of call e.
 //
-// The spin cannot hang: it reads %globaltimer and gives up after timeout_ns,
-// writing the failed step + 1 into out[w] (0 on success); the wrapper reads
-// that word with the result and raises. Several processes on one card
-// without MPS time-slice it, so a spinning member waits for its neighbour's
-// context to get its slice: a step costs a context switch there.
+// The spin cannot hang: it reads %globaltimer and gives up after
+// timeout_ns, writing the lowest missing member + 1 into out[w] (0 on
+// success); the wrapper reads that word with the result and raises. Several
+// processes on one card without MPS time-slice it, so a spinning member
+// waits for the others' contexts to get their slices: the call costs the
+// slices until every row has landed, not a chain of one per step.
 //
-// Bound on the H100: latency. A member moves (n - 1) * w * 4 bytes (48 at
-// n = 4, K = 3 over a 2-host ring) and compares a few words per step; the
-// time is the flag round trip per step. One warp per member, lane c holding
-// column c (w <= 32), so a compare is two ballots.
+// Bound on the H100: latency. A member moves (n - 1) * w * 4 bytes out and
+// as many in (60 each at n = 4, K = 3) and compares a few words per row;
+// the time is one flag round trip (the ring took n - 1 serial ones). One
+// warp per member, n <= 32 and w <= 32.
 
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
+
+constexpr int kMaxMembers = 32;
+constexpr int kMaxWidth = 32;
+
+// Every member's buffer as this process maps it, this member's own at its
+// index; passed by value (ops/kernels.py _RingPeersC mirrors it).
+struct RingPeers {
+  int32_t* buf[kMaxMembers];
+};
 
 namespace {
 
@@ -78,49 +98,73 @@ __device__ __forceinline__ void st_relaxed_sys(int32_t* p, int32_t v) {
   asm volatile("st.relaxed.sys.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// One warp. row int32[w] is this member's tuple; mine/right are this
-// member's and its right neighbour's ring buffers (unused when n == 1);
-// out int32[w + 1] gets the result and the status word.
+// One warp. row int32[w] is this member's tuple, me its index on the axis
+// of n members; out int32[w + 1] gets the result and the status word.
 __global__ void ring_exchange_kernel(const int32_t* __restrict__ row, int w,
-                                     int n, int32_t* mine, int32_t* right,
+                                     int n, int me, RingPeers peers,
                                      unsigned epoch, long long timeout_ns,
                                      int32_t* __restrict__ out) {
+  __shared__ int32_t rows[kMaxMembers][kMaxWidth];
   const int lane = threadIdx.x;
   const bool col = lane < w;
   const bool compared = lane < w - 1;
-  int32_t best = col ? row[lane] : 0;
-  int32_t status = 0;
-  const int steps = n - 1;
   const int parity = static_cast<int>(epoch & 1u);
-  unsigned* my_flags = reinterpret_cast<unsigned*>(mine + 2 * steps * w);
-  unsigned* right_flags = reinterpret_cast<unsigned*>(right + 2 * steps * w);
-  for (int s = 0; s < steps; ++s) {
-    const int slot = parity * steps + s;
-    if (col) st_relaxed_sys(right + slot * w + lane, best);
+  const int32_t own = col ? row[lane] : 0;
+  int32_t status = 0;
+  if (n > 1) {
+    // Store this member's row into its slot of every peer's buffer, a lane
+    // per column, then publish the flags after one system fence.
+    for (int j = 0; j < n; ++j) {
+      if (j != me && col) {
+        st_relaxed_sys(peers.buf[j] + (parity * n + me) * w + lane, own);
+      }
+    }
     __syncwarp();
     if (lane == 0) {
       __threadfence_system();
-      st_release_sys(right_flags + slot, epoch);
+      for (int j = 0; j < n; ++j) {
+        if (j != me) {
+          unsigned* flags = reinterpret_cast<unsigned*>(peers.buf[j] + 2 * n * w);
+          st_release_sys(flags + parity * n + me, epoch);
+        }
+      }
     }
-    bool arrived = false;
+    // The one wait: lane j acquires flag j of this member's buffer.
+    const unsigned* flags =
+        reinterpret_cast<const unsigned*>(peers.buf[me] + 2 * n * w) + parity * n;
+    bool arrived = lane >= n || lane == me;
     const unsigned long long start = global_ns();
     while (true) {
-      if (ld_acquire_sys(my_flags + slot) == epoch) {
-        arrived = true;
-        break;
-      }
-      if (global_ns() - start > static_cast<unsigned long long>(timeout_ns)) break;
+      if (!arrived) arrived = ld_acquire_sys(flags + lane) == epoch;
+      if (__all_sync(kFull, arrived)) break;
+      const bool late =
+          global_ns() - start > static_cast<unsigned long long>(timeout_ns);
+      if (__any_sync(kFull, late)) break;  // uniform across the warp
       __nanosleep(64);
     }
-    if (!__all_sync(kFull, arrived)) {  // uniform across the warp
-      status = s + 1;
-      break;
+    const unsigned missing = __ballot_sync(kFull, !arrived);
+    if (missing != 0) {
+      status = __ffs(missing);
+    } else {
+      // Lane j read flag j, so it reads slot j.
+      if (lane < n && lane != me) {
+        const int32_t* slot = peers.buf[me] + (parity * n + lane) * w;
+        for (int c = 0; c < w; ++c) rows[lane][c] = ld_relaxed_sys(slot + c);
+      }
+      __syncwarp();
     }
-    const int32_t cand = col ? ld_relaxed_sys(mine + slot * w + lane) : 0;
-    const unsigned differ = __ballot_sync(kFull, compared && cand != best);
-    const unsigned less = __ballot_sync(kFull, compared && cand < best);
-    // The first differing column decides; equal tuples keep the held row.
-    if (differ != 0 && ((less >> (__ffs(differ) - 1)) & 1u)) best = cand;
+  }
+  int32_t best = own;
+  if (status == 0) {
+    // Fold rows me - 1, me - 2, ..., me - n + 1 (mod n) into the own row.
+    for (int s = 1; s < n; ++s) {
+      const int j = (me - s + n) % n;
+      const int32_t cand = col ? rows[j][lane] : 0;
+      const unsigned differ = __ballot_sync(kFull, compared && cand != best);
+      const unsigned less = __ballot_sync(kFull, compared && cand < best);
+      // The first differing column decides; equal tuples keep the held row.
+      if (differ != 0 && ((less >> (__ffs(differ) - 1)) & 1u)) best = cand;
+    }
   }
   if (col) out[lane] = best;
   if (lane == 0) out[w] = status;
@@ -128,15 +172,15 @@ __global__ void ring_exchange_kernel(const int32_t* __restrict__ row, int w,
 
 }  // namespace
 
-// Bytes of one member's ring buffer for an axis of n members and rows of w
-// words (0 when n == 1: that ring takes no step).
+// Bytes of one member's buffer for an axis of n members and rows of w
+// words (0 when n == 1: that exchange moves nothing).
 extern "C" long long armada_ring_bytes(int n, int w) {
   if (n <= 1) return 0;
-  return 2LL * (n - 1) * (w + 1) * static_cast<long long>(sizeof(int32_t));
+  return 2LL * n * (w + 1) * static_cast<long long>(sizeof(int32_t));
 }
 
-// Allocate and zero a ring buffer of `bytes` on `device` and export it:
-// *ptr gets the device pointer, handle (64 bytes) its cudaIpcMemHandle_t.
+// Allocate and zero a buffer of `bytes` on `device` and export it: *ptr
+// gets the device pointer, handle (64 bytes) its cudaIpcMemHandle_t.
 extern "C" int armada_ring_alloc(int device, long long bytes, void** ptr,
                                  void* handle) {
   cudaError_t rc = cudaSetDevice(device);
@@ -144,8 +188,8 @@ extern "C" int armada_ring_alloc(int device, long long bytes, void** ptr,
   rc = cudaMalloc(ptr, static_cast<size_t>(bytes));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   rc = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
-  // The zeroes must be in place before a neighbour's first write, which
-  // follows the handle exchange.
+  // The zeroes must be in place before a peer's first write, which follows
+  // the handle exchange.
   if (rc == cudaSuccess) rc = cudaDeviceSynchronize();
   cudaIpcMemHandle_t h;
   if (rc == cudaSuccess) rc = cudaIpcGetMemHandle(&h, *ptr);
@@ -180,19 +224,22 @@ extern "C" int armada_ring_free(int device, void* ptr) {
   return static_cast<int>(cudaFree(ptr));
 }
 
-// row int32[w] and out int32[w + 1] on the device, 2 <= w <= 32; mine and
-// right as armada_ring_alloc / armada_ring_open gave them (null when n == 1).
-// Launches one warp on `stream` and returns cudaGetLastError().
-extern "C" int armada_ring_exchange(const void* row, int w, int n, void* mine,
-                                    void* right, unsigned epoch,
+// row int32[w] and out int32[w + 1] on the device, 2 <= w <= 32; peers
+// holds every member's buffer as armada_ring_alloc (this member's, at index
+// me) and armada_ring_open (the others') gave them, unused when n == 1;
+// 1 <= n <= 32. Launches one warp on `stream` and returns
+// cudaGetLastError().
+extern "C" int armada_ring_exchange(const void* row, int w, int n, int me,
+                                    RingPeers peers, unsigned epoch,
                                     long long timeout_ns, void* out,
                                     void* stream) {
-  if (w < 2 || w > 32 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 1 && (mine == nullptr || right == nullptr))
+  if (w < 2 || w > kMaxWidth || n < 1 || n > kMaxMembers || me < 0 || me >= n)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int j = 0; n > 1 && j < n; ++j) {
+    if (peers.buf[j] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
   ring_exchange_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row), w, n, static_cast<int32_t*>(mine),
-      static_cast<int32_t*>(right), epoch, timeout_ns,
+      static_cast<const int32_t*>(row), w, n, me, peers, epoch, timeout_ns,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

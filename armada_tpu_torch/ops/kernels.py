@@ -13,19 +13,20 @@ Two kernels carry the batched fill loop (once per loop each):
   (`fill_take_config` picks its shape; `fill_take_cluster_simulate` is
   its algorithm on the CPU). Replaces the JAX package's lax `fill_take`.
 
-One closes every candidate selection of the node-sharded round on a
-(hosts, chips) mesh (solver/dist_cuda.py):
+One closes both stages of every candidate selection of the node-sharded
+round on a (hosts, chips) mesh (solver/dist_cuda.py):
 
 - `winner_reduce` (csrc/winner_reduce.cu): the lexicographic minimum of
-  the gathered per-host winner tuples. Replaces the JAX package's Pallas
-  `_winner_kernel`.
+  gathered winner rows, once over the chips of a host and once over the
+  hosts, the host stage's launch also writing the select's (gid, found).
+  Replaces the JAX package's Pallas `_winner_kernel`.
 
 One is a collective of a process shard group (parallel/pgroup.py):
 
-- `ring_winner_exchange` (csrc/ring_exchange.cu): the same minimum as an
-  n - 1 step ring over peer memory, one member per process. Replaces the
-  JAX package's Pallas `ring_winner_exchange`; as there, the round does
-  not call it.
+- `ring_winner_exchange` (csrc/ring_exchange.cu): the same minimum as
+  the reference's n - 1 step ring defines it, computed in one exchange
+  over peer memory, one member per process. Replaces the JAX package's
+  Pallas `ring_winner_exchange`; as there, the round does not call it.
 
 Each wrapper takes the plain version for CPU tensors (the tests) and, for
 CUDA tensors, launches the kernel or raises; nothing falls back. Each
@@ -77,9 +78,11 @@ FILL_TAKE_MAX_KEYS = 2**31 - 2**11  # index arithmetic stays in int32
 FILL_TAKE_CTA_KEYS = 8192  # keys a CTA of the cluster aims at
 FILL_TAKE_MAX_CLUSTER = 8  # the portable cluster size
 FILL_TAKE_RESIDENT_KEYS = 16384  # csrc/fill_take.cu kResidentKeys: most keys a CTA holds
-WINNER_MAX_ROWS = 1024  # csrc/winner_reduce.cu: one block of at most 1024 threads
-RING_MAX_WIDTH = 32  # csrc/ring_exchange.cu: one warp, a lane per column
-RING_TIMEOUT_S = 5.0  # csrc/ring_exchange.cu: the spin's bound per step
+WINNER_MAX_ROWS = 1024  # csrc/winner_reduce.cu kMaxRows: one block, a row per thread
+WINNER_MAX_WIDTH = 16  # csrc/winner_reduce.cu kMaxWidth: a row in registers
+RING_MAX_WIDTH = 32  # csrc/ring_exchange.cu kMaxWidth: one warp, a lane per column
+RING_MAX_MEMBERS = 32  # csrc/ring_exchange.cu kMaxMembers: a lane per peer's flag
+RING_TIMEOUT_S = 5.0  # csrc/ring_exchange.cu: the spin's bound
 
 _libs: dict = {}
 # Shard threads may reach a kernel's first use together: one builds and
@@ -173,6 +176,12 @@ class _ScorePlanC(ctypes.Structure):
     ]
 
 
+class _RingPeersC(ctypes.Structure):
+    """csrc/ring_exchange.cu struct RingPeers: every member's buffer."""
+
+    _fields_ = [("buf", ctypes.c_void_p * RING_MAX_MEMBERS)]
+
+
 _SIGNATURES = {
     "score_nodes": {
         "armada_score_plan": [_ScorePlanC, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
@@ -182,11 +191,11 @@ _SIGNATURES = {
         "armada_fill_take_prepare": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
     },
     "winner_reduce": {
-        "armada_winner_reduce": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
+        "armada_winner_reduce": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4,
     },
     "ring_exchange": {
         "armada_ring_exchange": [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _RingPeersC,
             ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ],
         "armada_ring_bytes": [ctypes.c_int, ctypes.c_int],
@@ -645,10 +654,18 @@ def fill_sort_path(keys, mask, B, path, nbits):
 
 
 # ---------------------------------------------------------------------------
-# Winner reduction (the host stage of a hierarchical candidate selection)
+# Winner reduction (both stages of a hierarchical candidate selection)
 # ---------------------------------------------------------------------------
 
 _I32_MAX = int(np.iinfo(np.int32).max)
+
+
+def _check_winner_dtypes(keys, gids):
+    for i, k in enumerate(keys):
+        if k.dtype != torch.int32:
+            raise TypeError(f"winner_reduce: key {i} has dtype {k.dtype}, expected torch.int32")
+    if gids.dtype != torch.int32:
+        raise TypeError(f"winner_reduce: gids have dtype {gids.dtype}, expected torch.int32")
 
 
 def winner_rows(keys, found, gids):
@@ -661,11 +678,7 @@ def winner_rows(keys, found, gids):
     keys: K int32[H] tensors; found: bool[H]; gids: int32[H]. Nothing is
     cast: the reference casts every key to int32 (`:478`), and a key that
     does not fit must fail here rather than wrap."""
-    for i, k in enumerate(keys):
-        if k.dtype != torch.int32:
-            raise TypeError(f"winner_reduce: key {i} has dtype {k.dtype}, expected torch.int32")
-    if gids.dtype != torch.int32:
-        raise TypeError(f"winner_reduce: gids have dtype {gids.dtype}, expected torch.int32")
+    _check_winner_dtypes(keys, gids)
     if found.dtype != torch.bool:
         raise TypeError(f"winner_reduce: found has dtype {found.dtype}, expected torch.bool")
     h = int(found.shape[0])
@@ -681,6 +694,29 @@ def winner_rows(keys, found, gids):
     return rows
 
 
+def winner_row(keys, mask, gids):
+    """One shard's local select as one row in the reference's layout:
+    int32[K + 2] of (notfound, keys at the winner..., gid at the winner),
+    the keys the int32 sentinel when no entry is masked in. The winner is
+    `lex_argmin(keys, mask)`'s (index 0 when none is masked in); each
+    key's masked minimum is the winner's key, since the last key is unique
+    among masked entries, so the row costs 4 ops a key and 6 more.
+
+    keys: K int32[N] tensors; mask: bool[N]; gids: int32[N]. A key that is
+    not int32 raises, as in `winner_rows`: nothing is cast."""
+    _check_winner_dtypes(keys, gids)
+    m = mask
+    bests = []
+    for k in keys:
+        best = torch.where(m, k, _I32_MAX).min()
+        m = m & (k == best)
+        bests.append(best)
+    # argmax takes the first maximal entry: index 0 when m is all False.
+    idx = torch.argmax(m.to(torch.int8))
+    nf = torch.logical_not(torch.any(mask)).to(torch.int32)
+    return torch.stack([nf, *bests, gids.index_select(0, idx.reshape(1)).squeeze(0)])
+
+
 def winner_reduce_plain(rows):
     """Plain torch version of the winner kernel: the row whose columns
     0..K (notfound, keys) are lexicographically smallest, the lowest row
@@ -692,11 +728,22 @@ def winner_reduce_plain(rows):
     return rows.index_select(0, idx.reshape(1).to(torch.int64)).squeeze(0)
 
 
-def winner_reduce_rows(rows):
+def winner_pick_plain(row):
+    """Plain torch version of the kernel's select outputs from a winning
+    row: (gid int32 0-d, 0 when not found; found bool 0-d)."""
+    found = row[0] == 0
+    return torch.where(found, row[-1], 0).to(torch.int32), found
+
+
+def winner_reduce_rows(rows, pick=False):
     """The winning row of int32[P, K + 2] (see `winner_reduce_plain`),
-    1 <= P <= WINNER_MAX_ROWS, by the kernel on a CUDA tensor."""
+    1 <= P <= WINNER_MAX_ROWS and K + 2 <= WINNER_MAX_WIDTH, by the
+    kernel on a CUDA tensor. With
+    `pick`, (row, gid, found): the select's result besides the row, as
+    `winner_pick_plain` defines it, written by the same launch."""
     if rows.device.type == "cpu":
-        return winner_reduce_plain(rows)
+        row = winner_reduce_plain(rows)
+        return (row, *winner_pick_plain(row)) if pick else row
     device = rows.device
     if device.type != "cuda":
         raise ValueError(f"winner_reduce: unsupported device {device}")
@@ -704,37 +751,18 @@ def winner_reduce_rows(rows):
     p, width = rows.shape
     if not 1 <= p <= WINNER_MAX_ROWS:
         raise ValueError(f"winner_reduce: {p} rows outside [1, {WINNER_MAX_ROWS}]")
-    if width < 2:
-        raise ValueError("winner_reduce: rows need a notfound and a gid column")
+    if not 2 <= width <= WINNER_MAX_WIDTH:
+        raise ValueError(f"winner_reduce: width {width} outside [2, {WINNER_MAX_WIDTH}]")
     out = torch.empty(width, dtype=torch.int32, device=device)
-    _launch("winner_reduce", _ptr(rows), p, width, _ptr(out), _stream(device))
-    return out
-
-
-def winner_reduce(keys, found, gids, dist=None):
-    """The host-level winner argmin: (gid int32 0-d, found bool 0-d) of
-    the lexicographically smallest found tuple, exactly `lex_argmin(keys,
-    found)` and a gid pick when the last key is unique among found rows
-    (the node rank). Books the exchange into `dist.stats` as the
-    reference's `_book_winner` does."""
-    rows = winner_rows(keys, found, gids)
-    out = winner_reduce_rows(rows)
-    _book_winner(dist, int(rows.shape[0]), len(keys))
-    return out[-1], out[0] == 0
-
-
-def _book_winner(dist, p, n_keys):
-    """The reference's fabric booking of one winner exchange
-    (`armada_tpu/ops/pallas_kernels.py:503-513`): log2(P) tree steps, each
-    moving one (notfound, keys, gid) int32 tuple; the rows as VMEM bytes."""
-    stats = getattr(dist, "stats", None)
-    if stats is None or not hasattr(stats, "ring_steps"):
-        return
-    steps = max(1, int(np.log2(max(p, 2))))
-    stats.pallas_calls += 1
-    stats.ring_steps += steps
-    stats.ring_bytes += steps * (n_keys + 2) * 4
-    stats.pallas_vmem_bytes += p * (n_keys + 2) * 4
+    gid = found = None
+    if pick:
+        gid = torch.empty((), dtype=torch.int32, device=device)
+        found = torch.empty((), dtype=torch.bool, device=device)
+    _launch(
+        "winner_reduce", _ptr(rows), p, width, _ptr(out), _ptr(gid), _ptr(found),
+        _stream(device),
+    )
+    return (out, gid, found) if pick else out
 
 
 # ---------------------------------------------------------------------------
@@ -767,24 +795,45 @@ def ring_simulate(rows):
     return best
 
 
+def ring_oneshot_simulate(rows):
+    """The one-shot kernel's fold on the CPU, for every member at once:
+    member i folds rows i - 1, i - 2, ..., i - n + 1 (mod n), in that
+    order, into its own, each replacing the held row only if strictly less
+    over columns 0..w-2. Equal to `ring_simulate` for every input, ties
+    included (csrc/ring_exchange.cu gives the argument)."""
+    best = rows
+    for s in range(1, rows.shape[0]):
+        cand = torch.roll(rows, s, dims=0)
+        less = _lex_less(cand[:, :-1], best[:, :-1])
+        best = torch.where(less[:, None], cand, best)
+    return best
+
+
 def ring_winner_exchange_plain(row, group, axis):
     """Plain torch version of the ring kernel: the axis's rows gathered
-    through the group, the same n - 1 steps simulated, this member's row."""
+    through the group, the reference loop simulated, this member's row."""
     return ring_simulate(group.all_gather(row, axis))[group.axis_index(axis)]
 
 
 @dataclasses.dataclass
 class RingBuffers:
-    """One member's ring over one axis at one row width: its own buffer
-    (`mine`, exported) and its right neighbour's (`right`, opened), both
-    device pointers, 0 on an axis of one member (that ring takes no step).
-    `epoch` counts the calls; each call's parity picks its slots."""
+    """One member's exchange buffers over one axis at one row width: every
+    member's buffer as a device pointer in axis order (`peers`), this
+    member's own (exported) at `index` and the others opened; empty on an
+    axis of one member, which exchanges nothing. `epoch` counts the calls;
+    each call's parity picks its slots and flags. `c_peers` is `peers` as
+    the kernel's struct, built once when the buffers are open."""
 
     device_index: int
     n: int
-    mine: int = 0
-    right: int = 0
+    index: int = 0
+    peers: list = dataclasses.field(default_factory=list)
     epoch: int = 0
+    c_peers: _RingPeersC = dataclasses.field(default_factory=_RingPeersC, repr=False)
+
+    @property
+    def mine(self) -> int:
+        return self.peers[self.index] if self.peers else 0
 
 
 def _rc(sym, rc):
@@ -793,46 +842,56 @@ def _rc(sym, rc):
 
 
 def ring_open(group, axis, width) -> RingBuffers:
-    """Allocate this member's ring buffer over `axis` (cudaMalloc in the
+    """Allocate this member's buffer over `axis` (cudaMalloc in the
     kernel's library, not torch's allocator: an IPC handle names a whole
-    allocation), gather every member's handle over the axis and open the
-    right neighbour's. Collective over the axis: every member calls it."""
+    allocation), gather every member's handle over the axis and open every
+    other member's buffer (an IPC handle does not open in the process that
+    exported it). Collective over the axis: every member calls it."""
     n = group.axis_size(axis)
+    if n > RING_MAX_MEMBERS:
+        raise ValueError(f"ring_exchange: {n} members over {axis}, at most {RING_MAX_MEMBERS}")
     index = group.device.index if group.device.index is not None else torch.cuda.current_device()
-    ring = RingBuffers(index, n)
+    me = group.axis_index(axis)
+    ring = RingBuffers(index, n, me)
     if n == 1:
         return ring
     nbytes = _fn("ring_exchange", "armada_ring_bytes")(n, width)
     mine = ctypes.c_void_p()
     handle = (ctypes.c_uint8 * IPC_HANDLE_BYTES)()
     _rc("cudaMalloc", _fn("ring_exchange", "armada_ring_alloc")(index, nbytes, ctypes.byref(mine), handle))
-    ring.mine = mine.value
+    ring.peers = [0] * n
+    ring.peers[me] = mine.value
     try:
         mine_handle = torch.tensor(list(bytes(handle)), dtype=torch.uint8, device=group.device)
         handles = group.all_gather(mine_handle, axis).cpu().numpy()
-        right_handle = handles[(group.axis_index(axis) + 1) % n].tobytes()
-        right = ctypes.c_void_p()
-        _rc("cudaIpcOpenMemHandle",
-            _fn("ring_exchange", "armada_ring_open")(index, right_handle, ctypes.byref(right)))
-        ring.right = right.value
+        for j in range(n):
+            if j != me:
+                peer = ctypes.c_void_p()
+                _rc("cudaIpcOpenMemHandle", _fn("ring_exchange", "armada_ring_open")(
+                    index, handles[j].tobytes(), ctypes.byref(peer)))
+                ring.peers[j] = peer.value
     except BaseException:
+        ring_close(ring)
         ring_free(ring)
         raise
+    ring.c_peers.buf[:n] = ring.peers
     return ring
 
 
 def ring_close(ring: RingBuffers) -> None:
-    """Close the right neighbour's buffer; every member of the axis closes
+    """Close every other member's buffer; every member of the axis closes
     before any frees its own (ring_free)."""
-    if ring.right:
-        right, ring.right = ring.right, 0
-        _rc("cudaIpcCloseMemHandle",
-            _fn("ring_exchange", "armada_ring_close")(ring.device_index, ctypes.c_void_p(right)))
+    for j, ptr in enumerate(ring.peers):
+        if j != ring.index and ptr:
+            ring.peers[j] = 0
+            _rc("cudaIpcCloseMemHandle",
+                _fn("ring_exchange", "armada_ring_close")(ring.device_index, ctypes.c_void_p(ptr)))
 
 
 def ring_free(ring: RingBuffers) -> None:
-    if ring.mine:
-        mine, ring.mine = ring.mine, 0
+    mine = ring.mine
+    if mine:
+        ring.peers[ring.index] = 0
         _rc("cudaFree", _fn("ring_exchange", "armada_ring_free")(ring.device_index, ctypes.c_void_p(mine)))
 
 
@@ -843,9 +902,9 @@ def ring_winner_exchange(row, group, axis):
     device; returns this member's result row. A collective: every member
     of the axis calls it with a row of the same width.
 
-    On a CUDA tensor the kernel runs the ring over peer memory and the
-    call waits for it; a step that waits longer than RING_TIMEOUT_S for
-    its neighbour raises. A CPU tensor takes the plain version. Nothing is
+    On a CUDA tensor the kernel exchanges the rows in one shot over peer
+    memory and the call waits for it; a wait longer than RING_TIMEOUT_S for
+    a peer's row raises. A CPU tensor takes the plain version. Nothing is
     booked in CollectiveStats, as the reference books nothing for it."""
     if not isinstance(row, torch.Tensor):
         raise TypeError("ring_winner_exchange: expected a tensor")
@@ -864,14 +923,13 @@ def ring_winner_exchange(row, group, axis):
     ring.epoch += 1
     out = torch.empty(width + 1, dtype=torch.int32, device=device)
     _launch(
-        "ring_exchange", _ptr(row), width, ring.n, ctypes.c_void_p(ring.mine),
-        ctypes.c_void_p(ring.right), ring.epoch, int(RING_TIMEOUT_S * 1e9),
-        _ptr(out), _stream(device),
+        "ring_exchange", _ptr(row), width, ring.n, ring.index, ring.c_peers, ring.epoch,
+        int(RING_TIMEOUT_S * 1e9), _ptr(out), _stream(device),
     )
     status = int(out[width])
     if status:
         raise RuntimeError(
-            f"ring_winner_exchange: step {status - 1} of {ring.n - 1} over {axis} "
-            f"waited more than {RING_TIMEOUT_S} s for its neighbour"
+            f"ring_winner_exchange: member {ring.index} of {ring.n} over {axis} waited more "
+            f"than {RING_TIMEOUT_S} s for the row of member {status - 1}"
         )
     return out[:width]

@@ -197,7 +197,6 @@ def _ring(shard, calls):
         if shard.device.type == "cuda":
             row = torch.as_tensor(ring_rows((RING_SEED, pos, 3, 1, calls), n, 3, 0.5)[me], device=shard.device)
             entry["ms"] = cuda_ms(lambda: kernels.ring_winner_exchange(row, shard, axis), calls)
-            entry["ms_per_step"] = entry["ms"] / (n - 1) if n > 1 else None
             timed[axis] = functools.partial(kernels.ring_winner_exchange, row, shard, axis)
             entry["plain_ms"] = cuda_ms(
                 lambda: kernels.ring_winner_exchange_plain(row, shard, axis), calls

@@ -57,7 +57,7 @@ def hierarchical_sharded_solve(mesh: DeviceMesh, kernel_path: str = "cuda"):
 
 def two_level_dist(n_hosts: int, n_chips: int, kernel_path: str = "cuda"):
     """The dist template of a (hosts, chips) grid with fresh
-    CollectiveStats: "cuda" closes each select's host stage with the
+    CollectiveStats: "cuda" closes both stages of each select with the
     winner kernel (CudaHierarchicalDist), "lax" keeps HierarchicalDist."""
     if kernel_path not in KERNEL_PATHS:
         raise ValueError(f"kernel_path must be one of {KERNEL_PATHS}, not {kernel_path!r}")

@@ -206,7 +206,7 @@ class ProcessShard:
 
     def destroy(self) -> None:
         """Free the ring buffers and leave the process group. Per ring, in
-        one order on every rank: close the right neighbour's buffer, wait
+        one order on every rank: close every other member's buffer, wait
         for every member of the axis to have closed, free this member's."""
         if self._rings and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

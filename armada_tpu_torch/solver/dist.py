@@ -99,12 +99,16 @@ class CollectiveStats:
         self.ring_steps = self.ring_bytes = 0
 
     def note(self, level: str, arrays) -> None:
+        self.note_sizes(level, [(int(a.numel()), a.element_size()) for a in arrays])
+
+    def note_sizes(self, level: str, sizes) -> None:
+        """`note` for arrays given as (elements, bytes per element)."""
         fanin = self.n_chips if level == "ici" else self.n_hosts
         scalars = bytes_ = 0
-        for a in arrays:
-            n = fanin * int(a.numel())
+        for numel, size in sizes:
+            n = fanin * numel
             scalars += n
-            bytes_ += n * a.element_size()
+            bytes_ += n * size
         if level == "ici":
             self.ici_scalars += scalars
             self.ici_bytes += bytes_
@@ -231,19 +235,24 @@ class ShardDist:
         lidx, lfound = lex_argmin(keys, mask)
         return lidx, [at(k, lidx) for k in keys] + [lfound, at(gids, lidx)]
 
-    def _note_select(self, tup, lidx, levels):
+    def _book_select(self, keys, levels):
+        """Book one select's exchange at `levels`, as the reference does:
+        its payload is one element each of the K keys, found (bool) and
+        the local index (lex_argmin's int32)."""
         if self.stats is None:
             return
         self.stats.selects += 1
-        payload = tup[:-1] + [lidx]
+        payload = [(1, k.element_size()) for k in keys] + [(1, 1), (1, 4)]
         for level in levels:
-            self.stats.note(level, payload)
+            self.stats.note_sizes(level, payload)
+        if not self.stats.per_select_ici_scalars:
+            self.stats.per_select_ici_scalars = self.stats.n_chips * (len(keys) + 2)
+            if "dcn" in levels:
+                self.stats.per_select_dcn_scalars = self.stats.n_hosts * (len(keys) + 2)
 
     def lex_argmin_nodes(self, keys, mask, gids):
         lidx, tup = self._select_tuple(keys, mask, gids)
-        self._note_select(tup, lidx, ("ici",))
-        if self.stats is not None and not self.stats.per_select_ici_scalars:
-            self.stats.per_select_ici_scalars = self.n_shards * (len(keys) + 2)
+        self._book_select(keys, ("ici",))
         g = self.shard.all_gather(tup, self.axis)
         widx, wfound = lex_argmin(g[:-2], g[-2])
         return torch.where(wfound, at(g[-1], widx), 0).to(torch.int32), wfound
@@ -358,21 +367,14 @@ class HierarchicalDist(ShardDist):
             self.stats.note("dcn", [v])
         return self.shard.psum(self.shard.psum(v, self.chip_axis), self.host_axis)
 
-    def _host_winners(self, keys, mask, gids):
-        """The chip stage of a select: the host's winner tuple, gathered
-        over the host axis -> (keys [H]..., found [H], gid [H])."""
+    def lex_argmin_nodes(self, keys, mask, gids):
         lidx, tup = self._select_tuple(keys, mask, gids)
-        self._note_select(tup, lidx, ("ici", "dcn"))
-        if self.stats is not None and not self.stats.per_select_dcn_scalars:
-            self.stats.per_select_dcn_scalars = self.n_hosts * (len(keys) + 2)
-            self.stats.per_select_ici_scalars = self.n_chips * (len(keys) + 2)
+        self._book_select(keys, ("ici", "dcn"))
+        # Chip stage: the host's winner tuple; host stage: the winner of those.
         c = self.shard.all_gather(tup, self.chip_axis)
         hidx, hfound = lex_argmin(c[:-2], c[-2])
         host = [at(k, hidx) for k in c[:-2]] + [hfound, at(c[-1], hidx)]
-        return self.shard.all_gather(host, self.host_axis)
-
-    def lex_argmin_nodes(self, keys, mask, gids):
-        g = self._host_winners(keys, mask, gids)
+        g = self.shard.all_gather(host, self.host_axis)
         widx, wfound = lex_argmin(g[:-2], g[-2])
         return torch.where(wfound, at(g[-1], widx), 0).to(torch.int32), wfound
 

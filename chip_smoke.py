@@ -34,10 +34,12 @@ version. Phases, each printing one JSON line with its seconds:
    running jobs, on the "cuda" path: admitted, both kernels launched.
 6. sharded: the node-sharded round on a 2x2 (hosts, chips) mesh, four
    shard threads on cuda:k % card count, through
-   `resolve_solver("2x2", "cuda", devices=...)` (the host stage of every
-   node selection closed by the winner kernel). Each run is held to the
-   single-device "cuda" output of the same round on every array, num_loops
-   and spot_price included, and admitted by the round firewall:
+   `resolve_solver("2x2", "cuda", devices=...)` (the chip and the host
+   stage of every node selection closed by the winner kernel: in
+   gangs_100k, 2 x selects x 4 shards launches, required). Each run is
+   held to the single-device "cuda" output of the same round on every
+   array, num_loops and spot_price included, and admitted by the round
+   firewall:
    - round_50k, round_100k at half its shape (50,000 jobs x 2,500 nodes
      x 2,500 running jobs), solved on one device first: its 2,502 serial
      loops return evicted jobs to their own nodes, so it selects no node
@@ -58,34 +60,40 @@ version. Phases, each printing one JSON line with its seconds:
    a temporary .npz: rank 0's outputs bit-equal to the single-device
    "cuda" solve and admitted by the round firewall, every rank's equal,
    score_nodes, fill_take and winner_reduce launched (summed over the
-   ranks), CollectiveStats equal to phase 6's in-process 2x2 run. The
+   ranks; winner_reduce 2 x selects x 4 shards times), CollectiveStats
+   equal to phase 6's in-process 2x2 run. The
    round does not call the ring kernel (nor does the reference's), so the
    same workers then drive it over the host and the chip axis (n = 2
    each), and a second, ring-only launch on a 1x4 grid over its chip axis
    (n = 4): per axis, 100 calls for each K in {1, 3, 5} and found share
    0, 1/2 and 1 with fresh seeded rows (not-found rows tie), each call's
    result equal to the plain version's row on that member; then `ms` per
-   call (CUDA events) and per step, the profiler's device ms, the plain
-   version's ms and that of a gather plus winner_reduce on the same rows.
+   call (CUDA events), the profiler's device ms, the plain version's ms
+   and that of a gather plus winner_reduce on the same rows.
    Prints the backend, the rank-to-device map, each rank's solve seconds
    and each launch's seconds.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
-3, 8, 32, 33, 1024} and K in {1, 3, 5} (duplicate-heavy leading keys, a
-permutation as the last key; some found, none found), rows equal.
+3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
+permutation as the last key; some found, none found), on P rows as the
+sharded select gathers them and on the reference's rows padded to a power
+of two: the row, and the select's gid and found, equal; and times a
+one-element torch add on the device, the launch floor.
 
 Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
 the run where the round's three kernels must launch, and for the ring
 kernel from phase 7's ring drive; the other sharded runs' and the
 single-device counts beside them; times at the flagship's shapes,
-winner_reduce's at the round's P = 2, K = 3 and the ring's at n = 4,
-K = 3: `ms` per call from CUDA events, `device_ms` per launch from the
-profiler; fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's
-time there) and its cluster size, score_nodes' also through the plan,
+winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
+and found included) and the ring's at n = 4, K = 3 (and at n = 2,
+`ms_n2`): `ms` per call from CUDA events, `device_ms` per launch from the
+profiler, and for these two `floor_device_ms`, the launch floor;
+fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's time there)
+and its cluster size, score_nodes' also through the plan,
 `plan_ms` and `plan_device_ms`), one line of ptxas's registers and
-shared memory for fill_take_kernel's two instantiations (`nvcc -Xptxas
--v`), the card's name and power limit, and as the last line {"ok":
-true, "device": {...}}. Any failure exits non-zero before the last line.
+shared memory for fill_take_kernel's two instantiations and
+winner_reduce_kernel (`nvcc -Xptxas -v`), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Any failure exits non-zero before the last line.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -106,6 +114,7 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # The kernels a round launches; the ring kernel is driven in phase 7.
 ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
 RING_CALLS = 100  # per axis, K and found share
+WINNER_ROWS = (1, 2, 3, 8, 32, 33, 1024)  # P held on the card, at K = 1, 3, 5
 
 
 def emit(obj) -> None:
@@ -359,47 +368,72 @@ def phase_kernels():
     return checks, timing
 
 
+PROFILE_TRIES = 3
+
+
 def device_ms_many(fns, iters, kernel):
-    """device_ms for several callables in one profiler session."""
+    """device_ms for several callables in one profiler session. A session
+    whose trace lacks some of the launches (torch.profiler has been seen to
+    drop a session's kernel events on the card) is measured again, up to
+    PROFILE_TRIES sessions in all; every number comes from one session that
+    saw each launch."""
     from armada_tpu_torch.timing import device_ms as profiled
 
-    out = profiled(fns, iters, kernel)
-    for label, ms in out.items():
-        if ms is None:
-            raise AssertionError(f"the profiler did not see {iters} launches of {kernel} ({label})")
-    return out
+    for _ in range(PROFILE_TRIES):
+        out = profiled(fns, iters, kernel)
+        if all(ms is not None for ms in out.values()):
+            return out
+    raise AssertionError(
+        f"the profiler did not see {iters} launches of {kernel} in any of {PROFILE_TRIES} sessions"
+    )
+
+
+PTXAS_SOURCES = ("fill_take", "winner_reduce")
 
 
 def ptxas_start():
-    """Start nvcc -Xptxas -v on csrc/fill_take.cu (beside the build)."""
+    """Start nvcc -Xptxas -v on csrc/fill_take.cu and csrc/winner_reduce.cu
+    (beside the build)."""
     from armada_tpu_torch.ops import kernels as kt
 
     tmp = tempfile.mkdtemp(prefix="smoke-ptxas-")
     flags = [f for f in kt.NVCC_FLAGS if f != "-shared"]
-    cmd = [kt._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, "fill_take.cubin"),
-           str(kt.CSRC / "fill_take.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+    procs = {
+        src: subprocess.Popen(
+            [kt._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, f"{src}.cubin"),
+             str(kt.CSRC / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src in PTXAS_SOURCES
+    }
+    return procs, tmp
 
 
 def ptxas_finish(job):
     """Registers, shared memory, stack and spills of each fill_take_kernel
-    instantiation, from ptxas's report."""
+    instantiation and of winner_reduce_kernel, from ptxas's report."""
     import re
     import shutil
 
     from armada_tpu_torch.ops import kernels as kt
 
-    proc, tmp = job
-    log, _ = proc.communicate()
+    procs, tmp = job
+    logs = {src: proc.communicate()[0] for src, proc in procs.items()}
     shutil.rmtree(tmp, ignore_errors=True)
-    if proc.returncode != 0:
-        raise AssertionError(f"nvcc -Xptxas -v failed for fill_take.cu:\n{log}")
+    for src, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v failed for {src}.cu:\n{logs[src]}")
+    log = "\n".join(logs.values())
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            entry = ("fill_take_kernel<resident>" if "ILb1E" in name else "fill_take_kernel<streamed>")
+            width = re.search(r"winner_reduce_kernelILi(\d+)E", name)
+            if width:
+                entry = f"winner_reduce_kernel<{width.group(1)}>"
+            else:
+                entry = "fill_take_kernel<resident>" if "ILb1E" in name else "fill_take_kernel<streamed>"
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
@@ -409,8 +443,9 @@ def ptxas_finish(job):
                 "registers": int(m.group(1)),
                 "static_smem_bytes": int(smem.group(1)) if smem else 0,
                 "stack_bytes": int(stack.group(1)) if stack else 0,
-                "dynamic_smem_bytes_max": kt.fill_take_config(131072, kt.FILL_TAKE_MAX).smem_bytes,
             }
+            if entry.startswith("fill_take"):
+                out[entry]["dynamic_smem_bytes_max"] = kt.fill_take_config(131072, kt.FILL_TAKE_MAX).smem_bytes
             entry = None
     spills = [line.strip() for line in log.splitlines() if "spill" in line and "0 bytes spill" not in line]
     if spills:
@@ -419,7 +454,7 @@ def ptxas_finish(job):
 
 
 def winner_case(rng, p, n_keys, found_share):
-    """Gathered winner tuples of P hosts on the card: duplicate-heavy
+    """Gathered winner tuples of P members on the card: duplicate-heavy
     leading keys and a permutation (the node rank) as the last key."""
     import numpy as np
     import torch
@@ -436,8 +471,10 @@ def winner_case(rng, p, n_keys, found_share):
 
 
 def phase_winner():
-    """winner_reduce against its plain version on the card; timing at the
-    2x2 round's shape (P = 2 hosts, K = 3 keys)."""
+    """winner_reduce against its plain version on the card: the row and
+    the select's (gid, found), on P rows as the sharded select gathers
+    them and on the reference's rows padded to a power of two; timing at
+    the 2x2 round's shape (P = 2, K = 3) as the host stage calls it."""
     import numpy as np
 
     from armada_tpu_torch.ops import kernels as K
@@ -445,26 +482,49 @@ def phase_winner():
 
     rng = np.random.default_rng(2)
     checks = []
-    for p in (1, 2, 3, 8, 32, 33, 1024):
-        for n_keys in (1, 3, 5):
+    for p in WINNER_ROWS:
+        # Widths 3 to 7: 4-byte, 16-byte (K = 2) and 8-byte (K = 4) row loads.
+        for n_keys in (1, 2, 3, 4, 5):
             for share in (0.5, 0.0):
-                rows = K.winner_rows(*winner_case(rng, p, n_keys, share))
-                checks.append(check_equal(
-                    "winner_reduce", [K.winner_reduce_rows(rows)], [K.winner_reduce_plain(rows)],
-                    p=p, k=n_keys, found_share=share,
-                ))
+                padded = K.winner_rows(*winner_case(rng, p, n_keys, share))
+                for rows in (padded[:p], padded):
+                    want = K.winner_reduce_plain(rows)
+                    checks.append(check_equal(
+                        "winner_reduce", K.winner_reduce_rows(rows, pick=True),
+                        (want, *K.winner_pick_plain(want)),
+                        p=p, rows=int(rows.shape[0]), k=n_keys, found_share=share,
+                    ))
+                    checks.append(check_equal(
+                        "winner_reduce", [K.winner_reduce_rows(rows)], [want],
+                        p=p, rows=int(rows.shape[0]), k=n_keys, found_share=share, pick=False,
+                    ))
     rows = K.winner_rows(*winner_case(rng, 2, 3, 0.5))
     p, width = rows.shape
     timing = {
-        "ms": cuda_ms(lambda: K.winner_reduce_rows(rows), 200),
-        "device_ms": device_ms(lambda: K.winner_reduce_rows(rows), 50, "winner_reduce_kernel"),
-        "plain_ms": cuda_ms(lambda: K.winner_reduce_plain(rows), 50),
-        "bound_ms": (p * width * 4 + width * 4) / HBM_BYTES_PER_S * 1e3,
+        "ms": cuda_ms(lambda: K.winner_reduce_rows(rows, pick=True), 500),
+        "device_ms": device_ms(lambda: K.winner_reduce_rows(rows, pick=True), 200, "winner_reduce"),
+        "plain_ms": cuda_ms(lambda: winner_plain_pick(K, rows), 100),
+        # The rows read once; the row, the gid and found written once.
+        "bound_ms": (p * width * 4 + width * 4 + 4 + 1) / HBM_BYTES_PER_S * 1e3,
         "library_ms": None,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "shape": {"P": p, "K": width - 2},
     }
     return checks, timing
+
+
+def winner_plain_pick(K, rows):
+    row = K.winner_reduce_plain(rows)
+    return row, *K.winner_pick_plain(row)
+
+
+def floor_device_ms():
+    """The launch floor: device ms of a one-element torch add, the least a
+    launch that does anything costs on this card."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    return device_ms(lambda: x + 1, 200, "elementwise_kernel")
 
 
 def assert_same_outputs(got, want, what):
@@ -507,12 +567,25 @@ def run_sharded(dev, want, label, readback_rows, required):
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched in the sharded run")
+    if "winner_reduce" in required:
+        check_winner_launches(launches, run.last_stats.as_dict(), run.n_shards, label)
     return {
         "mesh": list(run.mesh_shape), "shards": {i: str(x) for i, x in enumerate(run.devices)},
         "solve_s": solve_s, "loops": int(out["num_loops"]), "loop_kinds": run.loop_stats,
         "launches": launches, "equals_single_device": True,
         "collective_stats": run.last_stats.as_dict(),
     }
+
+
+def check_winner_launches(launches, stats, shards, label):
+    """Both stages of every select through the winner kernel on a 2x2
+    mesh: two launches per select per shard."""
+    want = 2 * stats["selects"] * shards
+    if stats["selects"] <= 0 or launches["winner_reduce"] != want:
+        raise AssertionError(
+            f"{label}: winner_reduce launched {launches['winner_reduce']} times, expected "
+            f"2 x {stats['selects']} selects x {shards} shards = {want}"
+        )
 
 
 def run_round(n_jobs, n_nodes, paths, **inputs_kw):
@@ -594,7 +667,7 @@ def ring_record(res):
         per_rank = [w["ring"][axis] for w in res["workers"]]
         if any(r["mismatches"] for r in per_rank):
             raise AssertionError(f"ring_exchange disagrees with its plain version over {axis}")
-        keys = ("ms", "ms_per_step", "device_ms", "plain_ms", "gather_reduce_ms")
+        keys = ("ms", "device_ms", "plain_ms", "gather_reduce_ms")
         out[axis] = {
             "n": per_rank[0]["n"],
             "calls": sum(c["calls"] for c in per_rank[0]["cases"]),
@@ -630,6 +703,7 @@ def phase_multiproc(dev, want, readback_rows, inproc_stats):
     for name in ROUND_KERNELS:
         if solve["launches"][name] <= 0:
             raise AssertionError(f"multiproc gangs_100k: kernel {name} was not launched")
+    check_winner_launches(solve["launches"], solve["collectives"], 4, "multiproc gangs_100k")
     if solve["collectives"] != inproc_stats:
         raise AssertionError(
             f"multiproc CollectiveStats {solve['collectives']} differ from the in-process "
@@ -660,9 +734,11 @@ def phase_multiproc(dev, want, readback_rows, inproc_stats):
 
 
 def ring_timing(rec):
-    """The ring kernel's line entries at n = 4, K = 3 (the 1x4 chip axis),
-    means over the members, and its launches over both launches."""
+    """The ring kernel's line entries at n = 4, K = 3 (the 1x4 chip axis)
+    and at n = 2 (the 2x2 grid's chip axis), means over the members, and
+    its launches over both launches."""
     chips = rec["ring_1x4"]["ring"]["chips"]
+    pair = rec["gangs_100k_2x2"]["ring"]["chips"]
     mean = lambda xs: sum(xs) / len(xs) if all(x is not None for x in xs) else None  # noqa: E731
     n, width = chips["n"], 3 + 2
     launches = sum(a["launches"] for r in rec.values() for a in r["ring"].values())
@@ -670,11 +746,14 @@ def ring_timing(rec):
         raise AssertionError("kernel ring_exchange was not launched in the multi-process runs")
     return {
         "ms": mean(chips["ms"]),
-        "ms_per_step": mean(chips["ms_per_step"]),
         "device_ms": mean(chips["device_ms"]),
         "plain_ms": mean(chips["plain_ms"]),
         "gather_reduce_ms": mean(chips["gather_reduce_ms"]),
-        "bound_ms": (n - 1) * width * 4 / HBM_BYTES_PER_S * 1e3,
+        "ms_n2": mean(pair["ms"]),
+        "device_ms_n2": mean(pair["device_ms"]),
+        # One member's function: its own row and the n - 1 peers' rows read
+        # once, the result row written once.
+        "bound_ms": (n + 1) * width * 4 / HBM_BYTES_PER_S * 1e3,
         "library_ms": None,
         "max_abs_err": max(a["max_abs_err"] for r in rec.values() for a in r["ring"].values()),
         "launches": launches,
@@ -708,8 +787,9 @@ def main() -> int:
     t0 = time.time()
     checks, timing = phase_kernels()
     wchecks, timing["winner_reduce"] = phase_winner()
+    floor_ms = floor_device_ms()
     emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
-          "seconds": time.time() - t0})
+          "floor_device_ms": floor_ms, "seconds": time.time() - t0})
 
     t0 = time.time()
     res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"))
@@ -800,8 +880,10 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": tm["library_ms"],
             "shape": tm["shape"],
-            **({"ms_per_step": tm["ms_per_step"], "gather_reduce_ms": tm["gather_reduce_ms"]}
+            **({"gather_reduce_ms": tm["gather_reduce_ms"], "ms_n2": tm["ms_n2"],
+                "device_ms_n2": tm["device_ms_n2"]}
                if name == "ring_exchange" else {}),
+            **({"floor_device_ms": floor_ms} if name in ("winner_reduce", "ring_exchange") else {}),
             **({"cluster": tm["cluster"], "ms_at_8192": tm["ms_at_8192"],
                 "device_ms_at_8192": tm["at_8192"]["device_ms"],
                 "library_ms_at_8192": tm["at_8192"]["library_ms"],

@@ -246,23 +246,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 def test_winner_reduce_matches_plain_on_card(cuda_device):
     rng = np.random.default_rng(21)
     for p in (1, 2, 3, 8, 32, 33, 1024):
-        for n_keys in (1, 3, 5):
+        # Widths 3 to 16: 4-byte, 8-byte and 16-byte row loads.
+        for n_keys in (1, 2, 3, 4, 5, 6, 7, 14):
             for share in (0.0, 0.5):
                 keys, found, gids = _winner_inputs(rng, p, 3, share)
-                keys = (keys * 2)[:n_keys - 1] + [keys[-1]]
-                rows = tk.winner_rows(
+                keys = (keys * 5)[:n_keys - 1] + [keys[-1]]
+                padded = tk.winner_rows(
                     [torch.as_tensor(k, device=cuda_device) for k in keys],
                     torch.as_tensor(found, device=cuda_device),
                     torch.as_tensor(gids, device=cuda_device),
                 )
-                got = tk.winner_reduce_rows(rows)
-                want = tk.winner_reduce_plain(rows)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), (p, n_keys, share)
+                # P rows as the sharded select gathers them, and the
+                # reference's rows padded to a power of two.
+                for rows in (padded[:p], padded):
+                    got = tk.winner_reduce_rows(rows)
+                    want = tk.winner_reduce_plain(rows)
+                    row, gid, got_found = tk.winner_reduce_rows(rows, pick=True)
+                    want_gid, want_found = tk.winner_pick_plain(want)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (p, n_keys, share)
+                    assert torch.equal(row, want), (p, n_keys, share)
+                    assert gid.dtype == torch.int32 and got_found.dtype == torch.bool
+                    assert torch.equal(gid, want_gid) and torch.equal(got_found, want_found)
     with pytest.raises(TypeError):
         tk.winner_reduce_rows(rows.to(torch.int64))
     with pytest.raises(ValueError):
         tk.winner_reduce_rows(torch.zeros((1025, 3), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        tk.winner_reduce_rows(torch.zeros((2, tk.WINNER_MAX_WIDTH + 1), dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -284,6 +295,8 @@ def test_sharded_round_on_card_equals_cpu(cuda_device):
     K.reset_launches()
     got = on_card(dev)
     assert all(K.LAUNCHES[name] > 0 for name in ROUND_KERNELS), K.LAUNCHES
+    # Both stages of every select: two launches per select per shard.
+    assert K.LAUNCHES["winner_reduce"] == 2 * on_card.last_stats.selects * 4
     want = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)(dev)
     for k in want:
         assert np.array_equal(got[k], want[k], equal_nan=True), k
@@ -296,18 +309,20 @@ def _card_devices(n):
 
 @pytest.mark.cuda
 def test_ring_exchange_matches_plain_on_card(cuda_device, tmp_path):
-    """The ring kernel in four gloo processes on the cards (several may
-    share one): every call equals the plain version's row, over a 4-member
-    chip axis and a 1-member host axis."""
+    """The ring kernel in two and in four gloo processes on the cards
+    (several may share one): every call equals the plain version's row,
+    over a 2- and a 4-member chip axis and a 1-member host axis."""
     from armada_tpu_torch.parallel.launcher import launch
 
     tk.build_all()
-    res = launch(None, 1, 4, devices=_card_devices(4), backend="gloo", timeout_s=300.0,
-                 out_dir=tmp_path, ring_calls=5)
-    assert res["ok"], res.get("tails")
-    for report in res["workers"]:
-        assert report["ring"]["chips"]["mismatches"] == 0
-        assert report["ring"]["chips"]["launches"] > 0
+    for n in (2, 4):
+        res = launch(None, 1, n, devices=_card_devices(n), backend="gloo", timeout_s=300.0,
+                     out_dir=tmp_path, ring_calls=5)
+        assert res["ok"], res.get("tails")
+        for report in res["workers"]:
+            assert report["ring"]["chips"]["n"] == n
+            assert report["ring"]["chips"]["mismatches"] == 0
+            assert report["ring"]["chips"]["launches"] > 0
 
 
 @pytest.mark.cuda
@@ -329,6 +344,7 @@ def test_multiprocess_round_on_card_equals_cpu(cuda_device, tmp_path):
                  backend="gloo", kernel_path="cuda", timeout_s=300.0, out_dir=tmp_path)
     assert res["ok"], res.get("tails") or res.get("mismatch")
     assert all(res["launches"][name] > 0 for name in ROUND_KERNELS), res["launches"]
+    assert res["launches"]["winner_reduce"] == 2 * res["collectives"]["selects"] * 4
     inproc = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)
     want = inproc(dev)
     for k in want:

@@ -13,10 +13,19 @@
   selection equals the stable sort in both cases.
 - `pack_plan` agreeing, including the ineligible (None) case.
 - `winner_reduce_plain` against the Pallas `_winner_kernel` (interpret
-  mode) on the rows the port builds, and the `winner_reduce` wrapper
-  against the reference `winner_reduce`, on the cases of
+  mode) on the rows the port builds, and the wrapper's select outputs
+  (gid, found) against the reference `winner_reduce`, on the cases of
   tests/test_pallas_parity.py plus P = 3 and P = 33: duplicate-heavy
   leading keys with a permutation as the last key, and none found.
+- The "cuda" dist's select as rows: each shard's `winner_row` in the
+  reference's layout, both stages reduced, equal to the flat `lex_argmin`
+  and gid pick on duplicate-heavy blocks at C, H in {1, 2, 3, 4} (none
+  found included), the host rows also through the reference's
+  `winner_reduce`.
+- `ring_oneshot_simulate`, the one-shot kernel's fold, equal to the
+  reference loop (`ring_simulate` and the numpy transcription) at n in
+  {1, 2, 3, 4, 8}, K in {1, 3, 6}, found shares 0, 1/2 and 1, and on
+  tie-heavy rows.
 - `ring_winner_exchange_plain` against a numpy transcription of the
   reference ring loop (`pallas_kernels.py:532-563`) for every member, at
   n in {1, 2, 3, 4, 8}, K in {1, 3, 6} and found shares 0, 1/2 and 1,
@@ -192,17 +201,17 @@ def test_winner_reduce_plain_matches_reference(case):
     )(jnp.asarray(rows.numpy()))
     row = tk.winner_reduce_plain(rows)
     np.testing.assert_array_equal(row.numpy(), np.asarray(ref_row))
-    # The wrapper (plain version on CPU tensors) against the reference's.
+    # The wrapper's select outputs (plain version on CPU tensors) against
+    # the reference's: gid 0 when nothing is found, else the reference's.
     want_gid, want_found = pk.winner_reduce(
         [jnp.asarray(k) for k in keys], jnp.asarray(found), jnp.asarray(gids)
     )
     tk.reset_launches()
-    gid, got_found = tk.winner_reduce(
-        [torch.as_tensor(k) for k in keys], torch.as_tensor(found), torch.as_tensor(gids)
-    )
+    got_row, gid, got_found = tk.winner_reduce_rows(rows, pick=True)
+    assert torch.equal(got_row, row)
+    assert gid.dtype == torch.int32 and got_found.dtype == torch.bool
     assert bool(got_found) == bool(want_found) == bool(found.any())
-    if found.any():
-        assert int(gid) == int(want_gid)
+    assert int(gid) == (int(want_gid) if found.any() else 0)
     assert tk.LAUNCHES["winner_reduce"] == 0
 
 
@@ -210,9 +219,97 @@ def test_winner_reduce_refuses_keys_that_are_not_int32():
     keys, found, gids = _winner_case(0)
     found, gids = torch.as_tensor(found), torch.as_tensor(gids)
     with pytest.raises(TypeError):
-        tk.winner_reduce([torch.as_tensor(k).to(torch.int64) for k in keys], found, gids)
+        tk.winner_rows([torch.as_tensor(k).to(torch.int64) for k in keys], found, gids)
     with pytest.raises(TypeError):
-        tk.winner_reduce([torch.as_tensor(k) for k in keys], found, gids.to(torch.int64))
+        tk.winner_rows([torch.as_tensor(k) for k in keys], found, gids.to(torch.int64))
+    # The sharded select's own row: the same refusal, nothing cast.
+    with pytest.raises(TypeError):
+        tk.winner_row([torch.as_tensor(k).to(torch.int64) for k in keys], found, gids)
+    with pytest.raises(TypeError):
+        tk.winner_row([torch.as_tensor(k) for k in keys], found, gids.to(torch.int64))
+
+
+def _select_blocks(rng, n_shards, n_local, found_share):
+    """Keys of one select over n_shards node blocks of n_local nodes each:
+    two duplicate-heavy leading keys and a permutation (the node rank) as
+    the last, a mask with the given share, the global node ids as gids."""
+    n = n_shards * n_local
+    keys = [rng.integers(0, 3, size=n).astype(np.int32) for _ in range(2)]
+    keys.append(rng.permutation(n).astype(np.int32))
+    mask = rng.random(n) < found_share
+    return keys, mask, np.arange(n, dtype=np.int32) + 11
+
+
+def _two_stage_select(keys, mask, gids, h, c):
+    """The "cuda" dist's select on the CPU, shard by shard: each shard's
+    `winner_row`, the chip stage reducing each host's [C, K + 2] block,
+    the host stage reducing the [H, K + 2] block with the select's outputs.
+    Returns (gid, found, host rows)."""
+    n_local = len(mask) // (h * c)
+    host_rows = []
+    for host in range(h):
+        rows = []
+        for chip in range(c):
+            s = slice((host * c + chip) * n_local, (host * c + chip + 1) * n_local)
+            rows.append(tk.winner_row(
+                [torch.as_tensor(k[s]) for k in keys], torch.as_tensor(mask[s]),
+                torch.as_tensor(gids[s]),
+            ))
+        host_rows.append(tk.winner_reduce_rows(torch.stack(rows)) if c > 1 else rows[0])
+    host_rows = torch.stack(host_rows)
+    _, gid, found = tk.winner_reduce_rows(host_rows, pick=True)
+    return gid, found, host_rows
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_two_stage_row_select_matches_lex_argmin(h, c):
+    """Both stages of the "cuda" dist's select equal the flat `lex_argmin`
+    and gid pick (the single-device select) on duplicate-heavy blocks, none
+    found included, and the host stage's rows reduce as the reference's
+    `winner_reduce` (interpret mode) reduces them."""
+    from armada_tpu_torch.ops.select import lex_argmin
+
+    rng = np.random.default_rng((h, c))
+    tk.reset_launches()
+    for share in (0.5, 0.05, 0.0):
+        for _ in range(4):
+            keys, mask, gids = _select_blocks(rng, h * c, 6, share)
+            idx, want_found = lex_argmin([torch.as_tensor(k) for k in keys], torch.as_tensor(mask))
+            want_gid = int(gids[int(idx)]) if bool(want_found) else 0
+            gid, found, host_rows = _two_stage_select(keys, mask, gids, h, c)
+            assert gid.dtype == torch.int32 and gid.dim() == 0
+            assert found.dtype == torch.bool and found.dim() == 0
+            assert (int(gid), bool(found)) == (want_gid, bool(want_found))
+            assert bool(found) == bool(mask.any())
+            # Not-found rows: notfound 1 and the int32 sentinel in every key.
+            lost = host_rows[host_rows[:, 0] == 1]
+            assert (lost[:, 1:-1] == np.iinfo(np.int32).max).all()
+        rows = host_rows.numpy()
+        ref_gid, ref_found = pk.winner_reduce(
+            [jnp.asarray(rows[:, 1 + k]) for k in range(3)], jnp.asarray(rows[:, 0] == 0),
+            jnp.asarray(rows[:, -1]),
+        )
+        assert bool(ref_found) == bool(found)
+        if bool(found):
+            assert int(ref_gid) == int(gid)
+    assert tk.LAUNCHES["winner_reduce"] == 0
+
+
+def test_winner_row_is_the_local_select_in_the_reference_layout():
+    from armada_tpu_torch.ops.select import lex_argmin
+
+    rng = np.random.default_rng(3)
+    for share in (0.5, 0.0, 1.0):
+        keys, mask, gids = _select_blocks(rng, 1, 40, share)
+        tkeys = [torch.as_tensor(k) for k in keys]
+        row = tk.winner_row(tkeys, torch.as_tensor(mask), torch.as_tensor(gids))
+        idx, found = lex_argmin(tkeys, torch.as_tensor(mask))
+        want = tk.winner_rows(
+            [k[int(idx)].reshape(1) for k in tkeys], found.reshape(1),
+            torch.as_tensor(gids[int(idx)]).reshape(1),
+        )[0]
+        assert row.dtype == torch.int32 and torch.equal(row, want)
 
 
 class _SlowCounts(dict):
@@ -309,6 +406,27 @@ def test_ring_plain_matches_reference_loop(n, n_keys, share):
     )
     assert bool(want_found)
     assert (result[:, 0] == 0).all() and (result[:, -1] == int(want_gid)).all()
+
+
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("n_keys", [1, 3, 6])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_ring_oneshot_fold_equals_ring_loop(n, n_keys, share):
+    """The one-shot kernel's fold (each member folds the others' rows in
+    the order i - 1, i - 2, ...) equals the reference loop for every
+    member, on the launcher's rows and on tie-heavy rows (every column
+    from two values, found rows tying too)."""
+    from armada_tpu_torch.parallel.launcher import ring_rows
+
+    rng = np.random.default_rng((n, n_keys, int(share * 2), 1))
+    for call in range(6):
+        rows = ring_rows((n, n_keys, int(share * 2), call), n, n_keys, share)
+        tied = rng.integers(0, 2, size=rows.shape).astype(np.int32)
+        tied[:, 0] = np.where(rows[:, 0] == 0, tied[:, 0], 1)
+        for m in (rows, tied):
+            got = tk.ring_oneshot_simulate(torch.as_tensor(m))
+            assert torch.equal(got, tk.ring_simulate(torch.as_tensor(m)))
+            np.testing.assert_array_equal(got.numpy(), _ring_reference(m))
 
 
 def test_ring_wrapper_refuses_what_the_kernel_does_not_take():

@@ -343,3 +343,73 @@ def test_resolve_solver_needs_a_card_per_shard_by_default(monkeypatch, cards):
     if cards:
         run = resolve_solver("1x2")
         assert [str(d) for d in run.devices] == ["cuda:0", "cuda:1"]
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (2, 4)])
+def test_cuda_dist_selects_and_books_as_the_pallas_dist(mesh):
+    """Three selects through CudaHierarchicalDist (shard threads on the
+    CPU, the winner kernel's plain version) and through the JAX package's
+    PallasHierarchicalDist (shard_map over the virtual CPU mesh, the tree
+    kernel in interpret mode) on the same node-sharded keys, none found
+    included: the same (gid, found) and CollectiveStats equal field for
+    field. The reference books each select site once when it traces, the
+    port each select it runs, so each select runs once."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec
+
+    from armada_tpu.parallel.mesh import shard_map_compat
+    from armada_tpu.parallel.multihost import CHIP_AXIS, HOST_AXIS
+    from armada_tpu.parallel.multihost import make_host_mesh as ref_host_mesh
+    from armada_tpu.solver.dist import CollectiveStats as RefStats
+    from armada_tpu.solver.dist_pallas import PallasHierarchicalDist
+    from armada_tpu_torch.solver.dist import CollectiveStats
+    from armada_tpu_torch.solver.dist_cuda import CudaHierarchicalDist
+
+    h, c = mesh
+    n_local = 8
+    rng = np.random.default_rng(mesh)
+    cases = []
+    for share in (0.5, 0.0, 0.1):
+        n = h * c * n_local
+        keys = [rng.integers(0, 3, size=n).astype(np.int32) for _ in range(2)]
+        keys.append(rng.permutation(n).astype(np.int32))
+        cases.append((keys, rng.random(n) < share, np.arange(n, dtype=np.int32)))
+
+    ref = PallasHierarchicalDist(HOST_AXIS, CHIP_AXIS, h, c, stats=RefStats())
+
+    def body(*flat):
+        ref.stats.begin_trace()
+        outs = []
+        for i in range(len(cases)):
+            k0, k1, k2, mask, gids = flat[5 * i:5 * i + 5]
+            gid, found = ref.lex_argmin_nodes([k0, k1, k2], mask, gids)
+            outs += [gid, found]
+        return tuple(outs)
+
+    spec = PartitionSpec((HOST_AXIS, CHIP_AXIS))
+    flat = [jnp.asarray(a) for keys, mask, gids in cases for a in (*keys, mask, gids)]
+    fn = shard_map_compat(body, ref_host_mesh(h, c, jax.devices()[:h * c]),
+                          in_specs=(spec,) * len(flat), out_specs=PartitionSpec())
+    want = [int(x) for x in jax.jit(fn)(*flat)]
+
+    dist = CudaHierarchicalDist(HOST_AXIS, CHIP_AXIS, h, c, stats=CollectiveStats())
+    group = comm.ShardGroup((HOST_AXIS, CHIP_AXIS), (h, c), ["cpu"] * (h * c))
+
+    def shard_fn(shard):
+        bound = dist.bind(shard)
+        s = slice(shard.index * n_local, (shard.index + 1) * n_local)
+        outs = []
+        for keys, mask, gids in cases:
+            gid, found = bound.lex_argmin_nodes(
+                [torch.as_tensor(k[s]) for k in keys], torch.as_tensor(mask[s]),
+                torch.as_tensor(gids[s]),
+            )
+            outs += [int(gid), int(found)]
+        return outs
+
+    for got in group.run(shard_fn):
+        assert got == want
+    assert want[3] == 0 and want[2] == 0  # the none-found case
+    assert dataclasses.asdict(dist.stats) == dataclasses.asdict(ref.stats)
+    assert dist.stats.selects == len(cases) and dist.stats.pallas_calls == len(cases)
