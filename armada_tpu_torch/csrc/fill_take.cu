@@ -56,6 +56,22 @@
 //      bitonic sort in shared memory needs a block barrier for each of its
 //      45 steps at want = 512, where the merges need two per level (four
 //      levels at 512).
+// Past kMaxTake survivors (want > 2,048: a batch window above 2,048 on a
+// device with more nodes) they do not fit CTA 0's shared memory. Steps 1
+// to 3 run as above, but the compaction writes exactly want survivors, in
+// index order, to a global scratch that the wrapper allocates once per
+// call (two ping-pong buffers of want keys and indices); then two more
+// kernels of this file sort them by (key, index):
+//   5. sort_runs_kernel: block b sorts survivors [2,048 b, 2,048 (b + 1))
+//      in shared memory with step 4's sort;
+//   6. merge_kernel, once per level w = 2,048, 4,096, ...: every survivor
+//      moves to its index in its run plus the count of the partner run's
+//      survivors below it (a binary search in global memory, the partner
+//      run cut at want), so two sorted runs of w become one of 2w; the
+//      last level writes the outputs. (key, index) pairs are distinct, so
+//      the ranks form a permutation.
+// Each level is one read and one write of want pairs (12 bytes each) with
+// log2(w) + 1 probes a survivor: a few microseconds at want = 8,192.
 // When the cluster is one CTA, its barriers are the block's own. Beyond the
 // cluster's shared memory (more than kResidentKeys keys a CTA, N > 131,072;
 // no round in the repository reaches it, the flagship pads to 65,536) the
@@ -164,10 +180,108 @@ __device__ __forceinline__ int count_less(const uint64_t* ak, const int32_t* ai,
   return pos + (item_less(ak[pos], ai[pos], k, i) ? 1 : 0);
 }
 
+// Items of the sorted run a[0, len) less than (k, i), len any count up to
+// a run's width: a binary search (lower bound) in global memory.
+__device__ __forceinline__ int count_less_n(const uint64_t* __restrict__ ak,
+                                            const int32_t* __restrict__ ai, int len, uint64_t k,
+                                            int32_t i) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (item_less(ak[mid], ai[mid], k, i)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Sorts the items [0, want) of s_skey/s_sidx (want <= kMaxTake, p2 the
+// power of two at least want) by (key, index), in place, with the whole
+// block of kThreads: thread t holds items t and t + 1,024; each warp sorts
+// its 32 with a bitonic network over shuffles, then log2(p2 / 32) merge
+// levels place each at its rank in the merged run (its index in its own
+// run plus the count of the partner run's items less than it, by binary
+// search). Padding items past want sort last: key ~0 and indices above
+// every real index. Ends with a block barrier.
+__device__ __forceinline__ void sort_items(uint64_t* s_skey, int32_t* s_sidx, int want, int p2) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int per = p2 > kThreads ? 2 : 1;
+  uint64_t ek[2];
+  int32_t ei[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = tid + e * kThreads;
+    const bool real = i < want;
+    ek[e] = real ? s_skey[i] : ~0ull;
+    ei[e] = real ? s_sidx[i] : kPadIndex + i;
+  }
+  for (int kk = 2; kk <= 32 && kk <= p2 && warp * 32 < p2; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (e < per) {
+          const uint64_t pk = __shfl_xor_sync(0xffffffffu, ek[e], j);
+          const int32_t pi = __shfl_xor_sync(0xffffffffu, ei[e], j);
+          const bool up = (lane & kk) == 0;
+          const bool lower = (lane & j) == 0;
+          // The lower slot of an ascending pair (the upper of a descending
+          // one) keeps the smaller item.
+          if (item_less(ek[e], ei[e], pk, pi) != (lower == up)) {
+            ek[e] = pk;
+            ei[e] = pi;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every item has been read into registers
+  int at[2];  // where each of this thread's items sits now (-1: none)
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = tid + e * kThreads;
+    at[e] = (e < per && i < p2) ? i : -1;
+    if (at[e] >= 0) {
+      s_skey[i] = ek[e];
+      s_sidx[i] = ei[e];
+    }
+  }
+  for (int w = 32; w < p2; w <<= 1) {
+    __syncthreads();
+    int dst[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dst[e] = at[e];
+      if (at[e] >= 0) {
+        const int run0 = at[e] & ~(2 * w - 1);          // the merged run's start
+        const int partner = run0 + ((at[e] & w) ^ w);  // the other half's start
+        dst[e] = run0 + (at[e] & (w - 1)) +
+                 count_less(s_skey + partner, s_sidx + partner, w, ek[e], ei[e]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      at[e] = dst[e];
+      if (at[e] >= 0) {
+        s_skey[at[e]] = ek[e];
+        s_sidx[at[e]] = ei[e];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// g_skey/g_sidx: null, or the global survivor scratch of the want > kMaxTake
+// path (step 3 writes there and the kernel ends; see the top of the file).
 template <bool kResident>
 __global__ void __launch_bounds__(kThreads)
 fill_take_kernel(const int64_t* __restrict__ key, int n, int want, int keys_per_cta,
-                 int64_t* __restrict__ take_key, int32_t* __restrict__ take) {
+                 int64_t* __restrict__ take_key, int32_t* __restrict__ take,
+                 uint64_t* __restrict__ g_skey, int32_t* __restrict__ g_sidx) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned int hist[2][kBins];
   __shared__ unsigned int warp_tot[kThreads / 32];
@@ -187,7 +301,8 @@ fill_take_kernel(const int64_t* __restrict__ key, int n, int want, int keys_per_
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int p2 = pow2_at_least(want);
+  const bool global_sort = g_skey != nullptr;
+  const int p2 = global_sort ? 0 : pow2_at_least(want);  // no survivors in shared memory
   uint64_t* s_skey = reinterpret_cast<uint64_t*>(smem);
   int32_t* s_sidx = reinterpret_cast<int32_t*>(smem + p2 * 8);
 
@@ -393,8 +508,8 @@ fill_take_kernel(const int64_t* __restrict__ key, int n, int want, int keys_per_
   // Compaction in index order, in tiles of kTile keys: warp w takes chunks
   // of 32 consecutive keys, so ballots give each key's rank among its
   // warp's; one scan over the warps places the warps.
-  uint64_t* dst_key = cluster.map_shared_rank(s_skey, 0);
-  int32_t* dst_idx = cluster.map_shared_rank(s_sidx, 0);
+  uint64_t* dst_key = global_sort ? g_skey : cluster.map_shared_rank(s_skey, 0);
+  int32_t* dst_idx = global_sort ? g_sidx : cluster.map_shared_rank(s_sidx, 0);
   const unsigned int below_lane = (1u << lane) - 1u;
   int placed = 0;
   int eq_seen = 0;
@@ -451,82 +566,63 @@ fill_take_kernel(const int64_t* __restrict__ key, int n, int want, int keys_per_
     eq_seen += static_cast<int>(tile & 0xffffu);
     __syncthreads();  // warp_tot is reused by the next tile
   }
-  cluster_barrier();  // every survivor is in CTA 0; no CTA reads another's after this
-  if (me != 0) return;
+  cluster_barrier();  // every survivor is in place; no CTA reads another's after this
+  if (me != 0 || global_sort) return;
 
-  // 4. Sort the survivors by (key, index) in CTA 0: thread t holds items t
-  // and t + 1,024; each warp sorts its 32 with a bitonic network over
-  // shuffles, then log2(p2 / 32) merge levels place each item at its rank
-  // in the merged run (its index in its own run plus the count of the
-  // partner run's items less than it, by binary search). Padding items past
-  // want sort last: key ~0 and indices above every real index.
-  const int per = p2 > kThreads ? 2 : 1;
-  uint64_t ek[2];
-  int32_t ei[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int i = tid + e * kThreads;
-    const bool real = i < want;
-    ek[e] = real ? s_skey[i] : ~0ull;
-    ei[e] = real ? s_sidx[i] : kPadIndex + i;
-  }
-  for (int kk = 2; kk <= 32 && kk <= p2 && warp * 32 < p2; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (e < per) {
-          const uint64_t pk = __shfl_xor_sync(0xffffffffu, ek[e], j);
-          const int32_t pi = __shfl_xor_sync(0xffffffffu, ei[e], j);
-          const bool up = (lane & kk) == 0;
-          const bool lower = (lane & j) == 0;
-          // The lower slot of an ascending pair (the upper of a descending
-          // one) keeps the smaller item.
-          if (item_less(ek[e], ei[e], pk, pi) != (lower == up)) {
-            ek[e] = pk;
-            ei[e] = pi;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // every survivor has been read into registers
-  int at[2];  // where each of this thread's items sits now (-1: none)
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int i = tid + e * kThreads;
-    at[e] = (e < per && i < p2) ? i : -1;
-    if (at[e] >= 0) {
-      s_skey[i] = ek[e];
-      s_sidx[i] = ei[e];
-    }
-  }
-  for (int w = 32; w < p2; w <<= 1) {
-    __syncthreads();
-    int dst[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      dst[e] = at[e];
-      if (at[e] >= 0) {
-        const int run0 = at[e] & ~(2 * w - 1);          // the merged run's start
-        const int partner = run0 + ((at[e] & w) ^ w);  // the other half's start
-        dst[e] = run0 + (at[e] & (w - 1)) +
-                 count_less(s_skey + partner, s_sidx + partner, w, ek[e], ei[e]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      at[e] = dst[e];
-      if (at[e] >= 0) {
-        s_skey[at[e]] = ek[e];
-        s_sidx[at[e]] = ei[e];
-      }
-    }
-  }
-  __syncthreads();
+  // 4. Sort the survivors by (key, index) in CTA 0.
+  sort_items(s_skey, s_sidx, want, p2);
   for (int i = tid; i < want; i += kThreads) {
     take_key[i] = static_cast<int64_t>(s_skey[i] ^ kSign);
     take[i] = s_sidx[i];
+  }
+}
+
+// 5. Block b sorts the global survivors [b kMaxTake, min(want, (b + 1)
+// kMaxTake)) in place.
+__global__ void __launch_bounds__(kThreads)
+sort_runs_kernel(uint64_t* __restrict__ g_skey, int32_t* __restrict__ g_sidx, int want) {
+  __shared__ uint64_t s_skey[kMaxTake];
+  __shared__ int32_t s_sidx[kMaxTake];
+  const int base = blockIdx.x * kMaxTake;
+  const int len = min(kMaxTake, want - base);
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    s_skey[i] = g_skey[base + i];
+    s_sidx[i] = g_sidx[base + i];
+  }
+  __syncthreads();
+  sort_items(s_skey, s_sidx, len, pow2_at_least(len));
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    g_skey[base + i] = s_skey[i];
+    g_sidx[base + i] = s_sidx[i];
+  }
+}
+
+constexpr int kMergeThreads = 256;
+
+// 6. One merge level: the sorted runs of w (the last one cut at want) pair
+// up into sorted runs of 2w, src to dst; out_key/out_idx, when given,
+// receive the last level's result as the kernel's outputs instead.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const uint64_t* __restrict__ src_k, const int32_t* __restrict__ src_i,
+             uint64_t* __restrict__ dst_k, int32_t* __restrict__ dst_i, int want, int w,
+             int64_t* __restrict__ out_key, int32_t* __restrict__ out_idx) {
+  const long long at = static_cast<long long>(blockIdx.x) * kMergeThreads + threadIdx.x;
+  if (at >= want) return;
+  const uint64_t k = src_k[at];
+  const int32_t i = src_i[at];
+  const long long ww = w;
+  const long long run0 = at & ~(2 * ww - 1);
+  const long long half = at & ww;
+  const long long partner = run0 + (half ^ ww);
+  const int partner_len = static_cast<int>(max(0ll, min(ww, want - partner)));
+  const long long dst = at - half +
+                        count_less_n(src_k + partner, src_i + partner, partner_len, k, i);
+  if (out_key != nullptr) {
+    out_key[dst] = static_cast<int64_t>(k ^ kSign);
+    out_idx[dst] = i;
+  } else {
+    dst_k[dst] = k;
+    dst_i[dst] = i;
   }
 }
 
@@ -560,13 +656,41 @@ int prepare(int cluster, int smem, int* max_clusters) {
 
 template <bool kResident>
 int launch(const int64_t* key, int n, int want, int keys_per_cta, int cluster, int smem,
-           int64_t* take_key, int32_t* take, cudaStream_t stream) {
+           int64_t* take_key, int32_t* take, unsigned char* scratch, cudaStream_t stream) {
+  // The global path's scratch: keys A, keys B, indices A, indices B.
+  uint64_t* ka = nullptr;
+  uint64_t* kb = nullptr;
+  int32_t* ia = nullptr;
+  int32_t* ib = nullptr;
+  if (scratch != nullptr) {
+    ka = reinterpret_cast<uint64_t*>(scratch);
+    kb = ka + want;
+    ia = reinterpret_cast<int32_t*>(kb + want);
+    ib = ia + want;
+  }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = launch_config(cluster, smem, stream, &attr);
   cudaError_t e = cudaLaunchKernelEx(&cfg, fill_take_kernel<kResident>, key, n, want,
-                                     keys_per_cta, take_key, take);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+                                     keys_per_cta, take_key, take, ka, ia);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess || scratch == nullptr) return static_cast<int>(e);
+  sort_runs_kernel<<<(want + kMaxTake - 1) / kMaxTake, kThreads, 0, stream>>>(ka, ia, want);
+  e = cudaGetLastError();
+  const int blocks = (want + kMergeThreads - 1) / kMergeThreads;
+  for (long long w = kMaxTake; e == cudaSuccess && w < want; w *= 2) {
+    const bool last = 2 * w >= want;
+    merge_kernel<<<blocks, kMergeThreads, 0, stream>>>(ka, ia, kb, ib, want, static_cast<int>(w),
+                                                       last ? take_key : nullptr,
+                                                       last ? take : nullptr);
+    e = cudaGetLastError();
+    uint64_t* tk = ka;
+    ka = kb;
+    kb = tk;
+    int32_t* ti = ia;
+    ia = ib;
+    ib = ti;
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -579,13 +703,17 @@ extern "C" int armada_fill_take_prepare(int cluster, int smem, int resident, int
                   : prepare<false>(cluster, smem, max_clusters);
 }
 
-// take: want int32 indices; take_key: their want int64 keys.
+// take: want int32 indices; take_key: their want int64 keys; scratch: null
+// for want <= kMaxTake, else 24 x want bytes (16-byte aligned) for the
+// global sort.
 extern "C" int armada_fill_take(const void* key, int n, int want, int keys_per_cta, int cluster,
-                                int resident, int smem, void* take, void* take_key, void* stream) {
+                                int resident, int smem, void* take, void* take_key, void* scratch,
+                                void* stream) {
   const int64_t* k = static_cast<const int64_t*>(key);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* tk = static_cast<int64_t*>(take_key);
   int32_t* ti = static_cast<int32_t*>(take);
-  return resident ? launch<true>(k, n, want, keys_per_cta, cluster, smem, tk, ti, s)
-                  : launch<false>(k, n, want, keys_per_cta, cluster, smem, tk, ti, s);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  return resident ? launch<true>(k, n, want, keys_per_cta, cluster, smem, tk, ti, sc, s)
+                  : launch<false>(k, n, want, keys_per_cta, cluster, smem, tk, ti, sc, s);
 }

@@ -9,9 +9,11 @@ Two kernels carry the batched fill loop (once per loop each):
   per-round `ScorePlan` (`plan.score(alloc0, j)`), which checks the
   round's tables once and lets the kernel read job j's rows itself.
 - `fill_take` (csrc/fill_take.cu): the B smallest packed keys in
-  stable-sort order, a radix select over a thread block cluster
-  (`fill_take_config` picks its shape; `fill_take_cluster_simulate` is
-  its algorithm on the CPU). Replaces the JAX package's lax `fill_take`.
+  stable-sort order, a radix select over a thread block cluster, the
+  survivors sorted in shared memory up to FILL_TAKE_MAX of them and in
+  global memory past it (`fill_take_config` picks its shape;
+  `fill_take_cluster_simulate` is its algorithm on the CPU). Replaces the
+  JAX package's lax `fill_take`.
 
 One closes both stages of every candidate selection of the node-sharded
 round on a (hosts, chips) mesh (solver/dist_cuda.py):
@@ -67,13 +69,14 @@ NVCC_FLAGS = (
 KERNELS = ("score_nodes", "fill_take", "winner_reduce", "ring_exchange")
 
 # Kernel launches since the last reset_launches(); only a wrapper's
-# kernel launch counts, never its plain version. _LAUNCH_LOCK guards the
-# read-modify-write of a count.
-LAUNCHES = {name: 0 for name in KERNELS}
+# kernel launch counts, never its plain version. "fill_take_global_sort"
+# counts the fill_take launches that also sort the survivors in the global
+# scratch. _LAUNCH_LOCK guards the read-modify-write of a count.
+LAUNCHES = {name: 0 for name in KERNELS + ("fill_take_global_sort",)}
 _LAUNCH_LOCK = threading.Lock()
 
 BIG_I32 = 2**30
-FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: survivors sorted in shared memory
+FILL_TAKE_MAX = 2048  # csrc/fill_take.cu kMaxTake: most survivors sorted in shared memory
 FILL_TAKE_MAX_KEYS = 2**31 - 2**11  # index arithmetic stays in int32
 FILL_TAKE_CTA_KEYS = 8192  # keys a CTA of the cluster aims at
 FILL_TAKE_MAX_CLUSTER = 8  # the portable cluster size
@@ -187,7 +190,7 @@ _SIGNATURES = {
         "armada_score_plan": [_ScorePlanC, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4,
     },
     "fill_take": {
-        "armada_fill_take": [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
+        "armada_fill_take": [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
         "armada_fill_take_prepare": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
     },
     "winner_reduce": {
@@ -493,12 +496,22 @@ class FillTakeConfig:
     """The launch shape of csrc/fill_take.cu for N keys and want outputs:
     `cluster` CTAs, each owning `keys_per_cta` keys (even, so every slice of
     an aligned tensor starts 16-byte aligned); `resident` when a CTA holds
-    its slice in shared memory; `smem_bytes` of dynamic shared memory."""
+    its slice in shared memory; `smem_bytes` of dynamic shared memory;
+    `global_sort` when want > FILL_TAKE_MAX survivors are sorted in global
+    memory (a scratch of `scratch_bytes(want)`) instead of CTA 0's shared
+    memory."""
 
     cluster: int
     keys_per_cta: int
     smem_bytes: int
     resident: bool
+    global_sort: bool = False
+
+    @staticmethod
+    def scratch_bytes(want: int) -> int:
+        """The global sort's scratch: two buffers of want keys (8 bytes)
+        and want indices (4 bytes)."""
+        return 24 * want
 
 
 @functools.lru_cache(maxsize=256)
@@ -508,10 +521,12 @@ def fill_take_config(n: int, want: int) -> FillTakeConfig:
     the CTAs take more, resident in shared memory up to
     FILL_TAKE_RESIDENT_KEYS each and streamed from global memory beyond.
     The shared-memory layout is the kernel's: survivor keys and indices
-    (want rounded up to a power of two, 12 bytes each), then from a
-    16-byte boundary the resident keys with one slot of slack."""
-    if not 1 <= want <= min(n, FILL_TAKE_MAX):
-        raise ValueError(f"fill_take: min(B, N) = {want} outside [1, {FILL_TAKE_MAX}]")
+    (want rounded up to a power of two, 12 bytes each; none when want >
+    FILL_TAKE_MAX, whose survivors are sorted in global memory), then from
+    a 16-byte boundary the resident keys with one slot of slack. Takes any
+    1 <= want <= N <= FILL_TAKE_MAX_KEYS."""
+    if not 1 <= want <= n:
+        raise ValueError(f"fill_take: min(B, N) = {want} outside [1, N = {n}]")
     if n > FILL_TAKE_MAX_KEYS:
         raise ValueError(f"fill_take: more than {FILL_TAKE_MAX_KEYS} keys")
     cluster = 1
@@ -520,9 +535,10 @@ def fill_take_config(n: int, want: int) -> FillTakeConfig:
     per_cta = -(-n // cluster)
     per_cta += per_cta & 1
     resident = per_cta <= FILL_TAKE_RESIDENT_KEYS
-    p2 = 1 << (want - 1).bit_length()
+    global_sort = want > FILL_TAKE_MAX
+    p2 = 0 if global_sort else 1 << (want - 1).bit_length()
     smem = (p2 * 12 + 15) // 16 * 16 + ((per_cta + 1) * 8 if resident else 0)
-    return FillTakeConfig(cluster, per_cta, smem, resident)
+    return FillTakeConfig(cluster, per_cta, smem, resident, global_sort)
 
 
 def fill_take_cluster_simulate(key, B, n_ctas):
@@ -536,8 +552,11 @@ def fill_take_cluster_simulate(key, B, n_ctas):
     key <= T is kept and none == T is budgeted. Then each slice counts its
     keys < T and == T, keeps its keys < T and its first max(0, need_eq -
     (== T in earlier slices)) keys == T at the offset of the earlier
-    slices' survivors, and the index-ordered survivors are sorted stably
-    by key."""
+    slices' survivors, and the index-ordered survivors are sorted by (key,
+    index): at once up to FILL_TAKE_MAX of them, as CTA 0 sorts them; past
+    it as the global path does, runs of FILL_TAKE_MAX sorted, then merge
+    levels that move each survivor to its index in its run plus the count
+    of the partner run's survivors below it."""
     keys = key.cpu().numpy().astype(np.int64)
     n = keys.shape[0]
     want = min(int(B), n)
@@ -583,9 +602,36 @@ def fill_take_cluster_simulate(key, B, n_ctas):
         eq_before += eq[q]
     if off != want:
         raise AssertionError("fill_take_cluster_simulate: survivors disagree")
-    order = np.argsort(out_key, kind="stable")
-    take = torch.as_tensor(out_idx[order].astype(np.int32))
-    return take, torch.as_tensor((out_key[order] ^ np.uint64(1 << 63)).view(np.int64))
+    if want <= FILL_TAKE_MAX:
+        order = np.argsort(out_key, kind="stable")
+        out_key, out_idx = out_key[order], out_idx[order]
+    else:
+        out_key, out_idx = _global_sort_simulate(out_key, out_idx)
+    take = torch.as_tensor(out_idx.astype(np.int32))
+    return take, torch.as_tensor((out_key ^ np.uint64(1 << 63)).view(np.int64))
+
+
+def _global_sort_simulate(key, idx):
+    """The global path's sort of index-ordered survivors (csrc/fill_take.cu
+    sort_runs_kernel and merge_kernel): runs of FILL_TAKE_MAX sorted by
+    (key, index), then per level w each survivor moves to its index in
+    its run plus the count of the partner run's survivors below it; the
+    (key, index) pairs are distinct, so the counts form a permutation."""
+    pairs = np.empty(key.shape[0], dtype=[("k", np.uint64), ("i", np.int64)])
+    pairs["k"], pairs["i"] = key, idx
+    want = pairs.shape[0]
+    for s in range(0, want, FILL_TAKE_MAX):
+        pairs[s:s + FILL_TAKE_MAX] = np.sort(pairs[s:s + FILL_TAKE_MAX], order=("k", "i"))
+    w = FILL_TAKE_MAX
+    while w < want:
+        out = np.empty_like(pairs)
+        for run0 in range(0, want, 2 * w):
+            left, right = pairs[run0:run0 + w], pairs[run0 + w:run0 + 2 * w]
+            for own, other in ((left, right), (right, left)):
+                below = np.searchsorted(other, own)
+                out[run0 + np.arange(own.shape[0]) + below] = own
+        pairs, w = out, 2 * w
+    return pairs["k"], pairs["i"]
 
 
 _cluster_checked: set = set()
@@ -615,8 +661,9 @@ def _fill_take_fits(device, cfg: FillTakeConfig) -> None:
 def fill_take(key, B):
     """Indices of the B smallest entries of an int64 key in stable-sort
     order, masked sentinel tail included: (take int32[min(B, N)],
-    key[take] int64). The kernel takes 1 <= min(B, N) <= FILL_TAKE_MAX
-    and N <= FILL_TAKE_MAX_KEYS."""
+    key[take] int64). The kernel takes any 1 <= min(B, N) and N <=
+    FILL_TAKE_MAX_KEYS; past FILL_TAKE_MAX it sorts the survivors in a
+    global scratch, one allocation per call."""
     if key.device.type == "cpu":
         return fill_take_plain(key, B)
     device = key.device
@@ -629,10 +676,15 @@ def fill_take(key, B):
     _fill_take_fits(device, cfg)
     take = torch.empty(want, dtype=torch.int32, device=device)
     take_key = torch.empty(want, dtype=torch.int64, device=device)
+    scratch = None
+    if cfg.global_sort:
+        scratch = torch.empty(cfg.scratch_bytes(want), dtype=torch.uint8, device=device)
     _launch(
         "fill_take", _ptr(key), n, want, cfg.keys_per_cta, cfg.cluster, int(cfg.resident),
-        cfg.smem_bytes, _ptr(take), _ptr(take_key), _stream(device),
+        cfg.smem_bytes, _ptr(take), _ptr(take_key), _ptr(scratch), _stream(device),
     )
+    if cfg.global_sort:
+        count_launch("fill_take_global_sort")
     return take, take_key
 
 

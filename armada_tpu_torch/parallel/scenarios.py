@@ -1,0 +1,125 @@
+"""The mixed-fleet home/away round on the port's types: the JAX package's
+`parallel/scenarios.py` `away_config`, `_gang_for` and `home_away_round`,
+copied so that the port's tools and chip_smoke.py can build the round
+without the JAX package.
+
+One deterministic workload with the regimes the sharded-solve parity runs
+cover: a HOME pool whose config borrows an AWAY pool's tainted nodes
+(PoolConfig.away_pools and per-priority-class away node types), mixed
+gangs (singletons and gangs of 2, 4 and 8), and running jobs that
+over-pack two queues, so that balance eviction and the fair-preemption
+walk run. The config turns fast fill on with a real burst, the batched
+regime the bench ships with. Everything is seeded: every process of a
+multi-process run builds the same snapshot.
+
+The reference's `market_config`, `market_round` and `mixed_fleet_rounds`
+(the market pool) are not copied yet: market-driven rounds are a later
+slice of the port (ROADMAP A4), and they come with it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.config import PoolConfig, RateLimits, SchedulingConfig
+from ..core.priorities import AwayNodeType, PriorityClass
+from ..core.types import Gang, JobSpec, NodeSpec, QueueSpec, RunningJob, Taint, Toleration
+from ..snapshot.round import build_round_snapshot
+
+_GPU_TAINT = Taint("gpu", "true", "NoSchedule")
+
+
+def away_config() -> SchedulingConfig:
+    """Home/away config: cpu jobs may run away on the gpu pool's tainted
+    nodes at reduced priority; gpu-native jobs tolerate the taint."""
+    return SchedulingConfig(
+        priority_classes={
+            "gpu-native": PriorityClass("gpu-native", 30000, preemptible=False),
+            "cpu": PriorityClass(
+                "cpu",
+                10000,
+                preemptible=True,
+                away_node_types=(AwayNodeType(priority=500, well_known_node_type="gpu-node"),),
+            ),
+        },
+        default_priority_class="cpu",
+        well_known_node_types={"gpu-node": (_GPU_TAINT,)},
+        pools=(PoolConfig(name="default", away_pools=("gpu",)), PoolConfig(name="gpu")),
+        protected_fraction_of_fair_share=0.5,
+        # The bench's fill mode and a real burst: the batched fast fill,
+        # not one gang per loop.
+        enable_fast_fill=True,
+        rate_limits=RateLimits(
+            maximum_scheduling_rate=4000.0,
+            maximum_scheduling_burst=4000,
+            maximum_per_queue_scheduling_rate=2000.0,
+            maximum_per_queue_scheduling_burst=2000,
+        ),
+    )
+
+
+def _gang_for(i: int, rng) -> Gang | None:
+    """Mixed gangs: 1 in 8 queued jobs opens a gang of 2, 4 or 8 members."""
+    if i % 8 != 0:
+        return None
+    card = int(rng.choice([2, 4, 8]))
+    return Gang(id=f"gang-{i:06d}", cardinality=card)
+
+
+def home_away_round(n_nodes: int, n_jobs: int, n_queues: int = 6, seed: int = 7):
+    """The HOME pool's round snapshot: 3/4 of the nodes in pool "default",
+    1/4 tainted gpu nodes in pool "gpu" (borrowed through away_pools).
+    Queued jobs are mostly cpu (they may go away), every 16th gpu-native
+    and tolerating the taint; running jobs over-pack two queues to drive
+    eviction."""
+    rng = np.random.default_rng(seed)
+    cfg = away_config()
+    n_gpu = n_nodes // 4
+    n_cpu = n_nodes - n_gpu
+    nodes = [
+        NodeSpec(id=f"cpu-{i:05d}", pool="default", total_resources={"cpu": "32", "memory": "128Gi"})
+        for i in range(n_cpu)
+    ] + [
+        NodeSpec(id=f"gpu-{i:05d}", pool="gpu", taints=(_GPU_TAINT,),
+                 total_resources={"cpu": "16", "memory": "64Gi"})
+        for i in range(n_gpu)
+    ]
+    queues = [QueueSpec(f"q{i}", 1.0 + (i % 3)) for i in range(n_queues)]
+    running = [
+        RunningJob(
+            job=JobSpec(
+                id=f"run-{i:06d}",
+                queue=f"q{i % 2}",  # two hog queues: balance eviction
+                priority_class="cpu",
+                requests={"cpu": "2", "memory": "4Gi"},
+                submitted_ts=float(i),
+            ),
+            node_id=f"cpu-{i % n_cpu:05d}",
+            scheduled_at_priority=10000,
+        )
+        for i in range(min(2 * n_cpu, n_jobs // 4))
+    ]
+    cpus = rng.choice([1, 2, 4], size=n_jobs)
+    qidx = rng.integers(0, n_queues, size=n_jobs)
+    gang = None
+    gang_left = 0
+    queued = []
+    for i in range(n_jobs):
+        if gang_left == 0:
+            gang = _gang_for(i, rng)
+            gang_left = gang.cardinality if gang is not None else 0
+        native = i % 16 == 5
+        queued.append(
+            JobSpec(
+                id=f"job-{i:06d}",
+                queue=f"q{qidx[i]}",
+                priority_class="gpu-native" if native else "cpu",
+                requests={"cpu": str(int(cpus[i])), "memory": f"{int(cpus[i]) * 2}Gi"},
+                submitted_ts=float(1000 + i),
+                tolerations=((Toleration(key="gpu", value="true"),) if native else ()),
+                gang=gang if gang_left > 0 else None,
+            )
+        )
+        if gang_left > 0:
+            gang_left -= 1
+    return build_round_snapshot(cfg, "default", nodes, queues, running, queued)

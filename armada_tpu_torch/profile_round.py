@@ -1,9 +1,10 @@
 """Where the time of one round goes on the card.
 
     python -m armada_tpu_torch.profile_round [--jobs 100000] [--nodes 5000]
-        [--running 5000] [--path cuda]
+        [--running 5000] [--path cuda] [--fast-fill] [--window 512]
 
-Builds the bench's round (workload.build_inputs), solves it once to load
+Builds the bench's round (workload.build_inputs; `--fast-fill` and
+`--window` set its fill configuration), solves it once to load
 the kernels, then solves it again under torch.profiler (CUDA activity
 only) and prints one JSON line: the solve's wall seconds, the device's
 busy seconds (the sum of its kernel and copy intervals, one stream) and
@@ -42,11 +43,16 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--running", type=int, default=5000)
     ap.add_argument("--path", choices=("cuda", "lax"), default="cuda")
+    ap.add_argument("--fast-fill", action="store_true", help="merged multi-queue fill")
+    ap.add_argument("--window", type=int, default=512, help="batch fill window")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
 
-    snap = build_round_snapshot(*build_inputs(args.jobs, args.nodes, n_running=args.running))
+    snap = build_round_snapshot(*build_inputs(
+        args.jobs, args.nodes, n_running=args.running, fast_fill=args.fast_fill,
+        fill_window=args.window,
+    ))
     dev = dataclasses.replace(
         pad_device_round(prep_device_round(snap)), kernel_path=args.path
     )
@@ -73,6 +79,8 @@ def main(argv=None) -> int:
         "card": smi,
         "jobs": args.jobs, "nodes": args.nodes, "running": args.running,
         "path": args.path,
+        "fast_fill": args.fast_fill,
+        "window": args.window,
         "num_loops": int(out["num_loops"]),
         "solve_wall_s": wall,
         "device_busy_s": busy_us / 1e6,

@@ -15,9 +15,10 @@ lengths, queue ranges) from the host copy of the round instead. Tensors
 are never updated in place: a failed gang attempt keeps the carry it
 started from, as the functional reference does.
 
-Slice coverage: the default scheduler configuration (DRF, not market
-driven, serial gangs plus the single-queue batched fill, no fast fill, no
-round budget, no hot window). Everything else raises NotImplementedError.
+Slice coverage: DRF, not market driven, serial gangs plus the
+single-queue batched fill or fast fill (the merged multi-queue window
+fill with its evicted-rebind window), no round budget, no hot window.
+Everything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..device import COST_DTYPE, resolve_device
 from ..ops.bitset import as_words, bits_subset
 from ..ops.kernels import ScorePlan, pack_plan
 from ..ops.segment import segment_sum
-from ..ops.select import lex_argmin, masked_lexsort
+from ..ops.select import lex_argmin, lexsort, masked_lexsort
 from .dist import LOCAL, at
 from .kernel_prep import DeviceRound
 from .validate import maybe_assert_finite
@@ -49,6 +50,7 @@ OK, FAIL, FAIL_TERMINAL, FAIL_QUEUE_TERMINAL, FAIL_GANG_PROPERTY = 0, 1, 2, 3, 4
 
 BIG = 2**30
 I32_MAX = 2**31 - 1
+I64_MAX = 2**63 - 1
 
 
 
@@ -107,9 +109,13 @@ class _Round:
         self.C = dev.pc_priority.shape[0]
         self.G = max(1, int(dev.num_key_groups))
         self.dist = dist
-        # Loops by kind (serial gang attempts, single-queue batched fills)
-        # and the host wall seconds spent in each, over the whole solve.
-        self.stats = {"gang_loops": 0, "fill_loops": 0, "gang_s": 0.0, "fill_s": 0.0}
+        # Loops by kind (serial gang attempts, single-queue batched fills,
+        # merged multi-queue fills) and the host wall seconds spent in
+        # each, over the whole solve.
+        self.stats = {
+            "gang_loops": 0, "fill_loops": 0, "merged_fill_loops": 0,
+            "gang_s": 0.0, "fill_s": 0.0, "merged_fill_s": 0.0,
+        }
         self.zero_sel = torch.zeros_like(self.t.uni_value_bits[0])
         self.queue_weight = [float(w) for w in dev.queue_weight]
         self.penalty_f = _f(self.t.queue_short_penalty)
@@ -420,15 +426,21 @@ def _set(x, i, v):
     return out
 
 
+def _bind_rows(rd, j, prio):
+    """The allocation rows a bind of host job j at priority prio (0-d)
+    takes: rows at or below it for a preemptible job, else all."""
+    t = rd.t
+    if bool(rd.h.job_preemptible[j]):
+        return t.priorities <= prio
+    return torch.ones_like(t.priorities, dtype=torch.bool)
+
+
 def _bind(rd, c: Carry, j, n, at_prio, was_evicted) -> Carry:
     """bindJobToNodeInPlace (nodedb.go:911-945) for host job index j on
     node n (0-d) at priority at_prio (0-d); `was_evicted` is the job's
     evicted flag (host bool)."""
     t, h, dist = rd.t, rd.h, rd.dist
-    if bool(h.job_preemptible[j]):
-        rows = t.priorities <= at_prio
-    else:
-        rows = torch.ones_like(t.priorities, dtype=torch.bool)
+    rows = _bind_rows(rd, j, at_prio)
     delta = torch.where(rows[:, None], t.job_req_fit[j], 0).to(c.alloc.dtype)
     alloc = dist.add_col(c.alloc, n, -delta)
     if was_evicted:
@@ -649,6 +661,8 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
         and not h.market_driven
         and not consider_priority
     )
+    # Fast fill replaces the single-queue fill with the merged step.
+    fast_fill_enabled = fill_enabled and bool(h.fast_fill)
     c = c._replace(stop=False, loops=0)
     loop_cap = 2 * S + 4
     stats = rd.stats
@@ -737,25 +751,56 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
         # The winner's constraint codes, for the fill gate (all-evicted
         # exemption off) and the gang attempt (its own exemption); one
         # device round trip brings them back with the winner.
-        fill_codes, gang_codes = _constraint_codes(rd, c, heads, all_ev_t[heads])
-        qstar, code_fill, code_gang = torch.stack(
-            [
-                qstar_t.to(torch.int64),
-                at(fill_codes, qstar_t).to(torch.int64),
-                at(gang_codes, qstar_t).to(torch.int64),
-            ]
-        ).tolist()
+        all_ev_heads = all_ev_t[heads]
+        fill_codes, gang_codes = _constraint_codes(rd, c, heads, all_ev_heads)
+        picks = [
+            qstar_t.to(torch.int64),
+            at(fill_codes, qstar_t).to(torch.int64),
+            at(gang_codes, qstar_t).to(torch.int64),
+        ]
+        if fast_fill_enabled:
+            # Evicted heads (all-evicted running singletons) batch through
+            # the pinned-rebind window, queued heads through the grouped
+            # best-fit window. Their codes exempt evicted heads as the
+            # serial path exempts all-evicted gangs (tokens and caps
+            # bypassed, floating still gates).
+            ev_head = all_ev_heads & _ev_batchable(rd, heads)
+            _, merge_codes = _constraint_codes(rd, c, heads, ev_head)
+            eligible = (
+                has_head
+                & (merge_codes == OK)
+                & ((t.slot_batchable[heads] & ~all_ev_heads) | ev_head)
+            )
+            picks.append(torch.any(eligible).to(torch.int64))
+        qstar, code_fill, code_gang, *any_eligible = torch.stack(picks).tolist()
         sstar = min(max(int(ptr[qstar]), 0), S - 1)
 
+        do_merge = fast_fill_enabled and bool(any_eligible[0]) and not force_serial
         do_fill = (
             fill_enabled
+            and not fast_fill_enabled
             and any_head
             and not force_serial
             and int(h.slot_run_len[sstar]) > 0
             and not bool(all_ev_h[sstar])
             and code_fill == OK
         )
-        if do_fill:
+        if do_merge:
+            saved_ptr = (ptr.copy(), ptr_t.clone())
+            c, progressed, committed = _merged_fill_step(
+                rd, c, heads, np.clip(ptr, 0, S - 1), has_head, keys, eligible,
+                lambda cc, slots: _slot_valid(
+                    rd, cc, slots, all_ev_t, include_queued, use_key_skip, flags_t
+                ),
+                move, budgets, prefer_large,
+            )
+            if not committed:
+                # The rolled-back step leaves every pointer where it was.
+                ptr, ptr_t = saved_ptr
+            force_serial = not progressed
+            stats["merged_fill_loops"] += 1
+            stats["merged_fill_s"] += time.perf_counter() - t_loop
+        elif do_fill:
             c, placed = _fill_step(
                 rd, c, qstar, sstar, keys, has_head, budgets, prefer_large
             )
@@ -872,10 +917,7 @@ def _fill_apply(rd, c, qstar, sstar, kmax):
     delta = dist.segment_to_nodes(
         (cnt[:, None] * req_fit[None, :]).to(c.alloc.dtype), cand_gids, c.alloc.shape[1]
     )
-    if bool(h.job_preemptible[j]):
-        rows = t.priorities <= prio
-    else:
-        rows = torch.ones_like(t.priorities, dtype=torch.bool)
+    rows = _bind_rows(rd, j, prio)
     alloc = c.alloc - torch.where(rows[:, None, None], delta[None, :, :], 0)
 
     ivec = torch.arange(kstar, dtype=torch.int32, device=rd.device)
@@ -979,6 +1021,389 @@ def _fill_step(rd, c, qstar, sstar, qkeys, has_head, budgets, prefer_large):
     kmax = torch.sum(torch.cumprod(allowed.to(torch.int32), dim=0)).to(torch.int32)
 
     return _fill_apply(rd, c, qstar, sstar, kmax)
+
+
+def _ev_batchable(rd, s):
+    """Slots the evicted-rebind window may batch (index tensor s):
+    singleton running gangs with no uniformity search, since the pinned
+    path consults only the home node. One predicate for head eligibility
+    and window membership; callers also require all-evicted (slot
+    validity for entries, the all-evicted flags for heads)."""
+    t = rd.t
+    return (t.slot_count[s] == 1) & t.slot_is_running[s] & (t.slot_uni_end[s] <= t.slot_uni_start[s])
+
+
+def _total_order(k):
+    """A sort key in the total order the reference's sort compares floats
+    by (-0.0 below 0.0): a float64 key's bits as int64, the negatives'
+    magnitude bits flipped. Integer keys pass through."""
+    if not k.dtype.is_floating_point:
+        return k
+    bits = k.contiguous().view(torch.int64)
+    return bits ^ ((bits >> 63) & I64_MAX)
+
+
+def _int_sum(x, dim):
+    """Sum of integer-valued device units, as float64: the int64 sum,
+    converted, is the float64 sum bit for bit, whatever the order."""
+    return _f(torch.sum(x.to(torch.int64), dim=dim))
+
+
+def _window_fill_apply(rd, c, q, widx_q, j_q, gid_q, rank_q, kq, pc, j0):
+    """Place the accepted window prefix of queue q (kq entries, keys may
+    differ). Entries are grouped by interned scheduling key (gid_q, the
+    group; rank_q, the entry's rank in it); the groups place in sequence,
+    each against row-0 capacity net of the earlier groups, through the
+    same best-fit candidate chain as _fill_apply. Placement is cut at the
+    first window entry whose group ran out of capacity, so what is
+    applied is a stream prefix (the pointer contract). Dead groups are
+    skipped from one readback of the group counts. Returns (carry,
+    placed); the carry's tensors are new, never `c`'s updated in place."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    dev = rd.device
+    W, G = int(h.batch_window), int(h.fill_groups)
+    ln = c.alloc.shape[1]
+    ivec = torch.arange(W, dtype=torch.int32, device=dev)
+    ent = ivec < kq
+    gidc = torch.clamp(gid_q, 0, G - 1).to(torch.int64)
+    cnt_g = segment_sum(ent.to(torch.int32), gidc, G)
+    rep = torch.full((G,), BIG, dtype=torch.int32, device=dev).scatter_reduce(
+        0, gidc, torch.where(ent, ivec, BIG), reduce="amin", include_self=True
+    )
+    j_g = torch.clamp(j_q[torch.clamp(rep, 0, W - 1).to(torch.int64)], 0, rd.J - 1)
+    cnt_h, j_h = torch.stack([cnt_g.to(torch.int64), j_g.to(torch.int64)]).tolist()
+    prio = c.job_prio[j0]
+
+    used = torch.zeros_like(c.alloc[0])
+    cand_gids_g = torch.zeros((G, W), dtype=torch.int32, device=dev)
+    prefix_g = torch.zeros((G, W), dtype=torch.int32, device=dev)
+    placed_g = torch.zeros(G, dtype=torch.int32, device=dev)
+    for g in range(G):
+        if cnt_h[g] == 0:  # a dead group: no entry has its key
+            continue
+        j = int(j_h[g])
+        req_fit = t.job_req_fit[j]
+        fit0, caps, nkeys = _f0_chain(rd, c.alloc[0] - used, j)
+        cand_caps, cand_gids = dist.fill_candidates(
+            nkeys, fit0, caps, t.node_gid, W, rd.kpath, rd.knbits
+        )
+        prefix = torch.cumsum(cand_caps, dim=0, dtype=torch.int32)
+        placed = torch.clamp(prefix[-1], max=cnt_h[g])
+        cnt = torch.clamp(
+            placed - (prefix - cand_caps), min=torch.zeros_like(cand_caps), max=cand_caps
+        )
+        used = used + dist.segment_to_nodes(
+            (cnt[:, None] * req_fit[None, :]).to(used.dtype), cand_gids, ln
+        )
+        # Fewer than W candidate nodes (small clusters, shard merges): the
+        # gids pad with zeros and the prefix with its last value, so the
+        # searchsorted below sees a valid sorted row.
+        bc = cand_caps.shape[0]
+        cand_gids_g[g, :bc] = cand_gids.to(torch.int32)
+        prefix_g[g, :bc] = prefix
+        if bc < W:
+            prefix_g[g, bc:] = prefix[-1]
+        placed_g[g] = placed
+
+    ok_e = ent & (rank_q < placed_g[gidc])
+    fail_pos = torch.min(torch.where(ent & ~ok_e, ivec, W))
+    applied = int(torch.clamp(fail_pos, max=kq))
+    if applied == 0:
+        return c, 0
+    # Entry e's node: the candidate whose prefix first exceeds its rank
+    # in its group, searchsorted(side="right") on its group's prefix row.
+    pos = torch.searchsorted(prefix_g, rank_q[None, :].expand(G, W).contiguous(), right=True)
+    pos = pos.gather(0, gidc[None, :]).squeeze(0)
+    node_e = cand_gids_g[gidc, torch.clamp(pos, 0, W - 1)][:applied]
+    jobs = j_q[:applied]
+    req_fit_e = t.job_req_fit[jobs]
+    delta = dist.segment_to_nodes(req_fit_e.to(c.alloc.dtype), node_e, ln)
+    rows = _bind_rows(rd, j0, prio)
+    alloc = c.alloc - torch.where(rows[:, None, None], delta[None, :, :], 0)
+    sum_full = _int_sum(t.job_req[jobs], 0)
+    k_f = float(applied)
+    job_node = c.job_node.clone()
+    job_node[jobs] = node_e.to(torch.int32)
+    job_prio = c.job_prio.clone()
+    job_prio[jobs] = prio
+    job_scheduled = c.job_scheduled.clone()
+    job_scheduled[jobs] = True
+    slot_state = c.slot_state.clone()
+    slot_state[widx_q[:applied]] = DONE
+    c2 = c._replace(
+        alloc=alloc,
+        qalloc=_set(c.qalloc, q, c.qalloc[q] + sum_full),
+        qpc_alloc=_set(c.qpc_alloc, (q, pc), c.qpc_alloc[q, pc] + sum_full),
+        job_node=job_node,
+        job_prio=job_prio,
+        job_scheduled=job_scheduled,
+        slot_state=slot_state,
+        tokens=c.tokens - k_f,
+        qtokens=_set(c.qtokens, q, c.qtokens[q] - k_f),
+        scheduled_new=c.scheduled_new + sum_full,
+        floating=c.floating + torch.where(t.floating_mask, sum_full, 0.0),
+    )
+    return c2, applied
+
+
+def _ev_fill_apply(rd, c, q, widx_q, j_q, kq, pc, j0):
+    """Place the accepted window prefix of queue q's evicted singleton
+    slots. Pinned semantics (_select_node: an evicted job only returns to
+    its node): entry i fits iff its home node still holds its request at
+    its priority row, net of the earlier window entries on that node (or
+    the over-allocated unschedulable case). The home columns and the
+    unschedulable flags come through `dist.take_rows` (one point read each,
+    the reference's `take_col` and `take` over the window) and the delta
+    goes back through `dist.segment_to_nodes`. Binding mirrors _bind for an
+    evicted job: the rows at or below its priority lose the request, row
+    0 nets zero; queue accounting grows, tokens and round caps are not
+    consumed. Returns (carry, placed); the carry's tensors are new."""
+    t, h, dist = rd.t, rd.h, rd.dist
+    dev = rd.device
+    W, P = int(h.batch_window), rd.P
+    ln = c.alloc.shape[1]
+    ivec = torch.arange(W, dtype=torch.int32, device=dev)
+    ent = ivec < kq
+    prio = c.job_prio[j0]
+    row_p = torch.searchsorted(t.priorities, prio.reshape(1))
+    home = torch.clamp(c.job_node[j_q], 0, dist.num_nodes(c.alloc) - 1)  # [W] global ids
+    req_fit = t.job_req_fit[j_q]  # [W, R]
+
+    # What the earlier window entries already placed on each entry's node:
+    # an exclusive sum within runs of one home node in (home, entry) order.
+    order = torch.sort(home.to(torch.int64) * W + ivec).indices
+    contrib = torch.where(ent[:, None], req_fit, 0).to(torch.int64)[order]
+    hs = home[order]
+    csum = torch.cumsum(contrib, dim=0)
+    is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), hs[1:] != hs[:-1]])
+    seg_first = torch.cummax(torch.where(is_first, ivec, 0), dim=0).values.to(torch.int64)
+    prior = torch.empty_like(contrib)
+    prior[order] = csum - contrib - (csum[seg_first] - contrib[seg_first])
+
+    home_col = dist.take_rows(c.alloc.transpose(0, 1), home)  # [W, P, R]
+    # The earlier entries' effect per row: rows at or below the priority,
+    # except row 0 (the evicted add-back keeps it flat).
+    rows_eff = _bind_rows(rd, j0, prio) & (torch.arange(P, device=dev) > 0)
+    col_after = home_col - torch.where(
+        rows_eff[None, :, None], prior[:, None, :], 0
+    ).to(home_col.dtype)
+    fit = torch.all(req_fit <= col_after.index_select(1, row_p).squeeze(1), dim=-1)
+    unsched = dist.take_rows(t.node_unschedulable, home)
+    over_alloc = torch.any((col_after < 0).reshape(W, -1), dim=1)
+    ok_e = ent & (fit | (unsched & over_alloc))
+    fail_pos = torch.min(torch.where(ent & ~ok_e, ivec, W))
+    applied = int(torch.clamp(fail_pos, max=kq))
+    if applied == 0:
+        return c, 0
+    jobs = j_q[:applied]
+    delta = dist.segment_to_nodes(req_fit[:applied].to(c.alloc.dtype), home[:applied], ln)
+    alloc = c.alloc - torch.where(rows_eff[:, None, None], delta[None], 0)
+    sum_full = _int_sum(t.job_req[jobs], 0)
+    job_evicted = c.job_evicted.clone()
+    job_evicted[jobs] = False
+    evict_rank = c.evict_rank.clone()
+    evict_rank[jobs] = -2
+    slot_state = c.slot_state.clone()
+    slot_state[widx_q[:applied]] = DONE
+    c2 = c._replace(
+        alloc=alloc,
+        qalloc=_set(c.qalloc, q, c.qalloc[q] + sum_full),
+        qpc_alloc=_set(c.qpc_alloc, (q, pc), c.qpc_alloc[q, pc] + sum_full),
+        job_evicted=job_evicted,
+        evict_rank=evict_rank,
+        slot_state=slot_state,
+        floating=c.floating + torch.where(t.floating_mask, sum_full, 0.0),
+    )
+    return c2, applied
+
+
+def _merged_fill_step(rd, c, heads, heads_h, has_head, qkeys, eligible, valid, move,
+                      budgets, prefer_large):
+    """Fast fill: one loop batches the multi-queue sweep over windows of
+    consecutive batchable slots, whose scheduling keys may differ.
+
+    Each queue's entry costs follow from the cumulative window requests
+    (costs are monotone in the allocation, so each queue's key stream is
+    non-decreasing and the serial attempt order across queues is a sort
+    of every (queue, entry) key), cut at the best ineligible head's key
+    (the barrier: that attempt needs the serial path). Global gates
+    (tokens, round caps, floating) cut the merged order at the first
+    violation; per-queue gates cut only that queue's entries. Then each
+    queue places its entries, in queue order, through the grouped
+    best-fit window or, for an evicted head, the pinned-rebind window,
+    and its pointer advances (`move`). A capacity shortfall with more
+    than one active queue rolls the whole step back: the serial path
+    resolves that interleave.
+
+    `heads` are the clamped head slots (device), `heads_h` the same on the
+    host; `valid(carry, slots)` is the pass's slot validity. Returns
+    (carry, progressed, committed); on a rollback the carry is `c`, which
+    no apply updated in place, and the caller restores the pointers."""
+    t, h = rd.t, rd.h
+    dev = rd.device
+    Q, S, J = rd.Q, rd.S, rd.J
+    W, G = int(h.batch_window), int(h.fill_groups)
+    ivec = torch.arange(W, dtype=torch.int32, device=dev)
+    i_f = ivec.to(COST_DTYPE)
+
+    # Per-queue windows: the longest prefix of consecutive in-range,
+    # batchable, valid slots sharing the head's priority class. An
+    # evicted head's window batches pinned rebinds (singleton evicted
+    # slots at one priority); a queued head's the grouped best-fit fill.
+    raw = heads[:, None] + ivec[None, :]
+    widx = torch.clamp(raw, 0, S - 1)  # [Q, W]
+    in_range = raw < t.queue_slot_end[:, None]
+    j_w = torch.clamp(t.slot_members[widx, 0], 0, J - 1).to(torch.int64)
+    pc_w = t.job_pc[j_w]
+    vv = valid(c, widx.reshape(-1)).reshape(Q, W)
+    kind_ev = t.slot_is_running[heads]  # [Q]
+    prio_w = c.job_prio[j_w]
+    kind_ok = torch.where(
+        kind_ev[:, None],
+        _ev_batchable(rd, widx) & (prio_w == prio_w[:, :1]),
+        t.slot_batchable[widx] & ~t.slot_is_running[widx],
+    )
+    base = eligible[:, None] & in_range & kind_ok & vv & (pc_w == pc_w[:, :1])
+    base = torch.cumprod(base.to(torch.int32), dim=1).to(torch.bool)
+
+    # Groups by interned key: gid, the first-appearance rank of an entry's
+    # key in its window; rank_in_g, the earlier entries sharing it. Masked
+    # entries get unique sentinels. One stable (queue, key, position) sort
+    # and a running max of run heads; the window is cut at key G + 1
+    # (evicted windows do not group: placement is pinned).
+    grp = torch.where(base, t.slot_key_group[widx], -2 - ivec[None, :]).to(torch.int64)
+    QW = Q * W
+    flat_idx = torch.arange(QW, dtype=torch.int64, device=dev)
+    qrow = flat_idx // W
+    pos_f = flat_idx % W
+    span = int(h.num_key_groups) + W + 3
+    order_g = torch.sort(
+        (qrow * span + grp.reshape(-1) + W + 2) * W + pos_f, stable=True
+    ).indices
+    q_s, g_s, p_s = qrow[order_g], grp.reshape(-1)[order_g], pos_f[order_g]
+    run_head = torch.cat([
+        torch.ones(1, dtype=torch.bool, device=dev),
+        (q_s[1:] != q_s[:-1]) | (g_s[1:] != g_s[:-1]),
+    ])
+    head_at = torch.cummax(torch.where(run_head, flat_idx, 0), dim=0).values
+    rank_in_g = torch.empty(QW, dtype=torch.int32, device=dev)
+    rank_in_g[order_g] = (flat_idx - head_at).to(torch.int32)
+    rank_in_g = rank_in_g.reshape(Q, W)
+    first_j = torch.empty(QW, dtype=torch.int64, device=dev)
+    first_j[order_g] = p_s[head_at]
+    first_j = first_j.reshape(Q, W)
+    first_occ = (first_j == ivec[None, :]) & base
+    gnum = torch.cumsum(first_occ.to(torch.int32), dim=1)
+    gid = torch.gather(gnum, 1, first_j) - 1
+    base = base & ((gid < G) | kind_ev[:, None])
+    base = torch.cumprod(base.to(torch.int32), dim=1).to(torch.bool)
+
+    # Entry costs from the cumulative window requests (the serial closed
+    # form: entry i's queue allocation is qalloc plus the i earlier window
+    # requests).
+    req_i = torch.where(base[:, :, None], t.slot_req[widx], 0).to(torch.int64)
+    csum_i = torch.cumsum(req_i, dim=1)
+    req_e = _f(req_i)
+    csum_incl = _f(csum_i)
+    csum_prev = _f(csum_i - req_i)
+    qa_i = (c.qalloc + rd.penalty_f)[:, None, :] + csum_prev
+    w = rd.w_clip[:, None]
+    cur = _policy_cost(rd, qa_i) / w
+    prop = _policy_cost(rd, qa_i + req_e) / w
+    if prefer_large:
+        size = _policy_cost(rd, req_e) * _f(t.queue_weight)[:, None]
+        over = (prop > budgets[:, None]).to(torch.int32)
+        ekeys = [over, torch.where(over == 1, prop, cur), torch.where(over == 1, 0.0, -size)]
+    else:
+        ekeys = [prop]
+    ekeys.append(t.queue_name_rank[:, None].expand(Q, W))
+
+    # The merge needs each queue's key stream non-decreasing (only the
+    # prefer-large -size tiebreak at tied costs can invert): cut the
+    # window at the first inversion.
+    dec = torch.zeros((Q, W), dtype=torch.bool, device=dev)
+    gtp = torch.zeros((Q, W), dtype=torch.bool, device=dev)
+    for k in ekeys:
+        prev = torch.cat([k[:, :1], k[:, :-1]], dim=1)
+        dec = dec | (~gtp & (k < prev))
+        gtp = gtp | (k > prev)
+    dec[:, 0] = False
+    base = torch.cumprod((base & ~dec).to(torch.int32), dim=1).to(torch.bool)
+
+    # The barrier: the best ineligible head's key; batched entries must be
+    # strictly lex-below it (the name rank is unique).
+    qb, has_barrier = lex_argmin(qkeys, has_head & ~eligible)
+    below = torch.zeros((Q, W), dtype=torch.bool, device=dev)
+    gt = torch.zeros((Q, W), dtype=torch.bool, device=dev)
+    for a, k in zip(ekeys, qkeys):
+        b = at(k, qb)
+        below = below | (~gt & (a < b))
+        gt = gt | (a > b)
+    # Per-queue gates (queue tokens, per-PC caps); evicted windows bypass
+    # them, as the serial path's all-evicted exemption does.
+    qtok_ok = ((c.qtokens[:, None] - i_f[None, :]) >= 1) | kind_ev[:, None]
+    aq = torch.arange(Q, device=dev)
+    pc_h = pc_w[:, 0].to(torch.int64)
+    pc_ok = ~torch.any(
+        c.qpc_alloc[aq, pc_h][:, None, :] + csum_incl > t.queue_pc_limit[aq, pc_h][:, None, :],
+        dim=-1,
+    ) | kind_ev[:, None]
+    entry_ok = base & qtok_ok & pc_ok & (below | ~has_barrier)
+    entry_ok = torch.cumprod(entry_ok.to(torch.int32), dim=1).to(torch.bool)
+
+    # The merged order: every entry by key, the position as the last key
+    # (equal-cost entries of one queue keep their stream order).
+    order = lexsort([_total_order(k.reshape(-1)) for k in ekeys] + [pos_f])
+    take = entry_ok.reshape(-1)[order]
+    qidx = qrow[order]
+    req_s = req_i.reshape(QW, -1)[order]
+    # Evicted entries consume neither tokens nor round caps; they count
+    # toward floating.
+    ev_flat = kind_ev[qidx]
+    consuming = take & ~ev_flat
+    req_taken = torch.where(take[:, None], req_s, 0)
+    req_consumed = torch.where(consuming[:, None], req_s, 0)
+    cnt_before = _f(torch.cumsum(consuming.to(torch.int64), dim=0) - consuming.to(torch.int64))
+    cum_req = _f(torch.cumsum(req_taken, dim=0))
+    cum_req_cb = _f(torch.cumsum(req_consumed, dim=0) - req_consumed)
+    tok_ok_g = ((c.tokens - cnt_before) >= 1) | ev_flat
+    round_ok_g = ~torch.any(
+        c.scheduled_new[None, :] + cum_req_cb > t.max_round_resources[None, :], dim=-1
+    ) | ev_flat
+    float_ok_g = ~torch.any(
+        t.floating_mask[None, :] & (c.floating[None, :] + cum_req > t.floating_total[None, :]),
+        dim=-1,
+    )
+    viol = take & ~(tok_ok_g & round_ok_g & float_ok_g)
+    first_viol = torch.where(torch.any(viol), torch.argmax(viol.to(torch.int8)), QW)
+    final_take = take & (flat_idx < first_viol)
+    k_q = segment_sum(final_take.to(torch.int32), qidx, Q)
+
+    # Each queue places in turn, against what the earlier queues took.
+    k_h, ev_h = torch.stack([k_q.to(torch.int64), kind_ev.to(torch.int64)]).tolist()
+    c2, progressed, shortfall = c, False, False
+    for q in range(Q):
+        kq = int(k_h[q])
+        if kq <= 0:
+            continue
+        j0 = int(np.clip(h.slot_members[heads_h[q], 0], 0, J - 1))
+        pc = int(h.job_pc[j0])
+        if ev_h[q]:
+            c2, placed = _ev_fill_apply(rd, c2, q, widx[q], j_w[q], kq, pc, j0)
+        else:
+            c2, placed = _window_fill_apply(
+                rd, c2, q, widx[q], j_w[q], gid[q], rank_in_g[q], kq, pc, j0
+            )
+        if placed > 0:
+            move(c2, q, int(heads_h[q]) + placed)
+        progressed = progressed or placed > 0
+        shortfall = shortfall or placed < kq
+    # A shortfall with more than one active queue: taken entries did not
+    # fit while entries merged after them (other queues) were applied, an
+    # interleave the batch cannot express. Roll the step back.
+    if shortfall and int(np.count_nonzero(np.asarray(k_h) > 0)) > 1:
+        return c, False, False
+    return c2, progressed, True
 
 
 def _apply_evictions(rd, c: Carry, evict_mask):
@@ -1264,11 +1689,6 @@ def check_slice(dev: DeviceRound) -> None:
         raise NotImplementedError(
             f"fairness policy {dev.fairness_policy!r} is not ported yet "
             "(the fairness-policies slice); only ('drf',) is"
-        )
-    if dev.fast_fill and dev.batch_window > 0:
-        raise NotImplementedError(
-            "fast fill (merged multi-queue window fill) is not ported yet "
-            "(the fast-fill slice)"
         )
     if dev.kernel_path not in ("lax", "cuda"):
         raise ValueError(f"kernel_path must be 'lax' or 'cuda', not {dev.kernel_path!r}")

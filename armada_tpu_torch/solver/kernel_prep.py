@@ -382,6 +382,20 @@ def compute_queue_device_accounting(
     return queue_alloc0, queue_demand_pc
 
 
+def fill_fields(cfg) -> dict:
+    """The DeviceRound fields that the fill options of a SchedulingConfig
+    set: `batch_window`, `fast_fill` and `fill_groups`."""
+    return dict(
+        batch_window=(0 if cfg.market_driven else int(cfg.batch_fill_window)),
+        fast_fill=bool(cfg.enable_fast_fill) and not cfg.market_driven,
+        # A window of batch_fill_window entries holds at most that many
+        # distinct keys; more groups would be dead scan iterations.
+        fill_groups=max(
+            1, min(int(cfg.fill_group_max), max(1, int(cfg.batch_fill_window)))
+        ),
+    )
+
+
 def prep_device_round(
     snap: RoundSnapshot, cache: PrepCache | None = None
 ) -> DeviceRound:
@@ -889,13 +903,7 @@ def prep_device_round(
         num_key_groups=num_key_groups,
         market_driven=cfg.market_driven,
         has_away=bool(snap.pc_away_count.any()),
-        batch_window=(0 if cfg.market_driven else int(cfg.batch_fill_window)),
-        fast_fill=bool(cfg.enable_fast_fill) and not cfg.market_driven,
-        # A window of batch_fill_window entries holds at most that many
-        # distinct keys; more groups would be dead scan iterations.
-        fill_groups=max(
-            1, min(int(cfg.fill_group_max), max(1, int(cfg.batch_fill_window)))
-        ),
+        **fill_fields(cfg),
         spot_price_cutoff=np.float64(cfg.spot_price_cutoff),
         job_bid=snap.job_bid,
         queue_deadline=(

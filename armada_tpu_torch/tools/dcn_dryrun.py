@@ -2,12 +2,10 @@
 shard against its single-device solve.
 
 The counterpart of the JAX package's `tools/dcn_dryrun.py`, with the same
-flags plus `--backend` and `--device`. It builds the bench round
-(`workload.build_inputs`: nodes of 32 cpu, 10 queues, every 8th queued
-job opening a gang of 2, 4 or 8, two running preemptible jobs per node in
-one hog queue), pads it to the mesh, solves it on one device in this
-process, launches hosts x chips workers (parallel/launcher.py) on the same
-round, and prints exactly ONE JSON line:
+flags plus `--backend`, `--device` and `--round`. It builds a round, pads
+it to the mesh, solves it on one device in this process, launches hosts x
+chips workers (parallel/launcher.py) on the same round, and prints
+exactly ONE JSON line:
 
   {"ok": true|false, "timed_out": ..., "hosts": 2, "chips": 4,
    "backend": "gloo", "devices": [...], "parity": true|false,
@@ -21,6 +19,15 @@ single-device solve on every array. The whole run is bounded by
   python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --device cpu
   python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --device cuda --backend gloo
   python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --backend nccl --ring-calls 100
+  python -m armada_tpu_torch.tools.dcn_dryrun --round home_away --device cpu --nodes 32 --jobs 96
+
+Rounds (`--round`):
+  - bench (default): the bench round with gangs (`workload.build_inputs`:
+    nodes of 32 cpu, 10 queues, every 8th queued job opening a gang of 2,
+    4 or 8, no running jobs), fast fill off;
+  - home_away: the mixed-fleet round of parallel/scenarios.py (borrowed
+    away nodes, gangs, two over-packed queues that balance eviction
+    evicts), with its config's fast fill on.
 
 With --ring-calls the workers then drive the ring kernel over every axis
 (parallel/launcher.py), each call held to its plain version; "ring"
@@ -53,6 +60,7 @@ def main(argv=None) -> int:
                     help="hard kill for the whole worker fleet, seconds")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--round", choices=("bench", "home_away"), default="bench")
     ap.add_argument("--ring-calls", type=int, default=0,
                     help="after the solve, drive the ring kernel this many times per case "
                          "over every axis in the same workers")
@@ -63,6 +71,7 @@ def main(argv=None) -> int:
     from ..ops import kernels
     from ..parallel.launcher import launch, save_round
     from ..parallel.mesh import pad_nodes
+    from ..parallel.scenarios import home_away_round
     from ..snapshot.round import build_round_snapshot
     from ..solver.kernel import solve_round
     from ..solver.kernel_prep import pad_device_round, prep_device_round
@@ -80,8 +89,10 @@ def main(argv=None) -> int:
         # nccl: a card per rank, and launch raises when there are fewer
         devices = None if args.backend == "nccl" else [f"cuda:{k % count}" for k in range(world)]
         kernels.build_all()  # once here, not in every worker
-    inputs = build_inputs(args.jobs, args.nodes, n_running=0, gang_every=8)
-    snap = build_round_snapshot(*inputs)
+    if args.round == "home_away":
+        snap = home_away_round(args.nodes, args.jobs)
+    else:
+        snap = build_round_snapshot(*build_inputs(args.jobs, args.nodes, n_running=0, gang_every=8))
     dev = pad_nodes(pad_device_round(prep_device_round(snap)), world)
     t0 = time.monotonic()
     single = solve_round(dev, readback_rows=snap.num_jobs, device=args.device)
@@ -102,9 +113,11 @@ def main(argv=None) -> int:
         "ok": bool(res["ok"] and mismatch == []),
         "parity": mismatch == [],
         "single_mismatch": mismatch,
+        "round": args.round,
         "n_nodes": args.nodes,
         "n_jobs": args.jobs,
         "loops": int(single["num_loops"]),
+        "loop_stats": [w["loop_stats"] if w else None for w in res["workers"]],
         "scheduled": int(np.asarray(single["scheduled_mask"]).sum()),
         "single_solve_s": single_s,
         "rank_solve_s": [w["solve_s"] if w else None for w in res["workers"]],

@@ -13,7 +13,10 @@ tree, the card's name and power limit, each solve's seconds, the loop
 counts and host seconds by kind (`fill_s`, `gang_s`) and the kernels'
 launches. Cells are chip_smoke.py's rounds, from
 `armada_tpu_torch.workload.build_inputs`: round_100k (100,000 jobs x
-5,000 nodes) and flagship_1m (1,000,000 x 50,000) on one device, and
+5,000 nodes) and flagship_1m (1,000,000 x 50,000) on one device, the
+same two with fast fill on (round_100k_fast at a window of 512,
+flagship_fast at the bench's 2,048; loop counts and host seconds by kind
+include `merged_fill_loops` and `merged_fill_s`), and
 gangs_100k_2x2 (100,000 queued jobs x 5,000 nodes, every 8th job opening a
 gang, no running jobs) node-sharded over a 2x2 mesh of four shard threads
 on the card, whose gangs select nodes through the winner kernel (its
@@ -48,6 +51,10 @@ CELLS = {
     "round_100k": (100_000, 5000, {}),
     "flagship_1m": (1_000_000, 50_000, {}),
     "gangs_100k_2x2": (100_000, 5000, {"n_running": 0, "gang_every": 8}),
+    # Fast fill: at the scheduler's window of 512, and in the bench's own
+    # configuration, a window of 2,048.
+    "round_100k_fast": (100_000, 5000, {"fast_fill": True, "fill_window": 512}),
+    "flagship_fast": (1_000_000, 50_000, {"fast_fill": True, "fill_window": 2048}),
 }
 SHARDED = {"gangs_100k_2x2": "2x2"}
 

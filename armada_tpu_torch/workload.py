@@ -4,8 +4,10 @@
 the 100k x 5k tracking round): N nodes of 32 cpu / 256Gi, 10 equal-weight
 queues, queued jobs of 1/2/4/8 cpu drawn from a seed, plus running
 preemptible jobs of 2 cpu in one hog queue so that eviction and fair
-preemption run. It uses the scheduler's default fill configuration
-(batch fill window 512, fast fill off).
+preemption run. By default it uses the scheduler's default fill
+configuration (batch fill window 512, fast fill off); `fast_fill=True,
+fill_window=2048` is bench.py's own configuration (its flagship and
+burst rounds).
 
 With `gang_every=k`, every k-th queued job opens a gang of 2, 4 or 8
 identical members (same queue and request), as the JAX package's
@@ -26,19 +28,26 @@ N_QUEUES = 10
 N_RUNNING = 5000
 
 
-def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES, gang_every=0):
-    """(config, pool, nodes, queues, running, queued) for
-    `build_round_snapshot`."""
-    cfg = SchedulingConfig(
+def scheduling_config(n_running=N_RUNNING, fast_fill=False, fill_window=512):
+    """The round's SchedulingConfig; `fast_fill` and `fill_window` set the
+    fill configuration (`enableFastFill`, `batchFillWindow`)."""
+    return SchedulingConfig(
         priority_classes={
             "high": PriorityClass("high", 30000, preemptible=False),
             "low": PriorityClass("low", 1000, preemptible=True),
         },
         default_priority_class="low",
         protected_fraction_of_fair_share=0.5 if n_running else 1.0,
-        enable_fast_fill=False,
-        batch_fill_window=512,
+        enable_fast_fill=fast_fill,
+        batch_fill_window=fill_window,
     )
+
+
+def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES, gang_every=0,
+                 fast_fill=False, fill_window=512):
+    """(config, pool, nodes, queues, running, queued) for
+    `build_round_snapshot`; the config is `scheduling_config`'s."""
+    cfg = scheduling_config(n_running, fast_fill, fill_window)
     rng = np.random.default_rng(0)
     nodes = [
         NodeSpec(
@@ -85,3 +94,20 @@ def build_inputs(n_jobs, n_nodes, n_running=N_RUNNING, n_queues=N_QUEUES, gang_e
         for i in range(n_running)
     ]
     return cfg, "default", nodes, queues, running, queued
+
+
+def refill(dev, cfg):
+    """A prepared (padded) round of `build_inputs` under the fill options
+    of `cfg` (`scheduling_config(..., fast_fill=..., fill_window=...)`), as
+    a fresh prep would build it. While the window stays above 0 and the
+    round stays off the market, the fill options set only the fields of
+    `kernel_prep.fill_fields`; every slot array is the same."""
+    import dataclasses
+
+    from .solver.kernel_prep import fill_fields
+
+    if dev.batch_window <= 0 or cfg.batch_fill_window <= 0:
+        raise ValueError("refill: the window must stay above 0 (it shapes the slot arrays)")
+    if dev.market_driven or cfg.market_driven:
+        raise ValueError("refill: a market round has no fill window")
+    return dataclasses.replace(dev, **fill_fields(cfg))

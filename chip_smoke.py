@@ -23,8 +23,9 @@ version. Phases, each printing one JSON line with its seconds:
    every cluster size (1 CTA at 8192, 2 at 16384, 4 at 32768, 8 at
    65536); ragged slices (4097, 20001); a key view that starts 8 bytes
    into its allocation (a ragged head); N = 262144, beyond the cluster's
-   shared memory (streamed); and score_nodes' masked keys at N = 65536
-   and on the shards.
+   shared memory (streamed); B = 4096 and 8192 at N = 65536, past the
+   survivors' shared-memory budget (sorted in global memory); and
+   score_nodes' masked keys at N = 65536 and on the shards.
 4. round: 100,000 queued jobs x 5,000 nodes x 10 queues plus 5,000 running
    preemptible jobs in one queue, in the default configuration (batch
    fill window 512, fast fill off), on the "cuda" and the "lax" kernel
@@ -32,7 +33,19 @@ version. Phases, each printing one JSON line with its seconds:
    round firewall admits it; both kernels launched.
 5. flagship: 1,000,000 jobs x 50,000 nodes x 10 queues plus the same
    running jobs, on the "cuda" path: admitted, both kernels launched.
-6. sharded: the node-sharded round on a 2x2 (hosts, chips) mesh, four
+6. fast_fill: fast fill (the merged multi-queue window fill and the
+   evicted-rebind window), each run admitted with both fill kernels
+   launched and merged loops on every path: round_100k at a window of 512
+   on "cuda" and "lax" (bit-equal); the flagship in the bench's
+   configuration (window 2,048; phase 5's padded round refilled); the
+   home/away round of parallel/scenarios.py at 16,384 nodes x 65,536 jobs
+   on "cuda" and "lax" (bit-equal) and on a 2x2 mesh of shard threads
+   (held to the single device; winner_reduce launched); and a window of
+   4,096 on 5,000 nodes, where fill_take sorts its 4,096 survivors in
+   global memory (its `fill_take_global_sort` count above 0 in that run;
+   "cuda" equal to "lax"). Prints loops and host seconds
+   by kind, scheduled and preempted counts.
+7. sharded: the node-sharded round on a 2x2 (hosts, chips) mesh, four
    shard threads on cuda:k % card count, through
    `resolve_solver("2x2", "cuda", devices=...)` (the chip and the host
    stage of every node selection closed by the winner kernel: in
@@ -40,11 +53,12 @@ version. Phases, each printing one JSON line with its seconds:
    held to the single-device "cuda" output of the same round on every
    array, num_loops and spot_price included, and admitted by the round
    firewall:
-   - round_50k, round_100k at half its shape (50,000 jobs x 2,500 nodes
-     x 2,500 running jobs), solved on one device first: its 2,502 serial
-     loops return evicted jobs to their own nodes, so it selects no node
-     (score_nodes and fill_take launched). Half the shape halves the
-     serial loops, which cost most of the phase on four shard threads;
+   - round_25k, round_100k at a quarter of its shape (25,000 jobs x
+     1,250 nodes x 1,250 running jobs), solved on one device first: its
+     serial loops return evicted jobs to their own nodes, so it selects no
+     node (score_nodes and fill_take launched). A quarter of the shape
+     quarters the serial loops, which cost most of the phase on four shard
+     threads;
    - gangs_100k: 100,000 queued jobs x 5,000 nodes, every 8th job opening
      a gang of 2, 4 or 8, no running jobs, solved on one device on the
      "cuda" and "lax" paths (bit-equal, so the sharded run is held to a
@@ -54,14 +68,14 @@ version. Phases, each printing one JSON line with its seconds:
    Prints each run's seconds, the shard-to-device map and the
    CollectiveStats.
 
-7. multiproc: phase 6's gangs_100k on a 2x2 grid of four worker
+8. multiproc: phase 7's gangs_100k on a 2x2 grid of four worker
    processes, one per shard, all on the card (cuda:k % card count) over
    gloo, through `parallel.launcher.launch` on the padded round saved to
    a temporary .npz: rank 0's outputs bit-equal to the single-device
    "cuda" solve and admitted by the round firewall, every rank's equal,
    score_nodes, fill_take and winner_reduce launched (summed over the
    ranks; winner_reduce 2 x selects x 4 shards times), CollectiveStats
-   equal to phase 6's in-process 2x2 run. The
+   equal to phase 7's in-process 2x2 run. The
    round does not call the ring kernel (nor does the reference's), so the
    same workers then drive it over the host and the chip axis (n = 2
    each), and a second, ring-only launch on a 1x4 grid over its chip axis
@@ -82,17 +96,20 @@ one-element torch add on the device, the launch floor.
 
 Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
 the run where the round's three kernels must launch, and for the ring
-kernel from phase 7's ring drive; the other sharded runs' and the
-single-device counts beside them; times at the flagship's shapes,
+kernel from phase 8's ring drive; the other sharded runs', the
+single-device counts and phase 6's (`launches_fast_fill_flagship`,
+`launches_home_away_2x2`) beside them; times at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
 `ms_n2`): `ms` per call from CUDA events, `device_ms` per launch from the
 profiler, and for these two `floor_device_ms`, the launch floor;
 fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's time there)
 and its cluster size, score_nodes' also through the plan,
-`plan_ms` and `plan_device_ms`), one line of ptxas's registers and
-shared memory for fill_take_kernel's two instantiations and
-winner_reduce_kernel (`nvcc -Xptxas -v`), the card's name and power
+`plan_ms` and `plan_device_ms`; fill_take's also at B = 4,096,
+`ms_at_b4096` and the rest), one line of ptxas's registers and shared
+memory for fill_take_kernel's two instantiations, the global sort's
+sort_runs_kernel and merge_kernel, and winner_reduce_kernel
+(`nvcc -Xptxas -v`), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure exits non-zero before the last line.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -111,7 +128,7 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
-# The kernels a round launches; the ring kernel is driven in phase 7.
+# The kernels a round launches; the ring kernel is driven in phase 8.
 ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
 RING_CALLS = 100  # per axis, K and found share
 WINNER_ROWS = (1, 2, 3, 8, 32, 33, 1024)  # P held on the card, at K = 1, 3, 5
@@ -266,8 +283,19 @@ def time_fill_take(key, b, checks):
 
     n = key.shape[0]
     want = min(b, n)
+    extra = {}
+    if kt.fill_take_config(n, want).global_sort:
+        # The global sort's two kernels, one launch of each per call while
+        # want <= 2 x FILL_TAKE_MAX (one merge level).
+        assert want <= 2 * kt.FILL_TAKE_MAX
+        extra["sort_device_ms"] = sum(
+            device_ms(lambda: kt.fill_take(key, b), 50, k) for k in ("sort_runs_kernel", "merge_kernel")
+        )
     return {
+        **extra,
         "ms": cuda_ms(lambda: kt.fill_take(key, b), 200),
+        # The select kernel; past FILL_TAKE_MAX the sort's two kernels add
+        # to it (`ms` is the whole call).
         "device_ms": device_ms(lambda: kt.fill_take(key, b), 50, "fill_take_kernel"),
         "plain_ms": cuda_ms(lambda: kt.fill_take_plain(key, b), 50),
         "bound_ms": (n * 8 + want * 12) / HBM_BYTES_PER_S * 1e3,
@@ -284,9 +312,11 @@ def time_fill_take(key, b, checks):
 # 1 CTA, 16,384: 2, 32,768: 4, 65,536: 8); ragged slices (4,097: an odd
 # slice, 20,001: four CTAs of unequal length); a key view 8 bytes past an
 # allocation (a ragged head); and N = 262,144, beyond the cluster's shared
-# memory (streamed).
+# memory (streamed); B = 4,096 and 8,192 at N = 65,536, past the survivors'
+# shared-memory budget (the global sort).
 TAKE_SHAPES = (
     [(n, b, kind) for n in (8192, 65536) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
+    + [(65536, b, kind) for b in (4096, 8192) for kind in ("distinct", "dups", "tail")]
     + [(n, 512, kind) for n in (2048, 16384) for kind in ("distinct", "dups", "tail")]
     + [(300, 512, "distinct")]
     + [(n, b, kind) for n in (4097, 20001, 32768, 262144) for b in (512, 2048) for kind in ("distinct", "dups", "tail")]
@@ -347,6 +377,8 @@ def phase_kernels():
                                   resident=kt.fill_take_config(n, min(n, b)).resident))
         if (n, b, kind) == (8192, 512, "distinct"):
             at_8192 = time_fill_take(key, b, checks)
+        if (n, b, kind) == (65536, 4096, "distinct"):
+            at_b4096 = time_fill_take(key, b, checks)
         if (n, b, kind) == (65536, 512, "distinct"):
             timing["fill_take"] = time_fill_take(key, b, checks)
             # The same keys 8 bytes into a larger allocation: a ragged head.
@@ -363,6 +395,7 @@ def phase_kernels():
     ft = timing["fill_take"]
     ft["ms_at_8192"] = at_8192["ms"]
     ft["at_8192"] = at_8192
+    ft["at_b4096"] = at_b4096
     ft["ms_score_keys"] = cuda_ms(lambda: kt.fill_take(masked, 512), 200)
     ft["max_abs_err"] = max(c["max_abs_err"] for c in checks if c["name"] == "fill_take")
     return checks, timing
@@ -411,7 +444,8 @@ def ptxas_start():
 
 def ptxas_finish(job):
     """Registers, shared memory, stack and spills of each fill_take_kernel
-    instantiation and of winner_reduce_kernel, from ptxas's report."""
+    instantiation, of the global sort's two kernels and of
+    winner_reduce_kernel, from ptxas's report."""
     import re
     import shutil
 
@@ -432,8 +466,10 @@ def ptxas_finish(job):
             width = re.search(r"winner_reduce_kernelILi(\d+)E", name)
             if width:
                 entry = f"winner_reduce_kernel<{width.group(1)}>"
-            else:
+            elif "fill_take_kernel" in name:
                 entry = "fill_take_kernel<resident>" if "ILb1E" in name else "fill_take_kernel<streamed>"
+            else:  # fill_take.cu's global sort
+                entry = "sort_runs_kernel" if "sort_runs_kernel" in name else "merge_kernel"
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
@@ -591,17 +627,8 @@ def check_winner_launches(launches, stats, shards, label):
 def run_round(n_jobs, n_nodes, paths, **inputs_kw):
     """Host prep once, then one solve per kernel path; returns timings,
     outputs by path and the padded round."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from armada_tpu_torch.ops import kernels as K
     from armada_tpu_torch.snapshot.round import build_round_snapshot
-    from armada_tpu_torch.solver import kernel as kernel_mod
     from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
-    from armada_tpu_torch.solver.validate import validate_round
-
     from armada_tpu_torch.workload import N_RUNNING, build_inputs
 
     t0 = time.time()
@@ -614,10 +641,33 @@ def run_round(n_jobs, n_nodes, paths, **inputs_kw):
     res = {
         "jobs": n_jobs, "nodes": n_nodes, "running": inputs_kw.get("n_running", N_RUNNING),
         "gang_every": inputs_kw.get("gang_every", 0),
+        "fast_fill": bool(dev.fast_fill), "fill_window": int(dev.batch_window),
+        "specs_s": specs_s, "host_prep_s": prep_s,
+    }
+    res, outs = solve_paths(dev, paths, int(snap.num_jobs), res)
+    return res, outs, dev
+
+
+def solve_paths(dev, paths, readback_rows, res=None):
+    """One solve of the padded round per kernel path, each admitted by the
+    round firewall, the "cuda" path with both fill kernels launched (the
+    counts set to 0 just before each solve and read just after); returns
+    (record, outputs by path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.solver import kernel as kernel_mod
+    from armada_tpu_torch.solver.validate import validate_round
+
+    res = dict(res or {})
+    res.update({
         "padded": {"J": int(dev.job_req.shape[0]), "N": int(dev.node_total.shape[0]),
                    "S": int(dev.slot_members.shape[0])},
-        "specs_s": specs_s, "host_prep_s": prep_s, "readback_rows": int(snap.num_jobs),
-    }
+        "readback_rows": readback_rows,
+    })
     outs = {}
     for path in paths:
         d = dataclasses.replace(dev, kernel_path=path)
@@ -625,7 +675,7 @@ def run_round(n_jobs, n_nodes, paths, **inputs_kw):
         torch.cuda.synchronize()
         t0 = time.time()
         stats = {}
-        out = kernel_mod.solve_round(d, readback_rows=snap.num_jobs, stats=stats)
+        out = kernel_mod.solve_round(d, readback_rows=readback_rows, stats=stats)
         torch.cuda.synchronize()
         res[f"{path}_cold_solve_s"] = time.time() - t0
         res[f"{path}_cold_launches"] = dict(K.LAUNCHES)
@@ -640,12 +690,12 @@ def run_round(n_jobs, n_nodes, paths, **inputs_kw):
             raise AssertionError(f"validate_round rejected the {path} round: {violation}")
         if path == "cuda":
             # The single-device path's kernels; winner_reduce runs only
-            # on a mesh with more than one host (phase 6).
+            # on a mesh with more than one host (phase 7).
             for name in ("score_nodes", "fill_take"):
                 if res["cuda_cold_launches"][name] <= 0:
                     raise AssertionError(f"kernel {name} was not launched on the cuda path")
         outs[path] = out
-    return res, outs, dev
+    return res, outs
 
 
 def require_launch(res, what):
@@ -761,6 +811,85 @@ def ring_timing(rec):
     }
 
 
+def require_merged(rec, paths, what):
+    """Fast fill ran: merged loops on every path, no single-queue fill."""
+    for path in paths:
+        kinds = rec[f"{path}_loop_kinds"]
+        if kinds["merged_fill_loops"] <= 0 or kinds["fill_loops"] != 0:
+            raise AssertionError(f"{what}: no merged fill on the {path} path ({kinds})")
+
+
+def phase_fast_fill(dev_flag, flag_rows):
+    """Fast fill (the merged multi-queue window fill and the evicted-rebind
+    window) on the card:
+    - round_100k at a window of 512 on "cuda" and "lax", bit-equal;
+    - the flagship in the bench's configuration (window 2,048): phase 5's
+      padded round under that fill configuration (`workload.refill`,
+      equal to a fresh prep: tests/test_torch_fast_fill.py), on "cuda";
+    - the home/away round at 16,384 nodes x 65,536 jobs (the reference's
+      multichip dryrun size; its config has fast fill on): "cuda" and
+      "lax" bit-equal, then 2x2 shard threads held to the single device,
+      the round that evicts and selects nodes at scale;
+    - a window of 4,096 on 5,000 nodes (8,192 padded), 20,000 queued
+      jobs: every fill group's fill_take at want 4,096, past the
+      survivors' shared-memory budget, "cuda" equal to "lax".
+    Each admitted by the round firewall, with both fill kernels launched
+    on "cuda"; loops and host seconds by kind in each record."""
+    from armada_tpu_torch.parallel.scenarios import home_away_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import refill, scheduling_config
+
+    rec = {}
+    r100, outs, _ = run_round(100_000, 5000, ("cuda", "lax"), fast_fill=True, fill_window=512)
+    assert_same_outputs(outs["cuda"], outs["lax"], "round_100k fast fill: the cuda and lax paths")
+    require_merged(r100, ("cuda", "lax"), "round_100k fast fill")
+    r100["cuda_equals_lax"] = True
+    rec["round_100k_fast"] = r100
+    del outs
+
+    t0 = time.time()
+    d = refill(dev_flag, scheduling_config(fast_fill=True, fill_window=2048))
+    flag, _ = solve_paths(d, ("cuda",), flag_rows,
+                          {"jobs": 1_000_000, "nodes": 50_000, "fast_fill": True,
+                           "fill_window": 2048, "refill_s": time.time() - t0})
+    require_merged(flag, ("cuda",), "flagship fast fill")
+    rec["flagship_fast"] = flag
+    del d
+
+    t0 = time.time()
+    snap = home_away_round(16384, 65536)
+    dev = pad_device_round(prep_device_round(snap))
+    ha, outs = solve_paths(dev, ("cuda", "lax"), int(snap.num_jobs),
+                           {"nodes": 16384, "jobs": 65536, "fast_fill": bool(dev.fast_fill),
+                            "fill_window": int(dev.batch_window),
+                            "host_prep_s": time.time() - t0})
+    assert_same_outputs(outs["cuda"], outs["lax"], "home_away: the cuda and lax paths")
+    require_merged(ha, ("cuda", "lax"), "home_away")
+    ha["cuda_equals_lax"] = True
+    rec["home_away"] = ha
+    rec["home_away_2x2"] = run_sharded(
+        dev, outs["cuda"], "home_away", int(snap.num_jobs), ROUND_KERNELS
+    )
+    if rec["home_away_2x2"]["loop_kinds"]["merged_fill_loops"] <= 0:
+        raise AssertionError("home_away 2x2: no merged fill")
+    del outs, dev
+
+    w4, outs, dev = run_round(20_000, 5000, ("cuda", "lax"), n_running=0, fast_fill=True,
+                              fill_window=4096)
+    assert_same_outputs(outs["cuda"], outs["lax"], "window 4,096: the cuda and lax paths")
+    require_merged(w4, ("cuda", "lax"), "window 4,096")
+    want = min(4096, int(dev.node_total.shape[0]))
+    sorts = w4["cuda_cold_launches"]["fill_take_global_sort"]
+    if sorts <= 0:
+        raise AssertionError(f"window 4,096: no fill_take sorted in the global scratch (want {want})")
+    w4["cuda_equals_lax"] = True
+    w4["fill_take_want"] = want
+    w4["fill_take_global_sort_launches"] = int(sorts)
+    rec["window_4096"] = w4
+    del outs, dev
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -803,24 +932,29 @@ def main() -> int:
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
 
     t0 = time.time()
+    fast = phase_fast_fill(dev_flag, flag["readback_rows"])
+    emit({"phase": "fast_fill", **fast, "seconds": time.time() - t0})
+
+    t0 = time.time()
     # Neither bench round selects a node: round_100k's 5,002 serial loops
     # return evicted jobs to their own nodes (a pinned reschedule reads
     # one node, it selects none) and the burst limit ends both rounds'
     # fills. So they require the fill kernels, and the winner kernel runs
     # in gangs_100k, whose gangs are placed member by member. The sharded
-    # eviction round is round_100k at half its shape (round_50k: 50,000
-    # jobs x 2,500 nodes x 2,500 running, 2,502 serial loops of pinned
-    # returns and 998 fills), held to its own single-device solve: the
-    # same paths at half the serial loops, which cost most of the phase.
+    # eviction round is round_100k at a quarter of its shape (round_25k:
+    # 25,000 jobs x 1,250 nodes x 1,250 running, about 1,250 serial loops
+    # of pinned returns and the fills), held to its own single-device
+    # solve: the same paths at a quarter of the serial loops, which cost
+    # most of the phase.
     fill_kernels = ("score_nodes", "fill_take")
-    half, half_outs, dev_half = run_round(50_000, 2500, ("cuda",), n_running=2500)
+    quarter, quarter_outs, dev_quarter = run_round(25_000, 1250, ("cuda",), n_running=1250)
     sharded = {
-        "round_50k_single_device": half,
-        "round_50k": run_sharded(
-            dev_half, half_outs["cuda"], "round_50k", half["readback_rows"], fill_kernels
+        "round_25k_single_device": quarter,
+        "round_25k": run_sharded(
+            dev_quarter, quarter_outs["cuda"], "round_25k", quarter["readback_rows"], fill_kernels
         ),
     }
-    del half_outs, dev_half
+    del quarter_outs, dev_quarter
     # Both sides of the sharded comparison below run score_nodes and
     # fill_take, so the single-device round is also held to the "lax" path,
     # which runs none of the kernels.
@@ -865,7 +999,9 @@ def main() -> int:
             "source": f"armada_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": int(launches[name]),
-            "launches_sharded_round_50k": int(sharded["round_50k"]["launches"][name]),
+            "launches_sharded_round_25k": int(sharded["round_25k"]["launches"][name]),
+            "launches_fast_fill_flagship": int(fast["flagship_fast"]["cuda_cold_launches"][name]),
+            "launches_home_away_2x2": int(fast["home_away_2x2"]["launches"][name]),
             "launches_sharded_flagship": int(sharded["flagship_1m"]["launches"][name]),
             "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
             "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
@@ -884,6 +1020,13 @@ def main() -> int:
                 "device_ms_n2": tm["device_ms_n2"]}
                if name == "ring_exchange" else {}),
             **({"floor_device_ms": floor_ms} if name in ("winner_reduce", "ring_exchange") else {}),
+            **({"ms_at_b4096": tm["at_b4096"]["ms"],
+                "device_ms_at_b4096": tm["at_b4096"]["device_ms"],
+                "sort_device_ms_at_b4096": tm["at_b4096"]["sort_device_ms"],
+                "plain_ms_at_b4096": tm["at_b4096"]["plain_ms"],
+                "bound_ms_at_b4096": tm["at_b4096"]["bound_ms"],
+                "library_ms_at_b4096": tm["at_b4096"]["library_ms"]}
+               if name == "fill_take" else {}),
             **({"cluster": tm["cluster"], "ms_at_8192": tm["ms_at_8192"],
                 "device_ms_at_8192": tm["at_8192"]["device_ms"],
                 "library_ms_at_8192": tm["at_8192"]["library_ms"],

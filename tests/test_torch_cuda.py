@@ -171,11 +171,43 @@ def test_kernels_match_plain_on_card(cuda_device):
         keys[rng.random(n + 1) < 0.3] = SENTINEL
         base = torch.as_tensor(keys, device=cuda_device)
         for kt in (base[:n], base[1:]):
-            for b in (1, 512, 2048):
+            # 4,096 and 8,192: past the shared-memory budget, the global sort.
+            for b in (1, 512, 2048, 4096, 8192):
                 got = tk.fill_take(kt, b)
                 want = tk.fill_take_plain(kt, b)
                 torch.cuda.synchronize()
                 assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, b)
+
+
+@pytest.mark.cuda
+def test_fast_fill_rounds_on_card_equal_rounds_on_cpu(cuda_device):
+    """Fast fill on the card: the bench round at a window of 512 (with its
+    evicted jobs' rebind window) and of 4,096 on more nodes (fill_take
+    past its shared-memory budget), and the home/away round, each equal
+    to the same solve on the CPU, with both fill kernels launched."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.parallel.scenarios import home_away_round
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    snaps = [
+        build_round_snapshot(*build_inputs(4000, 200, n_running=400, fast_fill=True)),
+        build_round_snapshot(*build_inputs(3000, 4500, n_running=0, fast_fill=True,
+                                           fill_window=4096)),
+        home_away_round(256, 1024),
+    ]
+    for snap in snaps:
+        dev = pad_device_round(prep_device_round(snap))
+        K.reset_launches()
+        stats = {}
+        on_card = solve_round(dev, stats=stats)
+        assert K.LAUNCHES["score_nodes"] > 0 and K.LAUNCHES["fill_take"] > 0
+        assert stats["merged_fill_loops"] > 0
+        on_cpu = solve_round(dev, device="cpu")
+        for k in on_cpu:
+            assert np.array_equal(on_card[k], on_cpu[k], equal_nan=True), k
 
 
 @pytest.mark.cuda
@@ -227,7 +259,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         )
     key = torch.arange(4096, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
-        tk.fill_take(key, tk.FILL_TAKE_MAX + 1)
+        tk.fill_take(key, 0)
     with pytest.raises(TypeError):
         tk.fill_take(key.to(torch.int32), 16)
     with pytest.raises(ValueError):

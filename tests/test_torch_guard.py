@@ -1,6 +1,7 @@
-"""The port stands alone: no module of armada_tpu_torch, and not
-chip_smoke.py, imports jax or armada_tpu; and the default device is the
-CUDA card, which raises where there is none."""
+"""The port stands alone: no module of armada_tpu_torch (the home/away
+scenario module included), and not chip_smoke.py, imports jax or
+armada_tpu, also when the main path and the fast-fill path run; and the
+default device is the CUDA card, which raises where there is none."""
 
 import os
 import subprocess
@@ -46,6 +47,15 @@ _GUARD = textwrap.dedent(
     dev = pad_device_round(prep_device_round(build_round_snapshot(*inputs)))
     out = solve_round(dev, device="cpu")
     assert validate_round(out, dev=dev) is None
+    assert int(out["scheduled_mask"].sum()) > 0
+    # The fast-fill path on the port's own home/away round.
+    assert "armada_tpu_torch.parallel.scenarios" in names
+    from armada_tpu_torch.parallel.scenarios import home_away_round
+
+    dev = pad_device_round(prep_device_round(home_away_round(16, 48)))
+    stats = {}
+    out = solve_round(dev, device="cpu", stats=stats)
+    assert dev.fast_fill and stats["merged_fill_loops"] > 0
     assert int(out["scheduled_mask"].sum()) > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
     assert not loaded, loaded

@@ -115,7 +115,8 @@ def test_score_nodes_wrapper_takes_plain_version_on_cpu():
     want = tk.score_nodes_plain(**a)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0, "ring_exchange": 0}
+    assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0, "ring_exchange": 0,
+                           "fill_take_global_sort": 0}
 
 
 @pytest.mark.parametrize("case", range(5))
@@ -534,13 +535,20 @@ def test_fill_take_cluster_model_matches_stable_sort(n, b, kind, n_ctas):
         (131072, 512, 8, 16384, True),
         (131073, 512, 8, 16386, False),
         (262144, 512, 8, 32768, False),
+        (65536, 2049, 8, 8192, True),
+        (65536, 8192, 8, 8192, True),
+        (8192, 8192, 1, 8192, True),
+        (262144, 8192, 8, 32768, False),
     ],
 )
 def test_fill_take_config(n, want, cluster, per_cta, resident):
     cfg = tk.fill_take_config(n, want)
     assert (cfg.cluster, cfg.keys_per_cta, cfg.resident) == (cluster, per_cta, resident)
     assert cfg.cluster * cfg.keys_per_cta >= n and cfg.keys_per_cta % 2 == 0
-    p2 = 1 << (want - 1).bit_length()
+    # Past FILL_TAKE_MAX the survivors are sorted in global memory, none in
+    # shared memory.
+    assert cfg.global_sort == (want > tk.FILL_TAKE_MAX)
+    p2 = 0 if cfg.global_sort else 1 << (want - 1).bit_length()
     survivors = (p2 * 12 + 15) // 16 * 16
     assert cfg.smem_bytes == survivors + ((per_cta + 1) * 8 if resident else 0)
     # The largest resident launch stays inside a CTA's 227 KB of shared memory.
@@ -548,12 +556,39 @@ def test_fill_take_config(n, want, cluster, per_cta, resident):
 
 
 def test_fill_take_config_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError):
-        tk.fill_take_config(4096, tk.FILL_TAKE_MAX + 1)
+    """The kernel takes any 1 <= want <= N <= FILL_TAKE_MAX_KEYS: a want
+    past the shared-memory budget is taken (global sort), want < 1, want
+    above N and N past the index range are refused."""
+    assert tk.fill_take_config(4096, tk.FILL_TAKE_MAX + 1).global_sort
+    assert tk.fill_take_config(4096, 4096).global_sort
     with pytest.raises(ValueError):
         tk.fill_take_config(4096, 0)
     with pytest.raises(ValueError):
+        tk.fill_take_config(4096, 4097)
+    with pytest.raises(ValueError):
         tk.fill_take_config(tk.FILL_TAKE_MAX_KEYS + 2, 512)
+
+
+@pytest.mark.parametrize("n_ctas", [1, 8])
+@pytest.mark.parametrize("kind", ["distinct", "dups", "tail"])
+@pytest.mark.parametrize("want", [2049, 4096, 8192])
+def test_fill_take_past_shared_memory_matches_stable_sort(want, kind, n_ctas):
+    """want past FILL_TAKE_MAX (the global sort: runs of 2,048, then merge
+    levels): the plain version and the cluster model against numpy's
+    stable sort, on distinct and tie-heavy keys with a sentinel tail."""
+    n = 65536
+    rng = np.random.default_rng(want * 7 + n_ctas)
+    keys = _cluster_keys(kind, n, want, rng)
+    if kind != "tail":
+        keys[rng.random(n) < 0.3] = SENTINEL
+    order = np.argsort(keys, kind="stable")[:want]
+    for take, taken in (
+        tk.fill_take_plain(torch.as_tensor(keys), want),
+        tk.fill_take_cluster_simulate(torch.as_tensor(keys), want, n_ctas),
+    ):
+        assert take.dtype == torch.int32 and taken.dtype == torch.int64
+        np.testing.assert_array_equal(take.numpy(), order)
+        np.testing.assert_array_equal(taken.numpy(), keys[order])
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 
 - Rounds of tests/torch_scenarios.py with eviction and gangs, and 21 nodes
   padded to the mesh, on 1x2 and 2x2 process grids with the "lax" and
-  "cuda" host stages: rank 0's outputs held to the JAX package's
+  "cuda" host stages, and the home/away round with fast fill on: rank 0's outputs held to the JAX package's
   single-device `solve_round` of the same padded round as
   tests/test_torch_multihost.py holds the in-process group (decisions,
   num_loops and spot_price bit-exact, fair shares within their ULP
@@ -44,6 +44,10 @@ CASES = [
 
 @pytest.mark.parametrize("name,mesh,path", CASES)
 def test_multiprocess_round_matches_reference(tmp_path, name, mesh, path):
+    check_multiprocess_round(tmp_path, name, mesh, path)
+
+
+def check_multiprocess_round(tmp_path, name, mesh, path):
     _, want = _reference(name)
     dev = _port_round(name, path)
     round_path = save_round(dev, tmp_path / "round.npz")
@@ -71,6 +75,33 @@ def test_multiprocess_round_matches_reference(tmp_path, name, mesh, path):
         assert stats["pallas_calls"] == stats["selects"]
     if name == "eviction_rebalance":
         assert stats["selects"] > 0
+    return res
+
+
+@pytest.mark.parametrize("mesh,path", [((2, 2), "cuda"), ((1, 2), "lax")])
+def test_multiprocess_fast_fill_round_matches_threads(tmp_path, mesh, path):
+    """The home/away round with fast fill on (its config's own), in gloo
+    processes: rank 0's outputs held to the JAX package's single-device
+    round, equal to the in-thread group's, with equal CollectiveStats and
+    loop counts, merged fills included."""
+    res = check_multiprocess_round(tmp_path, "home_away_fast", mesh, path)
+    assert res["workers"][0]["loop_stats"]["merged_fill_loops"] > 0
+
+
+def test_dcn_dryrun_home_away_on_cpu():
+    """The multi-process tool on the home/away round (fast fill on) at a
+    small size, two gloo processes on the CPU: one JSON line, parity with
+    the single-device solve, merged fills on every rank."""
+    r = subprocess.run(
+        [sys.executable, "-m", "armada_tpu_torch.tools.dcn_dryrun", "--round", "home_away",
+         "--device", "cpu", "--backend", "gloo", "--hosts", "1", "--chips", "2",
+         "--nodes", "32", "--jobs", "96", "--timeout", str(TIMEOUT_S)],
+        capture_output=True, text=True, timeout=TIMEOUT_S + 60, cwd=ROOT,
+    )
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    assert report["ok"] and report["parity"] and report["round"] == "home_away"
+    assert all(s["merged_fill_loops"] > 0 for s in report["loop_stats"])
 
 
 def test_saved_round_loads_field_for_field(tmp_path):

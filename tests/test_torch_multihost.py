@@ -11,12 +11,14 @@ the port's sharded solves are held to it:
   4 ULP (16 for the uncapped accumulator), as tests/test_torch_round.py;
 - on meshes 1x1, 1x4, 2x2 and 2x4, with the round's kernel path and the
   host-stage dist both "lax" or both "cuda";
-- on the mixed-fleet home/away round (`home_away_round(32, 96)`, with
-  fast fill off: the port's fast fill is a later slice, so both solvers
-  get the same round with `fast_fill=False`); tests/
-  test_torch_multihost_rounds.py adds two rounds of
-  tests/torch_scenarios.py with eviction and gangs, and 21 nodes padded
-  to the mesh by `pad_nodes`.
+- on the mixed-fleet home/away round (`home_away_round(32, 96)`), with
+  fast fill off (`fast_fill=False` for both solvers) and, as its own
+  cases, with fast fill on as the round's config has it (the merged
+  window fill and the evicted-rebind window over sharded nodes: a shard
+  of 4 nodes returns fewer candidates than the window of 512);
+  tests/test_torch_multihost_rounds.py adds rounds of
+  tests/torch_scenarios.py with eviction and gangs, one with fast fill,
+  and 21 nodes padded to the mesh by `pad_nodes`.
 
 Also: the shard group's collectives, its turns, its failure and timeout
 behaviour, the node split, the pack plan of a shard, CollectiveStats, and
@@ -83,17 +85,23 @@ def _twenty_one_nodes():
 
 ROUNDS = {
     "home_away": lambda: pad_device_round(_home_away()),
+    "home_away_fast": lambda: pad_device_round(_home_away()),
+    "eviction_gang_fast": lambda: pad_device_round(_scenario("eviction_gang")),
     "eviction_rebalance": lambda: pad_device_round(_scenario("eviction_rebalance")),
     "gang_atomicity": lambda: pad_device_round(_scenario("gang_atomicity")),
     "nodes21": _twenty_one_nodes,
 }
 
 
+# The rounds solved with fast fill on; the others with it off.
+FAST_ROUNDS = ("home_away_fast", "eviction_gang_fast")
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(name):
     """(reference DeviceRound padded to 8 shards, reference lax outputs)."""
     dev = ref_mesh.pad_nodes(ROUNDS[name](), 8)
-    dev = dataclasses.replace(dev, fast_fill=False, kernel_path="lax")
+    dev = dataclasses.replace(dev, fast_fill=name in FAST_ROUNDS, kernel_path="lax")
     return dev, {k: np.asarray(v) for k, v in ref_kernel.solve_round(dev).items()}
 
 
@@ -126,6 +134,47 @@ def test_sharded_round_matches_reference(mesh, path):
     run = check_sharded_round("home_away", mesh, path)
     assert run.last_stats.selects > 0 and run.last_stats.fills > 0
     assert run.loop_stats["fill_loops"] > 0 and run.loop_stats["gang_loops"] > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("path", PATHS)
+def test_sharded_fast_fill_round_matches_reference(mesh, path):
+    run = check_sharded_round("home_away_fast", mesh, path)
+    assert run.last_stats.fills > 0
+    assert run.loop_stats["merged_fill_loops"] > 0 and run.loop_stats["fill_loops"] == 0
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)])
+def test_vector_point_reads_equal_local(mesh):
+    """The evicted-rebind window reads W home columns and unschedulable
+    flags at once: take_rows over a vector of global node ids (repeats
+    included) on a sharded dist equals the single-device column and flag
+    reads, and each books one point read."""
+    from armada_tpu_torch.solver.dist import LOCAL, CollectiveStats, ShardDist
+
+    rng = np.random.default_rng(5)
+    h, c = mesh
+    n, n_local = h * c * 6, 6
+    alloc = torch.as_tensor(rng.integers(-5, 50, size=(3, n, 4)).astype(np.int32))
+    unsched = torch.as_tensor(rng.random(n) < 0.3)
+    nodes = torch.as_tensor(rng.integers(0, n, size=40).astype(np.int32))
+    want = (alloc[:, nodes.long()].transpose(0, 1), unsched[nodes.long()])
+    assert torch.equal(LOCAL.take_rows(alloc.transpose(0, 1), nodes), want[0])
+    assert torch.equal(LOCAL.take_rows(unsched, nodes), want[1])
+    assert want[0].shape == (40, 3, 4) and want[1].shape == (40,)
+    stats = CollectiveStats()
+    dist = (ShardDist("chips", c, stats=stats) if h == 1
+            else HierarchicalDist("hosts", "chips", h, c, stats=stats))
+
+    def fn(shard):
+        bound = dist.bind(shard)
+        part = slice(shard.index * n_local, (shard.index + 1) * n_local)
+        return (bound.take_rows(alloc[:, part].contiguous().transpose(0, 1), nodes),
+                bound.take_rows(unsched[part].contiguous(), nodes))
+
+    for got in comm.ShardGroup(("hosts", "chips"), mesh, ["cpu"] * (h * c)).run(fn):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert stats.point_ops == 2
 
 
 def test_shard_round_splits_only_node_fields():

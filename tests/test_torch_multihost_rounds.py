@@ -1,6 +1,9 @@
 """The port's node-sharded round against the JAX package's single-device
-round on the rounds of tests/torch_scenarios.py with eviction and gangs,
-and on 21 nodes padded to the mesh by `pad_nodes`: the same check as
+round on the rounds of tests/torch_scenarios.py with eviction and gangs
+and a fast-fill round with eviction and a gang (eviction_gang: evicted
+rebinds and queued fills through the merged step, the gang through node
+selection), and on 21 nodes padded to
+the mesh by `pad_nodes`: the same check as
 tests/test_torch_multihost.py, in a file of its own so the two run side
 by side."""
 
@@ -24,12 +27,16 @@ from test_torch_multihost import _twenty_one_nodes, check_sharded_round
         ("gang_atomicity", (2, 2), "cuda"),
         ("nodes21", (2, 4), "lax"),
         ("nodes21", (2, 4), "cuda"),
+        ("eviction_gang_fast", (2, 2), "cuda"),
+        ("eviction_gang_fast", (2, 4), "lax"),
     ],
 )
 def test_sharded_round_matches_reference(name, mesh, path):
     run = check_sharded_round(name, mesh, path)
-    if name == "eviction_rebalance":
+    if name.startswith("eviction"):
         assert run.last_stats.selects > 0
+    if name.endswith("_fast"):
+        assert run.loop_stats["merged_fill_loops"] > 0
 
 
 def test_pad_nodes_matches_reference():

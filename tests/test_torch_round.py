@@ -115,9 +115,11 @@ def test_readback_rows_trim_is_byte_identical():
 
 
 def test_unported_paths_raise():
+    """Market rounds, the other fairness policies and solve_round's round
+    budget, hot window and profile options raise; fast fill is ported
+    (tests/test_torch_fast_fill*.py)."""
     dev = from_reference_round(dataclasses.asdict(_reference_round("rate_limited")))
     for bad in (
-        dataclasses.replace(dev, fast_fill=True),
         dataclasses.replace(dev, market_driven=True, batch_window=0),
         dataclasses.replace(dev, fairness_policy=("proportional",)),
     ):

@@ -3,7 +3,8 @@
 Each scenario is (config, nodes, queues, running, queued) built from the
 JAX package's types: the random sweeps of tests/test_kernel_parity.py and
 its directed cases (rate limits, round fraction, lookback, eviction
-rebalance, urgency preemption, gang uniformity, gang atomicity).
+rebalance, urgency preemption, gang uniformity, gang atomicity), and a
+round that evicts with a gang among the arrivals.
 `to_port` rebuilds any of those spec objects as the port's own types, so
 the port's host prep can run from specs equal to the reference's.
 """
@@ -162,6 +163,34 @@ def _gang_atomicity():
     return SchedulingConfig(), nodes, [QueueSpec("q")], [], queued
 
 
+def _eviction_gang():
+    """Balance eviction with a gang among the arrivals: a hog queue's
+    running jobs on two nodes, then singletons and a gang of 2 from a new
+    queue, so that evicted jobs return home while queued jobs fill and
+    the gang selects nodes."""
+    nodes = [
+        NodeSpec(id=f"n{i}", pool="default", total_resources={"cpu": "32", "memory": "128Gi"})
+        for i in range(2)
+    ]
+    running = [
+        RunningJob(
+            job=JobSpec(id=f"r{i}", queue="hog", priority_class="low",
+                        requests={"cpu": "4", "memory": "4Gi"}, submitted_ts=i),
+            node_id=f"n{i % 2}",
+            scheduled_at_priority=1000,
+        )
+        for i in range(12)
+    ]
+    gang = Gang(id="g", cardinality=2)
+    queued = [
+        JobSpec(id=f"j{i}", queue="newbie", priority_class="low",
+                requests={"cpu": "4", "memory": "4Gi"}, submitted_ts=100 + i,
+                gang=gang if i in (6, 7) else None)
+        for i in range(12)
+    ]
+    return PREEMPT_CFG, nodes, [QueueSpec("hog"), QueueSpec("newbie")], running, queued
+
+
 SCENARIOS = {
     "random_queued": lambda: _random(0, with_running=False),
     "random_running": lambda: _random(13, with_running=True),
@@ -175,4 +204,5 @@ SCENARIOS = {
     "gang_uniformity_impossible": _gang_uniformity_impossible,
     "gang_uniformity_unknown_label": _gang_uniformity_unknown_label,
     "gang_atomicity": _gang_atomicity,
+    "eviction_gang": _eviction_gang,
 }
