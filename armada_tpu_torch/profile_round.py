@@ -2,6 +2,7 @@
 
     python -m armada_tpu_torch.profile_round [--jobs 100000] [--nodes 5000]
         [--running 5000] [--path cuda] [--fast-fill] [--window 512]
+        [--hot-window 4096] [--budget 5.0]
 
 Builds the bench's round (workload.build_inputs; `--fast-fill` and
 `--window` set its fill configuration), solves it once to load
@@ -9,7 +10,12 @@ the kernels, then solves it again under torch.profiler (CUDA activity
 only) and prints one JSON line: the solve's wall seconds, the device's
 busy seconds (the sum of its kernel and copy intervals, one stream) and
 idle share, the loop counts and host seconds by loop kind, and the ten
-device operations with the most time. Needs one CUDA card.
+device operations with the most time. `--hot-window W` solves the round
+through the host-driven driver with hot-window compaction at W slots
+(above the scheduler's default floor of 524,288 padded slots, which the
+1M-job round clears), `--budget S` with a round budget of S seconds; either adds
+the solve's profile (its parts' seconds, rewindows, transfer ledger) and
+`truncated` to the line. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ def main(argv=None) -> int:
     ap.add_argument("--path", choices=("cuda", "lax"), default="cuda")
     ap.add_argument("--fast-fill", action="store_true", help="merged multi-queue fill")
     ap.add_argument("--window", type=int, default=512, help="batch fill window")
+    ap.add_argument("--hot-window", type=int, default=0, metavar="W",
+                    help="hot-window compaction at W slots per queue (0: off)")
+    ap.add_argument("--budget", type=float, default=None, metavar="S",
+                    help="round budget in seconds (maxSchedulingDuration)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
@@ -56,12 +66,17 @@ def main(argv=None) -> int:
     dev = dataclasses.replace(
         pad_device_round(prep_device_round(snap)), kernel_path=args.path
     )
-    kernel_mod.solve_round(dev)  # loads the kernels
+    driver = {}
+    if args.hot_window:
+        driver["window"] = args.hot_window
+    if args.budget:
+        driver["budget_s"] = args.budget
+    kernel_mod.solve_round(dev, **driver)  # loads the kernels
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = {}
-        out = kernel_mod.solve_round(dev, stats=stats)
+        out = kernel_mod.solve_round(dev, stats=stats, **driver)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = _device_events(prof)
@@ -81,6 +96,10 @@ def main(argv=None) -> int:
         "path": args.path,
         "fast_fill": args.fast_fill,
         "window": args.window,
+        "hot_window": args.hot_window,
+        "budget_s": args.budget,
+        "truncated": out.get("truncated"),
+        "profile": out.get("profile"),
         "num_loops": int(out["num_loops"]),
         "solve_wall_s": wall,
         "device_busy_s": busy_us / 1e6,

@@ -13,12 +13,21 @@ this module runs Python loops and `if`s on scalars read back from the
 device, and reads the round's static tables (slot members, counts, run
 lengths, queue ranges) from the host copy of the round instead. Tensors
 are never updated in place: a failed gang attempt keeps the carry it
-started from, as the functional reference does.
+started from, as the functional reference does. The one exception is the
+hot window's scatter back into the full carry at a chunk boundary, which
+no rollback crosses (solver/hotwindow.py).
+
+`solve_round` runs the round fused (pass 1 as one segment run to its
+end) or through the host-driven driver the scheduler asks for: pass 1 in
+chunks of loops under a round budget, with the rescue pass of a
+truncated round, optionally over hot windows of the slot and job axes,
+with a per-part profile and transfer ledger.
 
 Slice coverage: DRF, not market driven, serial gangs plus the
 single-queue batched fill or fast fill (the merged multi-queue window
-fill with its evicted-rebind window), no round budget, no hot window.
-Everything else raises NotImplementedError.
+fill with its evicted-rebind window); on one device fused or host-driven
+(round budget, hot window, profile), node-sharded fused only, as in the
+reference. Everything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,14 +39,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.config import HOT_WINDOW_MIN_SLOTS_DEFAULT
 from ..core.priorities import EVICTED_PRIORITY, MIN_PRIORITY
 from ..device import COST_DTYPE, resolve_device
 from ..ops.bitset import as_words, bits_subset
 from ..ops.kernels import ScorePlan, pack_plan
 from ..ops.segment import segment_sum
+from ..observe import ledger
 from ..ops.select import lex_argmin, lexsort, masked_lexsort
 from .dist import LOCAL, at
-from .kernel_prep import DeviceRound
+from .hotwindow import gather_window, scatter_back, window_lookahead
+from .kernel_prep import DeviceRound, _pow2
 from .validate import maybe_assert_finite
 
 NO_NODE = -1
@@ -89,19 +101,27 @@ class _Round:
     `dist` is bound to the shard (parallel/mesh.py). Every other field is
     whole."""
 
-    def __init__(self, dev: DeviceRound, device: torch.device, dist=LOCAL):
+    def __init__(self, dev: DeviceRound, device: torch.device, dist=LOCAL, *,
+                 t: DeviceRound | None = None, base: "_Round | None" = None):
+        """`t` and `base` build a hot-window round (solver/hotwindow.py):
+        `dev` and `t` are the window's host and device rounds, whose node,
+        queue and group fields are the full round's; `base` is the full
+        round, whose kernel path, pack plan and loop stats it shares. Its
+        score plan is its own, over the window's job rows."""
         self.h = dev
         self.device = device
-        tensors = {}
-        for f in dataclasses.fields(dev):
-            v = getattr(dev, f.name)
-            if isinstance(v, np.ndarray) and v.ndim > 0:
-                if v.dtype == np.uint32:
-                    v = as_words(v)
-                tensors[f.name] = torch.as_tensor(
-                    np.ascontiguousarray(v), device=device
-                )
-        self.t = dataclasses.replace(dev, **tensors)
+        if t is None:
+            tensors = {}
+            for f in dataclasses.fields(dev):
+                v = getattr(dev, f.name)
+                if isinstance(v, np.ndarray) and v.ndim > 0:
+                    if v.dtype == np.uint32:
+                        v = as_words(v)
+                    tensors[f.name] = torch.as_tensor(
+                        np.ascontiguousarray(v), device=device
+                    )
+            t = dataclasses.replace(dev, **tensors)
+        self.t = t
         self.J, self.R = dev.job_req.shape
         self.S, self.M = dev.slot_members.shape
         self.Q = dev.queue_weight.shape[0]
@@ -112,7 +132,7 @@ class _Round:
         # Loops by kind (serial gang attempts, single-queue batched fills,
         # merged multi-queue fills) and the host wall seconds spent in
         # each, over the whole solve.
-        self.stats = {
+        self.stats = base.stats if base is not None else {
             "gang_loops": 0, "fill_loops": 0, "merged_fill_loops": 0,
             "gang_s": 0.0, "fill_s": 0.0, "merged_fill_s": 0.0,
         }
@@ -120,29 +140,33 @@ class _Round:
         self.queue_weight = [float(w) for w in dev.queue_weight]
         self.penalty_f = _f(self.t.queue_short_penalty)
         self.w_clip = torch.clamp(_f(self.t.queue_weight), min=1e-12)
-        self.kbits = None
-        kpath = dev.kernel_path
-        if kpath == "cuda":
-            # dev holds the shard's nodes: the rank width covers the
-            # global node count, local count times shards.
-            self.kbits = pack_plan(dev, self.dist.n_shards)
-            if self.kbits is None:
-                # The reference's static rule: the fused path engages only
-                # where the key packs into one int64.
-                kpath = "lax"
-            else:
-                # The fused scoring's tables, checked once for the round
-                # (the shard's nodes under node sharding).
-                t = self.t
-                self.plan = ScorePlan(
-                    t.node_total, t.node_taints, t.node_labels, t.node_id_rank,
-                    t.node_gid, t.node_unschedulable, t.job_tolerated,
-                    t.job_selector, t.job_req_fit, t.job_excluded_nodes,
-                    t.job_affinity_group, t.job_possible, t.affinity_allowed,
-                    t.order_res_idx, t.order_res_resolution,
-                    torch.tensor(self.kbits, dtype=torch.int32, device=device),
-                    dev.batch_window,
-                )
+        if base is not None:
+            self.kbits, kpath = base.kbits, base.kpath
+        else:
+            self.kbits = None
+            kpath = dev.kernel_path
+            if kpath == "cuda":
+                # dev holds the shard's nodes: the rank width covers the
+                # global node count, local count times shards.
+                self.kbits = pack_plan(dev, self.dist.n_shards)
+                if self.kbits is None:
+                    # The reference's static rule: the fused path engages
+                    # only where the key packs into one int64.
+                    kpath = "lax"
+        if self.kbits is not None:
+            # The fused scoring's tables, checked once for the round (the
+            # shard's nodes under node sharding, the window's job rows in
+            # a window round).
+            t = self.t
+            self.plan = ScorePlan(
+                t.node_total, t.node_taints, t.node_labels, t.node_id_rank,
+                t.node_gid, t.node_unschedulable, t.job_tolerated,
+                t.job_selector, t.job_req_fit, t.job_excluded_nodes,
+                t.job_affinity_group, t.job_possible, t.affinity_allowed,
+                t.order_res_idx, t.order_res_resolution,
+                torch.tensor(self.kbits, dtype=torch.int32, device=device),
+                dev.batch_window,
+            )
         self.kpath = kpath
         self.knbits = sum(self.kbits) if self.kbits else None
 
@@ -643,15 +667,45 @@ def _queue_heads(rd, valid):
     return torch.where(heads < BIG, heads, t.queue_slot_end)
 
 
-def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
-                   consider_priority, prefer_large):
-    """QueueScheduler.Schedule (queue_scheduler.go:91-276) as a host loop.
+def _pass_init_ptrs(rd, c, include_queued, use_key_skip):
+    """Initial head pointers for a pass (host int32[Q]): the first valid
+    slot per queue, or the queue's end."""
+    valid = _slot_valid(
+        rd, c, torch.arange(rd.S, device=rd.device), _all_evicted(rd, c),
+        include_queued, use_key_skip, _flags_t(rd, c),
+    )
+    return _queue_heads(rd, valid).cpu().numpy().copy()
+
+
+def _pass_segment(rd, c: Carry, ptr, force_serial, budgets, loop_cap, *,
+                  include_queued, use_key_skip, consider_priority, prefer_large,
+                  window_trunc=None):
+    """QueueScheduler.Schedule (queue_scheduler.go:91-276) as a host loop:
+    one resumable SEGMENT of a pass. Returns (carry, ptr, force_serial).
 
     Per-queue candidate streams are walked with head pointers (host
-    int32[Q]): slots are sorted by (queue, segment, order), so each queue's
-    next candidate is an advancing index into its slot range. The O(S)
-    full validity scan runs at pass start and when a validity flag flips
-    (an only-evicted marker or a newly registered unfeasible key)."""
+    int32[Q], `ptr`): slots are sorted by (queue, segment, order), so each
+    queue's next candidate is an advancing index into its slot range. The
+    segment continues from the caller's (carry, ptr, force_serial), the
+    pass's state, without rescanning; the O(S) full validity scan runs
+    only when a validity flag flips (an only-evicted marker or a newly
+    registered unfeasible key).
+
+    The segment stops when the pass completes (carry.stop), when
+    `carry.loops` reaches `loop_cap`, or after 2*S + 4 loops of its own
+    (every loop consumes a slot, flips a flag or arms force-serial). A
+    boundary between segments is a loop boundary, where gang attempts are
+    complete, so the per-segment recomputation of the all-evicted flags
+    and the fair-preemption order is value-identical for every slot still
+    PENDING. `rd.stats` accumulates across segments.
+
+    `window_trunc` (bool[Q]) marks a hot-window round
+    (solver/hotwindow.py): the queues whose slots are a truncated window
+    of the real ones. The segment then also stops, the REWINDOW
+    handshake, before any loop in which a truncated queue's in-window
+    remainder is shorter than the loop's head lookahead (the fill window,
+    or 1 slot in serial mode), so that no loop could have read slots
+    beyond the window."""
     t, h = rd.t, rd.h
     Q, S = rd.Q, rd.S
     dev = rd.device
@@ -663,8 +717,8 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
     )
     # Fast fill replaces the single-queue fill with the merged step.
     fast_fill_enabled = fill_enabled and bool(h.fast_fill)
-    c = c._replace(stop=False, loops=0)
-    loop_cap = 2 * S + 4
+    loops0 = c.loops
+    lookahead = int(h.batch_window) if fill_enabled else 1
     stats = rd.stats
 
     # all-evicted flags and the jobs' evicted flags are stable within a
@@ -673,7 +727,7 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
     all_ev_t = _all_evicted(rd, c)
     all_ev_h = all_ev_t.cpu().numpy()
     pinned_h = c.job_evicted.cpu().numpy()
-    # Fair-preemption walk order: one sort per pass, not per member select.
+    # Fair-preemption walk order: one sort per segment, not per select.
     fp_order = fair_preemption_order(c)
     any_evicted = bool(torch.any(c.evict_rank >= 0))
     flags_t = _flags_t(rd, c)
@@ -682,8 +736,9 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
     # Head pointers, kept on the host (for control flow) and mirrored on
     # the device (for the per-loop key computation) so that no loop pays
     # a host-to-device copy.
-    ptr = np.zeros(Q, dtype=np.int32)
-    ptr_t = torch.zeros(Q, dtype=torch.int32, device=dev)
+    ptr = np.asarray(ptr, dtype=np.int32).copy()
+    ptr_t = rd.up(ptr)
+    end_h = h.queue_slot_end
 
     def rescan(cc):
         """Every queue's pointer from the full O(S) validity scan."""
@@ -695,7 +750,7 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
     def move(cc, q, p):
         """Set queue q's pointer to its first valid slot at or after p,
         scanning a growing window of slots per device round trip."""
-        end = int(h.queue_slot_end[q])
+        end = int(end_h[q])
         width = 16
         while p < end:
             hi = min(end, p + width)
@@ -714,11 +769,11 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
         ptr[q] = p
         ptr_t[q] = p
 
-    rescan(c)
-    force_serial = False
     name_rank = t.queue_name_rank
 
-    while not c.stop and c.loops < loop_cap:
+    while not c.stop and c.loops < loop_cap and c.loops - loops0 < 2 * S + 4:
+        if window_trunc is not None and np.any(window_trunc & ((end_h - ptr) < lookahead)):
+            break
         t_loop = time.perf_counter()
         any_head = bool(np.any(ptr < h.queue_slot_end))
         has_head = ptr_t < t.queue_slot_end
@@ -859,6 +914,21 @@ def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
             stats["gang_loops"] += 1
             stats["gang_s"] += time.perf_counter() - t_loop
         c = c._replace(loops=c.loops + 1)
+    return c, ptr, force_serial
+
+
+def _schedule_pass(rd, c: Carry, budgets, *, include_queued, use_key_skip,
+                   consider_priority, prefer_large):
+    """One full (unbudgeted) pass: initial pointers, then one segment run
+    to completion. The loop counter restarts per pass (the reference's
+    loopNumber is per QueueScheduler, queue_scheduler.go:99)."""
+    ptr = _pass_init_ptrs(rd, c, include_queued, use_key_skip)
+    c = c._replace(stop=False, loops=0)
+    c, _, _ = _pass_segment(
+        rd, c, ptr, False, budgets, 2 * rd.S + 4, include_queued=include_queued,
+        use_key_skip=use_key_skip, consider_priority=consider_priority,
+        prefer_large=prefer_large,
+    )
     return c
 
 
@@ -1678,6 +1748,140 @@ def solve_impl(rd: _Round):
     return _round_finish(rd, c, budgets, fair_share, demand_capped, uncapped)
 
 
+# ---------------------------------------------------------------------------
+# The host-driven driver (the JAX package's budget-aware, segmented and
+# hot-window driver): pass 1 runs as a sequence of SEGMENTS with a
+# wall-clock check between them. The decision stream is identical to the
+# fused solve's (segment boundaries are loop boundaries), so a truncated
+# round's QUEUED placements are a prefix of the full round's; evicted
+# running jobs get their pinned rebind attempt in the finish's rescue
+# pass, so truncation also never preempts a running job the full round
+# would have kept (truncated preemptions are a subset of the full
+# round's).
+# ---------------------------------------------------------------------------
+
+
+def _pass1_begin(rd):
+    """Everything before pass 1, and pass 1's initial pointers."""
+    c, budgets, fair_share, demand_capped, uncapped = _round_setup(rd)
+    ptr = _pass_init_ptrs(rd, c, True, True)
+    c = c._replace(stop=False, loops=0)
+    return c, ptr, budgets, fair_share, demand_capped, uncapped
+
+
+def _pass1_segment(rd, c, ptr, fs, budgets, loop_cap, window_trunc=None):
+    """One pass-1 segment: of the full round, or of a hot-window round
+    with the rewindow stop for its truncated queues."""
+    return _pass_segment(
+        rd, c, ptr, fs, budgets, loop_cap, include_queued=True, use_key_skip=True,
+        consider_priority=False, prefer_large=bool(rd.h.prefer_large),
+        window_trunc=window_trunc,
+    )
+
+
+def _normalize_window_ptrs(rd, c, ptr):
+    """Advance each pass-1 pointer to its queue's next valid slot at or
+    after it, in one full O(S) scan (host int32[Q]).
+
+    The pointer invariant is "ptr rests on a valid slot or the queue
+    end"; a window segment can break it when the in-window advance is cut
+    at the window edge. Validity only falls within a pass (flags only
+    set, consumption only forward), so completing the skip here, against
+    the same carry, lands where the full round's advance would have; a
+    pointer already on a valid slot stays. Run before every gather, so a
+    window never opens on an invalid head and a queue whose remaining
+    stream is all invalid jumps straight to its end."""
+    t = rd.t
+    valid = _slot_valid(
+        rd, c, torch.arange(rd.S, device=rd.device), _all_evicted(rd, c), True, True,
+        _flags_t(rd, c),
+    )
+    pos = torch.arange(rd.S, dtype=torch.int32, device=rd.device)
+    seg = torch.clamp(t.slot_queue, 0, rd.Q - 1).to(torch.int64)
+    ahead = valid & (pos >= rd.up(ptr)[seg])
+    heads = torch.full((rd.Q,), BIG, dtype=torch.int32, device=rd.device).scatter_reduce(
+        0, seg, torch.where(ahead, pos, BIG), reduce="amin", include_self=True
+    )
+    return torch.where(heads < BIG, heads, t.queue_slot_end).cpu().numpy().astype(np.int32)
+
+
+def _finish(rd, c, budgets, fair_share, demand_capped, uncapped, rescue: bool):
+    """Steps 3-5 after a host-driven pass 1, with the rescue pass of a
+    truncated round first. Pass 1 evicts running jobs up front, so
+    stopping it early would finalize evicted but never attempted jobs as
+    PREEMPTED. An evicted-only pass gives every still-pending evicted slot
+    its pinned rebind attempt (an evicted job only returns to its own
+    node). Rebind capacity at the truncation point is a superset of what
+    the full round's later attempts would see, so truncated preemptions
+    are a subset of the full round's. Only truncated rounds run it: after
+    a complete pass 1 no evicted slot is pending, and an untruncated
+    host-driven round stays loop for loop the fused solve."""
+    if rescue:
+        loops0 = c.loops
+        c = _schedule_pass(
+            rd, c, budgets, include_queued=False, use_key_skip=False,
+            consider_priority=False, prefer_large=bool(rd.h.prefer_large),
+        )
+        c = c._replace(loops=loops0 + c.loops)
+    return _round_finish(rd, c, budgets, fair_share, demand_capped, uncapped)
+
+
+def _window_precheck(dev: DeviceRound, window, min_slots):
+    """Static hot-window sizing (Ws, lookahead), or None when compaction
+    cannot pay off.
+
+    Ws is the per-queue window in slots: the configured size rounded up
+    to the pass's head lookahead and bucketed to a power of two.
+    Compaction engages only when the slot axis clears `min_slots` and the
+    window axes are strictly smaller than the full ones: the slot side
+    below half, the job side merely below the full axis (M is the widest
+    gang, so Q*Ws*M overestimates the members of a singleton-dominated
+    window). Needs no device data, so the choice between the fused and the
+    host-driven solve is made before anything runs."""
+    if not window or int(window) <= 0:
+        return None
+    Q = int(dev.queue_weight.shape[0])
+    S, M = (int(x) for x in dev.slot_members.shape)
+    J = int(dev.job_req.shape[0])
+    if S < int(min_slots):
+        return None
+    la = window_lookahead(dev)
+    Ws = _pow2(max(int(window), la), 1)
+    if 2 * Q * Ws >= S or Q * Ws * M + 1 >= J:
+        return None
+    return Ws, la
+
+
+def _window_plan(rd, c, pre):
+    """Finish the window plan against the live carry: Ep is the padded
+    room for out-of-window evicted jobs, bucketed from the round's evicted
+    count (one readback a round; the set only shrinks during pass 1, so
+    the bucket holds all pass long). A huge evicted set can still veto
+    compaction here: the job axis would not shrink."""
+    if pre is None:
+        return None
+    Ws, la = pre
+    n_evicted = int(torch.sum(c.evict_rank >= 0))
+    Ep = _pow2(max(n_evicted, 1), 1)
+    if rd.Q * Ws * rd.M + Ep >= rd.J:
+        return None
+    return Ws, Ep, la
+
+
+def _adapt_chunk(budget_s, t0, executed):
+    """The next chunk's loops: re-check the clock roughly every budget/8,
+    never batching more than one loop when a single loop exceeds that
+    interval (the burst regime), so the overshoot stays one fill loop."""
+    target = max(float(budget_s) / 8.0, 0.02)
+    per_loop = (time.monotonic() - t0) / executed
+    return max(1, min(int(target / max(per_loop, 1e-7)), 4096))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def check_slice(dev: DeviceRound) -> None:
     """Raise NotImplementedError for what this slice of the port does not
     solve, naming the slice that brings it."""
@@ -1722,30 +1926,38 @@ def _numpy(v):
 
 def _materialize_out(out, dev, readback_rows):
     """Device outputs -> numpy, reading back only the unpadded prefix of
-    the per-job decision arrays when the caller gave the live row count,
-    then re-expanding to the padded length with the inert pad fills, so
-    every consumer sees padded-shape arrays, byte-identical to a full
-    readback."""
+    the per-job decision arrays when the caller gave the live row count.
+    Returns (numpy dict, for the transfer ledger, and re-expand callable):
+    the ledger books the trimmed readback, then the caller re-expands to
+    the padded length with the inert pad fills, so every consumer sees
+    padded-shape arrays, byte-identical to a full readback."""
     padded_j = int(dev.job_req.shape[0])
     if readback_rows is None or int(readback_rows) >= padded_j:
-        return {k: _numpy(v) for k, v in out.items()}
+        return {k: _numpy(v) for k, v in out.items()}, lambda o: o
     bucket = _readback_bucket(padded_j, readback_rows)
     np_out = {}
     for k, v in out.items():
         if k in _JOB_READBACK and tuple(v.shape[:1]) == (padded_j,):
-            v = np.pad(
-                _numpy(v[:bucket]), (0, padded_j - bucket),
-                constant_values=_JOB_READBACK[k],
-            )
+            v = v[:bucket]
         np_out[k] = _numpy(v)
-    return np_out
+
+    def expand(o):
+        for k, fill in _JOB_READBACK.items():
+            arr = o.get(k)
+            if arr is not None and arr.shape[:1] == (bucket,):
+                o[k] = np.pad(arr, (0, padded_j - bucket), constant_values=fill)
+        return o
+
+    return np_out, expand
 
 
 def solve_round(
     dev: DeviceRound,
     *,
     budget_s: float | None = None,
+    chunk_loops: int = 1,
     window: int | None = None,
+    window_min_slots: int = HOT_WINDOW_MIN_SLOTS_DEFAULT,
     profile: bool = False,
     readback_rows: int | None = None,
     device=None,
@@ -1753,45 +1965,170 @@ def solve_round(
 ):
     """Run the round solve on `device` (the CUDA card by default); returns
     the same dict of numpy arrays under the same keys as the JAX package's
-    fused `solve_round`. `dev` is a padded host DeviceRound.
+    `solve_round`, plus a `truncated` flag when budgeted and a `profile`
+    dict on the host-driven paths. `dev` is a padded host DeviceRound.
+
+    budget_s=None (the default) runs pass 1 to completion. With a budget,
+    pass 1 runs in chunks of loops with the wall clock checked between
+    chunks; once the budget is spent the pass stops starting loops, the
+    rescue pass, the oversubscription repair, pass 2 and the finalization
+    still run, and the caller gets `truncated=True`. The chunk starts at
+    `chunk_loops` loops and adapts upward only while a loop takes far less
+    than the budget. A budget spent before the first loop still runs one
+    chunk (the forward-progress floor), so budget_s=1e-6 runs exactly
+    `chunk_loops` loops of pass 1.
+
+    window=W turns on hot-window compaction (solver/hotwindow.py): pass 1
+    runs over a gathered active set of about W slots per queue, with the
+    results scattered back at chunk boundaries and a re-gather (REWINDOW)
+    whenever a queue's window runs low, bit-exact with the uncompacted
+    round. It engages only where the window axes shrink the round and
+    the slot axis clears `window_min_slots` (`_window_precheck`); other
+    rounds solve as without a window.
+
+    profile=True takes the host-driven driver even without a budget or a
+    window. Every host-driven run attaches out["profile"]: wall seconds
+    per part (setup, pass 1, gather and scatter, finish), pass-1 loop
+    counts by kind, whether it compacted, the window's slots, the
+    rewindows, and the solve's transfer ledger (observe/ledger.py).
 
     readback_rows (the unpadded live-job count) trims the device->host
     readback of the per-job decision arrays to that prefix; the padded
     tail is inert and re-expanded on the host. `stats`, when given, is
-    filled with the loop counts by kind and the host seconds in each.
-
-    The round budget (budget_s), the hot window (window) and the
-    per-segment profile belong to the host-driven driver slice and raise
-    NotImplementedError here."""
-    if budget_s:
-        raise NotImplementedError(
-            "budget_s: the round-budget driver is not ported yet "
-            "(the budget and hot-window driver slice)"
-        )
-    if window:
-        raise NotImplementedError(
-            "window: hot-window compaction is not ported yet "
-            "(the budget and hot-window driver slice)"
-        )
-    if profile:
-        raise NotImplementedError(
-            "profile: the segmented driver's profile is not ported yet "
-            "(the budget and hot-window driver slice)"
-        )
+    filled with the loop counts by kind and the host seconds in each,
+    over the whole solve (both passes)."""
     check_slice(dev)
-    return solve_shard(
-        dev, resolve_device(device), LOCAL, readback_rows=readback_rows, stats=stats
-    )
+    device = resolve_device(device)
+    use_budget = bool(budget_s) and budget_s > 0
+    pre = _window_precheck(dev, window, window_min_slots)
+    if not use_budget and pre is None and not profile:
+        # The fused solve, with no `truncated` or `profile` key. The
+        # ledger books the round's upload and the outputs' readback into
+        # whatever ledger the caller activated.
+        ledger.note_up(dev, site="solve.dispatch")
+        return solve_shard(dev, device, LOCAL, readback_rows=readback_rows, stats=stats)
+
+    with ledger.round_ledger() as led:
+        deadline = time.monotonic() + float(budget_s) if use_budget else None
+        # One upload: every chunk and window reads the round's tensors.
+        ledger.note_up(dev, site="solve.h2d")
+        rd = _Round(dev, device)
+        t0 = time.monotonic()
+        c, ptr, budgets, fair_share, demand_capped, uncapped = _pass1_begin(rd)
+        setup_s = time.monotonic() - t0
+        fs = False
+        hard_cap = 2 * rd.S + 4
+        chunk = max(1, int(chunk_loops))
+        truncated = False
+        plan = _window_plan(rd, c, pre)
+        rewindows = 0
+        gather_s = 0.0
+        t_pass = time.monotonic()
+
+        if plan is None:
+            while True:
+                loops = c.loops
+                if c.stop or loops >= hard_cap:
+                    break
+                # Forward-progress floor: a budget spent before the first
+                # loop still runs one chunk, so a persistently tiny budget
+                # drains the backlog instead of starving it.
+                if deadline is not None and loops > 0 and time.monotonic() >= deadline:
+                    truncated = True
+                    break
+                cap = hard_cap if deadline is None else min(loops + chunk, hard_cap)
+                t0 = time.monotonic()
+                c, ptr, fs = _pass1_segment(rd, c, ptr, fs, budgets, cap)
+                if deadline is not None:
+                    chunk = _adapt_chunk(budget_s, t0, max(1, c.loops - loops))
+        else:
+            Ws, Ep, lookahead = plan
+            qbase = np.arange(rd.Q) * Ws
+            done = False
+            while not done:
+                t0 = time.monotonic()
+                ptr = _normalize_window_ptrs(rd, c, ptr)
+                win_base = ptr
+                h_w, t_w, c_w, ptr_w, trunc, win_len, sidx, jidx = gather_window(
+                    rd.h, rd.t, c, ptr, Ws, Ep
+                )
+                rd_w = _Round(h_w, device, t=t_w, base=rd)
+                end_w = qbase + win_len
+                gather_s += time.monotonic() - t0
+                while True:
+                    loops = c_w.loops
+                    rewind = not c_w.stop and bool(np.any(trunc & ((end_w - ptr_w) < lookahead)))
+                    if c_w.stop or loops >= hard_cap:
+                        done = True
+                        break
+                    if rewind:
+                        break
+                    if deadline is not None and loops > 0 and time.monotonic() >= deadline:
+                        truncated = True
+                        done = True
+                        break
+                    cap = hard_cap if deadline is None else min(loops + chunk, hard_cap)
+                    t0 = time.monotonic()
+                    c_w, ptr_w, fs = _pass1_segment(
+                        rd_w, c_w, ptr_w, fs, budgets, cap, window_trunc=trunc
+                    )
+                    if deadline is not None:
+                        chunk = _adapt_chunk(budget_s, t0, max(1, c_w.loops - loops))
+                t0 = time.monotonic()
+                # The scatter updates the full carry's job and slot rows in
+                # place.
+                ledger.note_donated(
+                    (c.job_node, c.job_prio, c.job_evicted, c.job_scheduled,
+                     c.evict_rank, c.slot_state),
+                    site="scatter_back",
+                )
+                c, ptr = scatter_back(c, c_w, ptr_w, sidx, jidx, win_base, Ws)
+                del rd_w, c_w
+                gather_s += time.monotonic() - t0
+                if not done:
+                    rewindows += 1
+
+        _sync(device)
+        pass1_s = time.monotonic() - t_pass - gather_s
+        pass1_stats = dict(rd.stats)
+        t0 = time.monotonic()
+        out = _finish(rd, c, budgets, fair_share, demand_capped, uncapped, truncated)
+        _sync(device)
+        finish_s = time.monotonic() - t0
+        out, expand = _materialize_out(out, dev, readback_rows)
+        ledger.note_down(out, site="solve.d2h")
+        out = expand(out)
+        if stats is not None:
+            stats.update(rd.stats)
+        maybe_assert_finite(out, "armada_tpu_torch.solve_round[host-driven]")
+        if use_budget:
+            out["truncated"] = truncated
+        out["profile"] = {
+            "setup_s": round(setup_s, 4),
+            "pass1_s": round(pass1_s, 4),
+            "gather_s": round(gather_s, 4),
+            "finish_s": round(finish_s, 4),
+            "gang_loops": int(pass1_stats["gang_loops"]),
+            "fill_loops": int(pass1_stats["fill_loops"]),
+            "merged_fill_loops": int(pass1_stats["merged_fill_loops"]),
+            "compacted": plan is not None,
+            "window_slots": int(plan[0]) if plan else 0,
+            "rewindows": rewindows,
+            "transfer": led.as_dict(),
+        }
+        return out
 
 
 def solve_shard(dev: DeviceRound, device: torch.device, dist, *,
                 readback_rows: int | None = None, stats: dict | None = None):
-    """The round on `device` through `dist`: the whole round with LOCAL,
-    or one shard's round (its slice of the node-major fields) with a dist
-    bound to that shard, on the shard's thread (parallel/mesh.py). Returns
-    the decision dict of numpy arrays; see `solve_round`."""
+    """The fused round on `device` through `dist`: the whole round with
+    LOCAL, or one shard's round (its slice of the node-major fields) with a
+    dist bound to that shard, on the shard's thread (parallel/mesh.py).
+    Returns the decision dict of numpy arrays; see `solve_round`."""
     rd = _Round(dev, device, dist)
-    out = _materialize_out(solve_impl(rd), dev, readback_rows)
+    out, expand = _materialize_out(solve_impl(rd), dev, readback_rows)
+    ledger.note_down(out, site="solve.d2h")
+    out = expand(out)
     if stats is not None:
         stats.update(rd.stats)
     maybe_assert_finite(out, "armada_tpu_torch.solve_round")

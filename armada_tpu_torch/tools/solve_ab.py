@@ -16,7 +16,10 @@ launches. Cells are chip_smoke.py's rounds, from
 5,000 nodes) and flagship_1m (1,000,000 x 50,000) on one device, the
 same two with fast fill on (round_100k_fast at a window of 512,
 flagship_fast at the bench's 2,048; loop counts and host seconds by kind
-include `merged_fill_loops` and `merged_fill_s`), and
+include `merged_fill_loops` and `merged_fill_s`), flagship_window
+(flagship_1m through the host-driven driver at the scheduler's default
+hot window of 4,096 slots, compacted; its solves add the driver's
+`profile`: parts' seconds, rewindows, transfer ledger), and
 gangs_100k_2x2 (100,000 queued jobs x 5,000 nodes, every 8th job opening a
 gang, no running jobs) node-sharded over a 2x2 mesh of four shard threads
 on the card, whose gangs select nodes through the winner kernel (its
@@ -55,7 +58,13 @@ CELLS = {
     # configuration, a window of 2,048.
     "round_100k_fast": (100_000, 5000, {"fast_fill": True, "fill_window": 512}),
     "flagship_fast": (1_000_000, 50_000, {"fast_fill": True, "fill_window": 2048}),
+    # The flagship as the scheduler solves it: the hot window at its
+    # default 4,096 slots per queue (compacted above the default floor of
+    # 524,288 slots), against flagship_1m, the same round fused.
+    "flagship_window": (1_000_000, 50_000, {}),
 }
+# solve_round's keywords per cell: the host-driven driver's.
+DRIVER = {"flagship_window": {"window": 4096}}
 SHARDED = {"gangs_100k_2x2": "2x2"}
 
 
@@ -123,8 +132,10 @@ def main() -> int:
                     torch.cuda.synchronize(k)
                 stats = {**run.loop_stats, "selects": run.last_stats.selects}
             else:
-                solve(readback_rows=snap.num_jobs, stats=stats)
+                out = solve(readback_rows=snap.num_jobs, stats=stats, **DRIVER.get(cell, {}))
                 torch.cuda.synchronize()
+                if "profile" in out:
+                    stats["profile"] = out["profile"]
             solves.append({"cold": rep == 0, "solve_s": time.time() - t0, **stats,
                            "launches": dict(K.LAUNCHES)})
         print(json.dumps({"tree": root, "cell": cell, "card": smi, "build_s": build_s,

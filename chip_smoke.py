@@ -45,6 +45,22 @@ version. Phases, each printing one JSON line with its seconds:
    global memory (its `fill_take_global_sort` count above 0 in that run;
    "cuda" equal to "lax"). Prints loops and host seconds
    by kind, scheduled and preempted counts.
+6b. driver: the host-driven driver as the scheduler asks for it (round
+   budget, rescue pass, hot window), each run admitted by the round
+   firewall with score_nodes and fill_take launched on "cuda":
+   flagship_window, phase 5's flagship at the scheduler's default hot
+   window (window=4096, the default min-slots floor), compacted and
+   bit-equal to phase 5's fused output with the same loops by kind, its
+   solve seconds beside the fused ones with gather_s and rewindows;
+   flagship_fast_window, phase 6's flagship_fast at the same window,
+   compacted and bit-equal to its fused output; round_25k (phase 7's
+   eviction round, solved here first) at budget_s=1e-6 on "cuda" and
+   "lax", truncated, the paths bit-equal, its placements and preemptions
+   subsets of the full round's; flagship_budget, flagship_window at
+   budget_s=5.0 (Armada's maxSchedulingDuration), a prefix of
+   flagship_window; home_away_window, the home/away round at 4,096 nodes
+   x 16,384 jobs at window=64 and window_min_slots=0, compacted with at
+   least one rewindow and bit-equal to its fused solve.
 7. sharded: the node-sharded round on a 2x2 (hosts, chips) mesh, four
    shard threads on cuda:k % card count, through
    `resolve_solver("2x2", "cuda", devices=...)` (the chip and the host
@@ -64,7 +80,11 @@ version. Phases, each printing one JSON line with its seconds:
      "cuda" and "lax" paths (bit-equal, so the sharded run is held to a
      path that runs none of the kernels) and then sharded (the gangs select
      nodes: all three kernels launched);
-   - phase 5's flagship at full width (fill kernels launched).
+   - phase 6's flagship_fast at full node width (N split 4 x 16,384; the
+     top-B merge at B = 2,048; fill kernels launched). Not phase 5's
+     fused flagship: its 995 single-queue fills (about 52 s in threads)
+     are bound by the burst at about one job a loop, whatever the job
+     count, and round_25k and gangs_100k run that fill on the mesh.
    Prints each run's seconds, the shard-to-device map and the
    CollectiveStats.
 
@@ -97,8 +117,9 @@ one-element torch add on the device, the launch floor.
 Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
 the run where the round's three kernels must launch, and for the ring
 kernel from phase 8's ring drive; the other sharded runs', the
-single-device counts and phase 6's (`launches_fast_fill_flagship`,
-`launches_home_away_2x2`) beside them; times at the flagship's shapes,
+single-device counts, phase 6's (`launches_fast_fill_flagship`,
+`launches_home_away_2x2`) and the driver phase's (`launches_flagship_window`
+and the rest) beside them; times at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
 `ms_n2`): `ms` per call from CUDA events, `device_ms` per launch from the
@@ -564,10 +585,14 @@ def floor_device_ms():
 
 
 def assert_same_outputs(got, want, what):
-    """Every output array of two solves equal in dtype, shape and bits."""
+    """Every output array of two solves equal in dtype, shape and bits (a
+    host-driven solve's `truncated` and `profile` are not arrays and are
+    left out)."""
     import numpy as np
 
     for key in want:
+        if key in ("truncated", "profile"):
+            continue
         x, y = np.asarray(got[key]), np.asarray(want[key])
         if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
             raise AssertionError(f"{what} differ on {key}")
@@ -834,7 +859,9 @@ def phase_fast_fill(dev_flag, flag_rows):
       jobs: every fill group's fill_take at want 4,096, past the
       survivors' shared-memory budget, "cuda" equal to "lax".
     Each admitted by the round firewall, with both fill kernels launched
-    on "cuda"; loops and host seconds by kind in each record."""
+    on "cuda"; loops and host seconds by kind in each record. Returns the
+    records and (the flagship_fast round, its "cuda" output), which the
+    driver phase and the sharded phase solve again."""
     from armada_tpu_torch.parallel.scenarios import home_away_round
     from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
     from armada_tpu_torch.workload import refill, scheduling_config
@@ -849,12 +876,12 @@ def phase_fast_fill(dev_flag, flag_rows):
 
     t0 = time.time()
     d = refill(dev_flag, scheduling_config(fast_fill=True, fill_window=2048))
-    flag, _ = solve_paths(d, ("cuda",), flag_rows,
-                          {"jobs": 1_000_000, "nodes": 50_000, "fast_fill": True,
-                           "fill_window": 2048, "refill_s": time.time() - t0})
+    flag, flag_outs = solve_paths(d, ("cuda",), flag_rows,
+                                  {"jobs": 1_000_000, "nodes": 50_000, "fast_fill": True,
+                                   "fill_window": 2048, "refill_s": time.time() - t0})
     require_merged(flag, ("cuda",), "flagship fast fill")
     rec["flagship_fast"] = flag
-    del d
+    fast_round = (d, flag_outs["cuda"])
 
     t0 = time.time()
     snap = home_away_round(16384, 65536)
@@ -887,6 +914,144 @@ def phase_fast_fill(dev_flag, flag_rows):
     w4["fill_take_global_sort_launches"] = int(sorts)
     rec["window_4096"] = w4
     del outs, dev
+    return rec, fast_round
+
+
+def drive(dev, label, rows=None, **kw):
+    """One host-driven solve of `dev` on its kernel path (the counts set
+    to 0 just before it and read just after), admitted by the round
+    firewall; returns (record, outputs). `kw` goes to solve_round
+    (budget_s, window, window_min_slots)."""
+    import numpy as np
+    import torch
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.solver import kernel as kernel_mod
+    from armada_tpu_torch.solver.validate import validate_round
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stats = {}
+    out = kernel_mod.solve_round(dev, readback_rows=rows, stats=stats, **kw)
+    torch.cuda.synchronize()
+    rec = {
+        "path": dev.kernel_path, **{k: v for k, v in kw.items()},
+        "solve_s": time.time() - t0, "launches": dict(K.LAUNCHES),
+        "loops": int(out["num_loops"]), "loop_kinds": stats,
+        "truncated": out.get("truncated"), "profile": out["profile"],
+        "scheduled": int(np.asarray(out["scheduled_mask"]).sum()),
+        "preempted": int(np.asarray(out["preempted_mask"]).sum()),
+    }
+    violation = validate_round(out, dev=dev)
+    if violation is not None:
+        raise AssertionError(f"validate_round rejected {label}: {violation}")
+    if dev.kernel_path == "cuda":
+        for name in ("score_nodes", "fill_take"):
+            if rec["launches"][name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} was not launched")
+    return rec, out
+
+
+def require_equal_round(rec, out, want, want_kinds, label, compacted=True):
+    """A host-driven solve equal to the fused one: every array, num_loops
+    and the loop counts by kind; compacted as asked."""
+    assert_same_outputs({k: out[k] for k in want}, want, f"{label}: the driven and fused outputs")
+    if rec["profile"]["compacted"] != compacted:
+        raise AssertionError(f"{label}: compacted is {rec['profile']['compacted']}")
+    kinds = ("gang_loops", "fill_loops", "merged_fill_loops")
+    if {k: rec["loop_kinds"][k] for k in kinds} != {k: want_kinds[k] for k in kinds}:
+        raise AssertionError(f"{label}: loop kinds {rec['loop_kinds']} differ from {want_kinds}")
+    rec["equals_fused"] = True
+
+
+def require_prefix(cut, full, label):
+    """A truncated round's placements a subset of the full round's, on the
+    same nodes, and its preemptions a subset of the full round's."""
+    import numpy as np
+
+    placed = np.flatnonzero(cut["scheduled_mask"])
+    if not np.asarray(full["scheduled_mask"])[placed].all():
+        raise AssertionError(f"{label}: placed jobs the full round does not place")
+    if not (cut["assigned_node"][placed] == full["assigned_node"][placed]).all():
+        raise AssertionError(f"{label}: placed jobs on other nodes than the full round")
+    pre = np.asarray(cut["preempted_mask"])
+    if (pre & ~np.asarray(full["preempted_mask"])).any():
+        raise AssertionError(f"{label}: preempted jobs the full round keeps")
+    return {"placed": int(len(placed)), "placed_full": int(np.asarray(full["scheduled_mask"]).sum()),
+            "preempted": int(pre.sum()), "preempted_full": int(np.asarray(full["preempted_mask"]).sum()),
+            "prefix_of_full": True}
+
+
+def phase_driver(dev_flag, flag, flag_out, dev_fast, fast, fast_out, quarter):
+    """The host-driven driver (round budget, rescue pass, hot window) as the
+    scheduler asks for it, each run admitted by the round firewall, with
+    score_nodes and fill_take launched on "cuda":
+    - flagship_window: phase 5's flagship at the scheduler's default hot
+      window (4,096 slots, the default min-slots floor): compacted and
+      bit-equal to phase 5's fused output, loop kinds included; its solve
+      seconds beside phase 5's fused seconds;
+    - flagship_fast_window: phase 6's flagship_fast at the same window,
+      compacted and bit-equal to phase 6's fused output;
+    - round_25k_budget: round_25k (phase 7's eviction round) at
+      budget_s=1e-6 on "cuda" and "lax": truncated after one pass-1 loop,
+      the paths bit-equal, placements and preemptions subsets of the full
+      round's;
+    - flagship_budget: flagship_window at budget_s=5.0, Armada's
+      maxSchedulingDuration: a prefix of flagship_window (times depend on
+      the wall clock and are not compared);
+    - home_away_window: the home/away round at 4,096 nodes x 16,384 jobs,
+      window 64 (rounded up to its fill window of 512) and no min-slots
+      floor: compacted with rewindows, bit-equal to its fused solve."""
+    import dataclasses
+
+    from armada_tpu_torch.parallel.scenarios import home_away_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+
+    rec = {}
+    rows = flag["readback_rows"]
+    win, win_out = drive(dev_flag, "flagship_window", rows, window=4096)
+    require_equal_round(win, win_out, flag_out, flag["cuda_loop_kinds"], "flagship_window")
+    win["fused_solve_s"] = flag["cuda_cold_solve_s"]
+    rec["flagship_window"] = win
+
+    fw, out = drive(dev_fast, "flagship_fast_window", rows, window=4096)
+    require_equal_round(fw, out, fast_out, fast["cuda_loop_kinds"], "flagship_fast_window")
+    fw["fused_solve_s"] = fast["cuda_cold_solve_s"]
+    rec["flagship_fast_window"] = fw
+    del out
+
+    q_rec, q_outs, q_dev = quarter
+    cuts = {}
+    for path in ("cuda", "lax"):
+        r, cuts[path] = drive(dataclasses.replace(q_dev, kernel_path=path), f"round_25k_budget/{path}",
+                              q_rec["readback_rows"], budget_s=1e-6)
+        if r["truncated"] is not True:
+            raise AssertionError(f"round_25k_budget/{path}: not truncated")
+        rec[f"round_25k_budget_{path}"] = r
+    assert_same_outputs(cuts["cuda"], cuts["lax"], "round_25k_budget: the cuda and lax paths")
+    rec["round_25k_budget_cuda"]["cuda_equals_lax"] = True
+    rec["round_25k_budget_cuda"].update(require_prefix(cuts["cuda"], q_outs["cuda"], "round_25k_budget"))
+    del cuts
+
+    b, out = drive(dev_flag, "flagship_budget", rows, window=4096, budget_s=5.0)
+    b.update(require_prefix(out, win_out, "flagship_budget"))
+    rec["flagship_budget"] = b
+    del out, win_out
+
+    t0 = time.time()
+    snap = home_away_round(4096, 16384)
+    dev = pad_device_round(prep_device_round(snap))
+    prep_s = time.time() - t0
+    ha, outs = solve_paths(dev, ("cuda",), int(snap.num_jobs),
+                           {"nodes": 4096, "jobs": 16384, "host_prep_s": prep_s})
+    hw, out = drive(dev, "home_away_window", int(snap.num_jobs), window=64, window_min_slots=0)
+    require_equal_round(hw, out, outs["cuda"], ha["cuda_loop_kinds"], "home_away_window")
+    if hw["profile"]["rewindows"] < 1:
+        raise AssertionError("home_away_window: no rewindow")
+    hw["fused"] = ha
+    hw["fused_solve_s"] = ha["cuda_cold_solve_s"]
+    rec["home_away_window"] = hw
     return rec
 
 
@@ -932,8 +1097,16 @@ def main() -> int:
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
 
     t0 = time.time()
-    fast = phase_fast_fill(dev_flag, flag["readback_rows"])
+    fast, (dev_fast, fast_out) = phase_fast_fill(dev_flag, flag["readback_rows"])
     emit({"phase": "fast_fill", **fast, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    quarter = run_round(25_000, 1250, ("cuda",), n_running=1250)
+    driver = phase_driver(dev_flag, flag, flag_outs["cuda"], dev_fast, fast["flagship_fast"],
+                          fast_out, quarter)
+    del flag_outs, dev_flag
+    emit({"phase": "driver", **driver, "quarter_solve_s": quarter[0]["cuda_cold_solve_s"],
+          "seconds": time.time() - t0})
 
     t0 = time.time()
     # Neither bench round selects a node: round_100k's 5,002 serial loops
@@ -947,7 +1120,7 @@ def main() -> int:
     # solve: the same paths at a quarter of the serial loops, which cost
     # most of the phase.
     fill_kernels = ("score_nodes", "fill_take")
-    quarter, quarter_outs, dev_quarter = run_round(25_000, 1250, ("cuda",), n_running=1250)
+    quarter, quarter_outs, dev_quarter = quarter
     sharded = {
         "round_25k_single_device": quarter,
         "round_25k": run_sharded(
@@ -967,9 +1140,16 @@ def main() -> int:
     sharded["gangs_100k"] = run_sharded(
         dev_gangs, gang_outs["cuda"], "gangs_100k", gangs["readback_rows"], ROUND_KERNELS
     )
-    sharded["flagship_1m"] = run_sharded(
-        dev_flag, flag_outs["cuda"], "flagship_1m", flag["readback_rows"], fill_kernels
+    # The flagship's full node width on the mesh (N split 4 x 16,384), in
+    # phase 6's fast-fill configuration: its 3 loops run the top-B merge at
+    # B = 2,048 over all four shards. The fused flagship's 995 single-queue
+    # fills would take about 52 s in threads, bound by the burst at about
+    # one job a loop at any job count; round_25k and gangs_100k run that
+    # fill on the mesh.
+    sharded["flagship_fast"] = run_sharded(
+        dev_fast, fast_out, "flagship_fast", flag["readback_rows"], fill_kernels
     )
+    del dev_fast, fast_out
     emit({"phase": "sharded", **sharded, "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -1002,7 +1182,12 @@ def main() -> int:
             "launches_sharded_round_25k": int(sharded["round_25k"]["launches"][name]),
             "launches_fast_fill_flagship": int(fast["flagship_fast"]["cuda_cold_launches"][name]),
             "launches_home_away_2x2": int(fast["home_away_2x2"]["launches"][name]),
-            "launches_sharded_flagship": int(sharded["flagship_1m"]["launches"][name]),
+            "launches_sharded_flagship_fast": int(sharded["flagship_fast"]["launches"][name]),
+            "launches_flagship_window": int(driver["flagship_window"]["launches"][name]),
+            "launches_flagship_fast_window": int(driver["flagship_fast_window"]["launches"][name]),
+            "launches_round_25k_budget": int(driver["round_25k_budget_cuda"]["launches"][name]),
+            "launches_flagship_budget": int(driver["flagship_budget"]["launches"][name]),
+            "launches_home_away_window": int(driver["home_away_window"]["launches"][name]),
             "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
             "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
             "launches_multiproc_gangs_100k": int(mp_launches.get(name, 0)),

@@ -15,6 +15,16 @@ from armada_tpu_torch.ops import kernels as tk
 from armada_tpu_torch.ops.bitset import as_words
 
 SENTINEL = np.iinfo(np.int64).max
+# The fair shares' bounds in ULP (tests/test_torch_round.py).
+ULP_BOUNDS = {"fair_share": 4, "demand_capped_fair_share": 4, "uncapped_fair_share": 16}
+
+
+def _ulps(a, b):
+    def ordered(x):
+        i = np.ascontiguousarray(x, dtype=np.float64).view(np.int64)
+        return np.where(i < 0, np.int64(-(2**63)) - i, i)
+
+    return np.abs(ordered(a) - ordered(b))
 # The kernels a sharded round launches; the ring kernel is driven apart.
 ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
 
@@ -229,6 +239,67 @@ def test_round_on_card_equals_round_on_cpu(cuda_device):
     on_cpu = solve_round(dev, device="cpu")
     for k in on_cpu:
         assert np.array_equal(on_card[k], on_cpu[k], equal_nan=True), k
+
+
+@pytest.mark.cuda
+def test_driver_rounds_on_card_equal_rounds_on_cpu(cuda_device):
+    """The host-driven driver on the card: compacted solves (a small
+    window with rewindows, fast fill off and on, and the home/away round)
+    equal to the card's fused solve and to the CPU's compacted solve, with
+    both fill kernels launched in the windows; a budget of 1e-6 truncated
+    on the card as on the CPU ("cuda" and "lax" equal), its placements and
+    preemptions subsets of the full round's."""
+    import dataclasses
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.parallel.scenarios import home_away_round
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    snaps = [
+        build_round_snapshot(*build_inputs(4000, 200, n_running=400, fill_window=8)),
+        build_round_snapshot(*build_inputs(4000, 200, n_running=400, fast_fill=True,
+                                           fill_window=8)),
+        home_away_round(1024, 4096),
+    ]
+    snaps[2] = dataclasses.replace(
+        snaps[2], config=dataclasses.replace(snaps[2].config, batch_fill_window=8)
+    )
+    for snap in snaps:
+        dev = pad_device_round(prep_device_round(snap))
+        fused = solve_round(dev)
+        K.reset_launches()
+        win = solve_round(dev, window=8, window_min_slots=0)
+        assert win["profile"]["compacted"] and win["profile"]["rewindows"] >= 1
+        assert K.LAUNCHES["score_nodes"] > 0 and K.LAUNCHES["fill_take"] > 0
+        on_cpu = solve_round(dev, device="cpu", window=8, window_min_slots=0)
+        for k in fused:
+            assert np.array_equal(win[k], fused[k], equal_nan=True), k
+            # The fair shares' float64 sums run in another order on the
+            # card: held within the port's ULP bounds, the rest exact.
+            if k in ULP_BOUNDS:
+                assert _ulps(win[k], on_cpu[k]).max() <= ULP_BOUNDS[k], k
+            else:
+                assert np.array_equal(win[k], on_cpu[k], equal_nan=True), k
+        assert win["profile"]["rewindows"] == on_cpu["profile"]["rewindows"]
+
+    dev = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(2000, 100, n_running=200)
+    )))
+    full = solve_round(dev)
+    cuts = {p: solve_round(dataclasses.replace(dev, kernel_path=p), budget_s=1e-6)
+            for p in ("cuda", "lax")}
+    cuts["cpu"] = solve_round(dev, budget_s=1e-6, device="cpu")
+    for cut in cuts.values():
+        assert cut["truncated"] is True
+        for k in full:
+            assert np.array_equal(cut[k], cuts["cuda"][k], equal_nan=True), k
+    placed = np.flatnonzero(cuts["cuda"]["scheduled_mask"])
+    assert full["scheduled_mask"][placed].all()
+    assert (cuts["cuda"]["assigned_node"][placed] == full["assigned_node"][placed]).all()
+    assert not (cuts["cuda"]["preempted_mask"] & ~full["preempted_mask"]).any()
 
 
 @pytest.mark.cuda

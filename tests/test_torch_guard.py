@@ -1,6 +1,7 @@
 """The port stands alone: no module of armada_tpu_torch (the home/away
-scenario module included), and not chip_smoke.py, imports jax or
-armada_tpu, also when the main path and the fast-fill path run; and the
+scenario module, the hot window and the transfer ledger included), and
+not chip_smoke.py, imports jax or armada_tpu, also when the main path,
+the fast-fill path and the budgeted, compacted driver run; and the
 default device is the CUDA card, which raises where there is none."""
 
 import os
@@ -57,6 +58,15 @@ _GUARD = textwrap.dedent(
     out = solve_round(dev, device="cpu", stats=stats)
     assert dev.fast_fill and stats["merged_fill_loops"] > 0
     assert int(out["scheduled_mask"].sum()) > 0
+    # The host-driven driver: a budgeted, compacted solve (hot window and
+    # transfer ledger), as the scheduler asks for it.
+    assert "armada_tpu_torch.solver.hotwindow" in names
+    assert "armada_tpu_torch.observe.ledger" in names
+    inputs = build_inputs(60, 6, n_running=8, fill_window=2)
+    dev = pad_device_round(prep_device_round(build_round_snapshot(*inputs)))
+    out = solve_round(dev, device="cpu", budget_s=60.0, window=2, window_min_slots=0)
+    assert out["profile"]["compacted"] and out["truncated"] is False
+    assert out["profile"]["transfer"]["bytes_up"] > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
     assert not loaded, loaded
     print("GUARD_OK", len(names))

@@ -115,9 +115,10 @@ def test_readback_rows_trim_is_byte_identical():
 
 
 def test_unported_paths_raise():
-    """Market rounds, the other fairness policies and solve_round's round
-    budget, hot window and profile options raise; fast fill is ported
-    (tests/test_torch_fast_fill*.py)."""
+    """Market rounds and the other fairness policies raise; fast fill is
+    ported (tests/test_torch_fast_fill*.py), and so are solve_round's
+    round budget, hot window and profile options, with the reference's
+    keywords (tests/test_torch_hotwindow.py, test_torch_round_deadline.py)."""
     dev = from_reference_round(dataclasses.asdict(_reference_round("rate_limited")))
     for bad in (
         dataclasses.replace(dev, market_driven=True, batch_window=0),
@@ -125,9 +126,19 @@ def test_unported_paths_raise():
     ):
         with pytest.raises(NotImplementedError):
             port_kernel.solve_round(bad, device="cpu")
-    for kw in ({"budget_s": 1.0}, {"window": 64}, {"profile": True}):
-        with pytest.raises(NotImplementedError):
-            port_kernel.solve_round(dev, device="cpu", **kw)
+    fused = port_kernel.solve_round(dev, device="cpu")
+    for kw in (
+        {"budget_s": 60.0, "chunk_loops": 3},
+        {"window": 64, "window_min_slots": 0},
+        {"profile": True},
+    ):
+        out = port_kernel.solve_round(dev, device="cpu", **kw)
+        # A window that cannot shrink this small round disengages: the
+        # fused solve, with neither key (as in the reference).
+        assert ("profile" in out) == ("window" not in kw), kw
+        assert ("truncated" in out) == ("budget_s" in kw), kw
+        for k in fused:
+            assert np.array_equal(out[k], fused[k], equal_nan=True), (kw, k)
 
 
 def test_fill_sort_follows_stable_sort_where_reference_top_b_drops_nodes():
