@@ -1,20 +1,20 @@
-"""The mixed-fleet home/away round on the port's types: the JAX package's
-`parallel/scenarios.py` `away_config`, `_gang_for` and `home_away_round`,
-copied so that the port's tools and chip_smoke.py can build the round
-without the JAX package.
+"""The mixed-fleet rounds on the port's types: the JAX package's
+`parallel/scenarios.py`, copied so that the port's tools and
+chip_smoke.py can build the rounds without the JAX package.
 
 One deterministic workload with the regimes the sharded-solve parity runs
-cover: a HOME pool whose config borrows an AWAY pool's tainted nodes
-(PoolConfig.away_pools and per-priority-class away node types), mixed
-gangs (singletons and gangs of 2, 4 and 8), and running jobs that
-over-pack two queues, so that balance eviction and the fair-preemption
-walk run. The config turns fast fill on with a real burst, the batched
-regime the bench ships with. Everything is seeded: every process of a
-multi-process run builds the same snapshot.
-
-The reference's `market_config`, `market_round` and `mixed_fleet_rounds`
-(the market pool) are not copied yet: market-driven rounds are a later
-slice of the port (ROADMAP A4), and they come with it.
+cover:
+  - a HOME pool whose config borrows an AWAY pool's tainted nodes
+    (PoolConfig.away_pools and per-priority-class away node types), with
+    fast fill on and a real burst, the batched regime the bench ships
+    with;
+  - a MARKET pool (market_driven: bid-price order, the spot price, and
+    market eviction of every bound job);
+  - mixed gangs (singletons and gangs of 2, 4 and 8), and running jobs
+    that over-pack queues, so that eviction and the fair-preemption walk
+    run.
+Everything is seeded: every process of a multi-process run builds the
+same snapshots.
 """
 
 from __future__ import annotations
@@ -55,6 +55,16 @@ def away_config() -> SchedulingConfig:
             maximum_per_queue_scheduling_rate=2000.0,
             maximum_per_queue_scheduling_burst=2000,
         ),
+    )
+
+
+def market_config() -> SchedulingConfig:
+    return SchedulingConfig(
+        priority_classes={"market": PriorityClass("market", 1000, preemptible=True)},
+        default_priority_class="market",
+        market_driven=True,
+        spot_price_cutoff=0.5,
+        pools=(PoolConfig(name="market"),),
     )
 
 
@@ -123,3 +133,63 @@ def home_away_round(n_nodes: int, n_jobs: int, n_queues: int = 6, seed: int = 7)
         if gang_left > 0:
             gang_left -= 1
     return build_round_snapshot(cfg, "default", nodes, queues, running, queued)
+
+
+def market_round(n_nodes: int, n_jobs: int, n_queues: int = 4, seed: int = 11):
+    """The MARKET pool's round snapshot: bid-priced jobs, gangs bidding as
+    one unit, running low-bid incumbents facing higher-bid arrivals."""
+    rng = np.random.default_rng(seed)
+    cfg = market_config()
+    nodes = [
+        NodeSpec(id=f"mkt-{i:05d}", pool="market", total_resources={"cpu": "16", "memory": "64Gi"})
+        for i in range(n_nodes)
+    ]
+    queues = [QueueSpec(f"m{i}", 1.0) for i in range(n_queues)]
+    running = [
+        RunningJob(
+            job=JobSpec(
+                id=f"mrun-{i:06d}",
+                queue=f"m{i % n_queues}",
+                priority_class="market",
+                requests={"cpu": "2", "memory": "4Gi"},
+                submitted_ts=float(i),
+                bid_prices={"market": 1.0 + (i % 3) * 0.25},
+            ),
+            node_id=f"mkt-{i % n_nodes:05d}",
+            scheduled_at_priority=1000,
+        )
+        for i in range(min(n_nodes, n_jobs // 4))
+    ]
+    bids = rng.uniform(0.5, 10.0, size=n_jobs)
+    gang = None
+    gang_left = 0
+    queued = []
+    for i in range(n_jobs):
+        if gang_left == 0:
+            gang = _gang_for(i, rng)
+            gang_left = gang.cardinality if gang is not None else 0
+        queued.append(
+            JobSpec(
+                id=f"mjob-{i:06d}",
+                queue=f"m{i % n_queues}",
+                priority_class="market",
+                requests={"cpu": str(1 + i % 3), "memory": f"{1 + i % 3}Gi"},
+                submitted_ts=float(1000 + i),
+                bid_prices={"market": round(float(bids[i]), 3)},
+                gang=gang if gang_left > 0 else None,
+            )
+        )
+        if gang_left > 0:
+            gang_left -= 1
+    return build_round_snapshot(cfg, "market", nodes, queues, running, queued)
+
+
+def mixed_fleet_rounds(n_nodes: int, n_jobs: int, market_scale: float = 0.125):
+    """The dryrun's rounds: the home/away round at the requested extent
+    and a market round at `market_scale` of it."""
+    mkt_nodes = max(16, int(n_nodes * market_scale))
+    mkt_jobs = max(64, int(n_jobs * market_scale))
+    return [
+        ("home_away", home_away_round(n_nodes, n_jobs)),
+        ("market", market_round(mkt_nodes, mkt_jobs)),
+    ]

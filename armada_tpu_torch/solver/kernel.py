@@ -23,11 +23,15 @@ chunks of loops under a round budget, with the rescue pass of a
 truncated round, optionally over hot windows of the slot and job axes,
 with a per-part profile and transfer ledger.
 
-Slice coverage: DRF, not market driven, serial gangs plus the
-single-queue batched fill or fast fill (the merged multi-queue window
-fill with its evicted-rebind window); on one device fused or host-driven
-(round budget, hot window, profile), node-sharded fused only, as in the
-reference. Everything else raises NotImplementedError.
+Coverage: every round the reference solves. Every fairness policy
+(DRF, proportional, priority, deadline) and market-driven rounds (bid
+order, spot price, market eviction); serial gangs plus the single-queue
+batched fill or fast fill (the merged multi-queue window fill with its
+evicted-rebind window); on one device fused or host-driven (round
+budget, hot window, profile), node-sharded fused only, as in the
+reference. The policy and the market are static fields of the round, and
+each branch on them is a Python branch, so a DRF round runs the ops it
+ran before either was ported.
 """
 
 from __future__ import annotations
@@ -80,7 +84,10 @@ class Carry(NamedTuple):
     qtokens: torch.Tensor  # float64[Q]
     scheduled_new: torch.Tensor  # float64[R]
     floating: torch.Tensor  # float64[R] pool floating-resource allocation
-    spot_price: torch.Tensor  # float64 0-d (nan: no market in this slice)
+    # Market rounds: the placed gangs' summed request until the spot
+    # price is set, and the price (nan until set).
+    spot_cost: torch.Tensor  # float64[R]
+    spot_price: torch.Tensor  # float64 0-d
     # Host-side loop state: validity flags and the loop counter.
     only_ev_global: bool
     only_ev_queue: np.ndarray  # bool[Q]
@@ -203,8 +210,21 @@ def _drf_cost(alloc, total, mult):
 
 
 def _policy_cost(rd, alloc):
-    """The queue-cost measure candidate ordering runs on (DRF)."""
-    return _drf_cost(alloc, rd.t.total_resources, rd.t.drf_multipliers)
+    """The queue-cost measure candidate ordering runs on: DRF's dominant
+    resource, or the sum of the resource fractions under proportional
+    fairness. The sum runs over the columns in index order, the
+    association of the reference's reduction and of the host mirror
+    (solver/policy.py), so the keys are bit-equal on any device."""
+    t = rd.t
+    if rd.h.fairness_policy[0] == "proportional":
+        total = t.total_resources
+        safe = torch.where(total > 0, total, 1.0)
+        frac = torch.where(total > 0, alloc / safe, 0.0) * t.drf_multipliers
+        acc = frac[..., 0]
+        for r in range(1, frac.shape[-1]):
+            acc = acc + frac[..., r]
+        return torch.clamp(acc, min=0.0)
+    return _drf_cost(alloc, t.total_resources, t.drf_multipliers)
 
 
 def _fair_shares(weights, demand_costs, total_is_zero):
@@ -247,6 +267,66 @@ def _fair_shares(weights, demand_costs, total_is_zero):
             live, torch.sum(torch.where(over, new_spare, 0.0)), 0.0
         )
     return fair_share, capped, uncapped
+
+
+def _deadline_factors(rd, boost, horizon):
+    """The deadline policy's weight boost per queue, elementwise IEEE ops
+    only (solver/policy.py `deadline_factors`): queues with no deadline
+    keep 1.0. The numerator is a tensor: torch's `scalar / tensor` would
+    multiply by the reciprocal and round differently."""
+    dl = _f(rd.t.queue_deadline)
+    fin = torch.isfinite(dl)
+    dmin = torch.min(torch.where(fin, dl, float("inf")))
+    rel = torch.clamp(dl - torch.where(torch.any(fin), dmin, 0.0), min=0.0)
+    factor = 1.0 + torch.full_like(dl, float(boost)) / (1.0 + rel / float(horizon))
+    return torch.where(fin, factor, 1.0)
+
+
+def _priority_shares(rd, w, demand_costs, total_is_zero):
+    """Strict-priority entitlement: queues in descending weight order
+    (name rank breaking ties) take their whole demand from what the
+    earlier ones left. One float64 accumulator walks the Q queues on the
+    host, the reference's IEEE sequence step for step."""
+    wsum = torch.sum(w)
+    fair_share = torch.where(wsum > 0.0, w / torch.where(wsum > 0.0, wsum, 1.0), 0.0)
+    demand = torch.where(total_is_zero, 1.0, demand_costs).cpu().numpy()
+    w_h = w.cpu().numpy()
+    order = np.lexsort((rd.h.queue_name_rank, -w_h))
+    capped = np.zeros_like(w_h)
+    uncapped = np.zeros_like(w_h)
+    cum_prev = np.float64(0.0)
+    for qi in order:
+        if not w_h[qi] > 0.0:
+            continue
+        unc = np.minimum(np.maximum(np.float64(1.0) - cum_prev, 0.0), 1.0)
+        capped[qi] = np.minimum(demand[qi], unc)
+        uncapped[qi] = unc
+        cum_prev = cum_prev + demand[qi]
+    return fair_share, rd.up(capped), rd.up(uncapped)
+
+
+def _policy_fair_shares(rd, demand_costs, total_is_zero):
+    """Entitlement under the round's policy, the `_fair_shares` seat in
+    `_round_setup`. Returns (fair_share, capped, uncapped)."""
+    spec = rd.h.fairness_policy
+    w = _f(rd.t.queue_weight)
+    if spec[0] == "deadline":
+        return _fair_shares(w * _deadline_factors(rd, spec[1], spec[2]), demand_costs, total_is_zero)
+    if spec[0] == "priority":
+        return _priority_shares(rd, w, demand_costs, total_is_zero)
+    return _fair_shares(w, demand_costs, total_is_zero)
+
+
+def _policy_rank_key(rd):
+    """The policy's leading candidate and eviction-rank key per queue
+    (smaller wins), or None for DRF and proportional, whose key lists
+    stay as they were."""
+    kind = rd.h.fairness_policy[0]
+    if kind == "priority":
+        return -_f(rd.t.queue_weight)
+    if kind == "deadline":
+        return _f(rd.t.queue_deadline)
+    return None
 
 
 def _static_ok(rd, j, extra_sel, extra_tol=None):
@@ -605,6 +685,19 @@ def _gang_attempt(rd, c: Carry, s, all_ev, code, fp_order, pinned_h, any_evicted
         floating=new_carry.floating + torch.where(t.floating_mask, req, 0.0),
         slot_state=slot_state,
     )
+    if h.market_driven:
+        # Until the spot price is set, every placed gang adds its request;
+        # the first whose DRF cost crosses the cutoff sets the price to its
+        # own. Device-side, so the loop reads nothing back for it.
+        unset = torch.isnan(new_carry.spot_price)
+        spot_cost = torch.where(unset, new_carry.spot_cost + req, new_carry.spot_cost)
+        crossed = _drf_cost(spot_cost, t.total_resources, t.drf_multipliers) > float(
+            h.spot_price_cutoff
+        )
+        new_carry = new_carry._replace(
+            spot_cost=spot_cost,
+            spot_price=torch.where(unset & crossed, t.slot_price[s], new_carry.spot_price),
+        )
     if not all_ev:
         new_carry = new_carry._replace(
             tokens=new_carry.tokens - card,
@@ -770,6 +863,7 @@ def _pass_segment(rd, c: Carry, ptr, force_serial, budgets, loop_cap, *,
         ptr_t[q] = p
 
     name_rank = t.queue_name_rank
+    prk = _policy_rank_key(rd)
 
     while not c.stop and c.loops < loop_cap and c.loops - loops0 < 2 * S + 4:
         if window_trunc is not None and np.any(window_trunc & ((end_h - ptr) < lookahead)):
@@ -779,27 +873,33 @@ def _pass_segment(rd, c: Carry, ptr, force_serial, budgets, loop_cap, *,
         has_head = ptr_t < t.queue_slot_end
         heads = torch.clamp(ptr_t, 0, S - 1).to(torch.int64)
 
-        req_h = _f(t.slot_req[heads])  # [Q, R]
-        qalloc_cost = c.qalloc + rd.penalty_f
-        current = _policy_cost(rd, qalloc_cost) / rd.w_clip
-        proposed = _policy_cost(rd, qalloc_cost + req_h) / rd.w_clip
         keys = []
-        if consider_priority:
+        if h.market_driven:
+            # Highest gang price first (market_iterator.go); no cost keys.
+            keys.append(-t.slot_price[heads])
+        elif consider_priority:
             members = t.slot_members[heads]
             mmask = torch.arange(rd.M, device=dev)[None, :] < t.slot_count[heads][:, None]
             safe = torch.clamp(members, 0, rd.J - 1).to(torch.int64)
             pcp = torch.min(torch.where(mmask, c.job_prio[safe], I32_MAX), dim=1).values
             keys.append(-pcp)
-        if prefer_large:
-            size = _policy_cost(rd, req_h) * _f(t.queue_weight)
-            over = (proposed > budgets).to(torch.int32)
-            keys += [
-                over,
-                torch.where(over == 1, proposed, current),
-                torch.where(over == 1, 0.0, -size),
-            ]
-        else:
-            keys.append(proposed)
+        if not h.market_driven:
+            req_h = _f(t.slot_req[heads])  # [Q, R]
+            qalloc_cost = c.qalloc + rd.penalty_f
+            proposed = _policy_cost(rd, qalloc_cost + req_h) / rd.w_clip
+            if prk is not None:
+                keys.append(prk)
+            if prefer_large:
+                current = _policy_cost(rd, qalloc_cost) / rd.w_clip
+                size = _policy_cost(rd, req_h) * _f(t.queue_weight)
+                over = (proposed > budgets).to(torch.int32)
+                keys += [
+                    over,
+                    torch.where(over == 1, proposed, current),
+                    torch.where(over == 1, 0.0, -size),
+                ]
+            else:
+                keys.append(proposed)
         keys.append(name_rank)
 
         qstar_t, _ = lex_argmin(keys, has_head)
@@ -1045,16 +1145,22 @@ def _fill_step(rd, c, qstar, sstar, qkeys, has_head, budgets, prefer_large):
     w_q = max(rd.queue_weight[qstar], 1e-12)
     cur_i = _policy_cost(rd, qa_i) / w_q
     prop_i = _policy_cost(rd, qa_i + req_full[None, :]) / w_q
+    my_keys = []
+    prk = _policy_rank_key(rd)
+    if prk is not None:
+        # Constant in i (a fill never moves the policy rank), so the
+        # stream stays zip-aligned with the queue pick's keys.
+        my_keys.append(prk[qstar].expand(B))
     if prefer_large:
         size = _policy_cost(rd, req_full) * rd.queue_weight[qstar]
         over_i = (prop_i > budgets[qstar]).to(torch.int32)
-        my_keys = [
+        my_keys += [
             over_i,
             torch.where(over_i == 1, prop_i, cur_i),
             torch.where(over_i == 1, 0.0, -size),
         ]
     else:
-        my_keys = [prop_i]
+        my_keys.append(prop_i)
     my_keys.append(
         torch.full((B,), int(h.queue_name_rank[qstar]), dtype=torch.int32, device=dev)
     )
@@ -1380,12 +1486,18 @@ def _merged_fill_step(rd, c, heads, heads_h, has_head, qkeys, eligible, valid, m
     w = rd.w_clip[:, None]
     cur = _policy_cost(rd, qa_i) / w
     prop = _policy_cost(rd, qa_i + req_e) / w
+    ekeys = []
+    prk = _policy_rank_key(rd)
+    if prk is not None:
+        # Constant per queue: every window stays monotone, and the keys
+        # zip with the queue pick's for the barrier compare.
+        ekeys.append(prk[:, None].expand(Q, W))
     if prefer_large:
         size = _policy_cost(rd, req_e) * _f(t.queue_weight)[:, None]
         over = (prop > budgets[:, None]).to(torch.int32)
-        ekeys = [over, torch.where(over == 1, prop, cur), torch.where(over == 1, 0.0, -size)]
+        ekeys += [over, torch.where(over == 1, prop, cur), torch.where(over == 1, 0.0, -size)]
     else:
-        ekeys = [prop]
+        ekeys.append(prop)
     ekeys.append(t.queue_name_rank[:, None].expand(Q, W))
 
     # The merge needs each queue's key stream non-decreasing (only the
@@ -1533,21 +1645,29 @@ def _assign_evict_ranks(rd, c: Carry, budgets, prefer_large: bool):
 
     q_h = h.slot_queue[slots_h].astype(np.int64)
     s_t, q_t = rd.up(slots_h.astype(np.int64)), rd.up(q_h)
-    qalloc_cost = c.qalloc + rd.penalty_f
-    req = _f(t.slot_req[s_t])
-    w = rd.w_clip[q_t]
-    proposed = _policy_cost(rd, qalloc_cost[q_t] + req) / w
-    if prefer_large:
-        cur = _policy_cost(rd, qalloc_cost)[q_t] / w
-        size = _policy_cost(rd, req) * _f(t.queue_weight)[q_t]
-        over = proposed > budgets[q_t]
-        cols = [
-            over.to(COST_DTYPE),
-            torch.where(over, proposed, cur),
-            torch.where(over, 0.0, -size),
-        ]
+    if h.market_driven:
+        # Highest gang price first, as the scheduling passes pick.
+        cols = [-t.slot_price[s_t]]
     else:
-        cols = [proposed]
+        qalloc_cost = c.qalloc + rd.penalty_f
+        req = _f(t.slot_req[s_t])
+        w = rd.w_clip[q_t]
+        proposed = _policy_cost(rd, qalloc_cost[q_t] + req) / w
+        prk = _policy_rank_key(rd)
+        # The passes' leading policy key: low-rank queues schedule later,
+        # so fair preemption (largest rank first) consumes them first.
+        cols = [] if prk is None else [prk[q_t]]
+        if prefer_large:
+            cur = _policy_cost(rd, qalloc_cost)[q_t] / w
+            size = _policy_cost(rd, req) * _f(t.queue_weight)[q_t]
+            over = proposed > budgets[q_t]
+            cols += [
+                over.to(COST_DTYPE),
+                torch.where(over, proposed, cur),
+                torch.where(over, 0.0, -size),
+            ]
+        else:
+            cols.append(proposed)
     keys = torch.stack(cols, dim=1).cpu().numpy()
     name_rank = h.queue_name_rank
 
@@ -1623,7 +1743,7 @@ def _round_setup(rd):
     total_is_zero = torch.all(t.total_resources == 0)
     demand_costs = _policy_cost(rd, constrained)
     w = _f(t.queue_weight)
-    fair_share, demand_capped, uncapped = _fair_shares(w, demand_costs, total_is_zero)
+    fair_share, demand_capped, uncapped = _policy_fair_shares(rd, demand_costs, total_is_zero)
     budgets = torch.where(t.queue_weight > 0, demand_capped / w, float("inf"))
 
     req_f = _f(t.job_req)
@@ -1662,6 +1782,7 @@ def _round_setup(rd):
             ),
             dim=0,
         ),
+        spot_cost=torch.zeros(R, dtype=COST_DTYPE, device=dev),
         spot_price=torch.tensor(float("nan"), dtype=COST_DTYPE, device=dev),
         only_ev_global=False,
         only_ev_queue=np.zeros(Q, dtype=bool),
@@ -1676,13 +1797,18 @@ def _round_setup(rd):
     fraction = torch.where(fs > 0, actual_cost / fs, float("inf"))
     evict_queue = fraction > float(h.protected_fraction)
     qidx = torch.clamp(t.job_queue, 0, Q - 1).to(torch.int64)
-    evict0 = (
-        t.job_is_running
-        & t.job_preemptible
-        & (t.job_queue >= 0)
-        & (c.job_node >= 0)
-        & evict_queue[qidx]
-    )
+    if h.market_driven:
+        # Market rounds evict everything bound, preemptible or not; the
+        # price order decides who returns.
+        evict0 = t.job_is_running & (t.job_queue >= 0) & (c.job_node >= 0)
+    else:
+        evict0 = (
+            t.job_is_running
+            & t.job_preemptible
+            & (t.job_queue >= 0)
+            & (c.job_node >= 0)
+            & evict_queue[qidx]
+        )
     evict0 = _gang_complete_mask(rd, c, evict0)
     c = _apply_evictions(rd, c, evict0)
     c = _assign_evict_ranks(rd, c, budgets, bool(h.prefer_large))
@@ -1883,17 +2009,8 @@ def _sync(device):
 
 
 def check_slice(dev: DeviceRound) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    solve, naming the slice that brings it."""
-    if dev.market_driven:
-        raise NotImplementedError(
-            "market-driven rounds are not ported yet (the market-round slice)"
-        )
-    if tuple(dev.fairness_policy) != ("drf",):
-        raise NotImplementedError(
-            f"fairness policy {dev.fairness_policy!r} is not ported yet "
-            "(the fairness-policies slice); only ('drf',) is"
-        )
+    """Raise ValueError for a round no path of the port solves: one whose
+    kernel path is neither "lax" nor "cuda"."""
     if dev.kernel_path not in ("lax", "cuda"):
         raise ValueError(f"kernel_path must be 'lax' or 'cuda', not {dev.kernel_path!r}")
 

@@ -20,6 +20,8 @@ single-device solve on every array. The whole run is bounded by
   python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --device cuda --backend gloo
   python -m armada_tpu_torch.tools.dcn_dryrun --hosts 2 --chips 2 --backend nccl --ring-calls 100
   python -m armada_tpu_torch.tools.dcn_dryrun --round home_away --device cpu --nodes 32 --jobs 96
+  python -m armada_tpu_torch.tools.dcn_dryrun --round market --device cpu --nodes 16 --jobs 256
+  python -m armada_tpu_torch.tools.dcn_dryrun --round mixed --device cpu --nodes 128 --jobs 512
 
 Rounds (`--round`):
   - bench (default): the bench round with gangs (`workload.build_inputs`:
@@ -27,7 +29,13 @@ Rounds (`--round`):
     4 or 8, no running jobs), fast fill off;
   - home_away: the mixed-fleet round of parallel/scenarios.py (borrowed
     away nodes, gangs, two over-packed queues that balance eviction
-    evicts), with its config's fast fill on.
+    evicts), with its config's fast fill on;
+  - market: the market pool's round of parallel/scenarios.py (bid order,
+    the spot price, market eviction of every bound job, gangs);
+  - mixed: both rounds of `mixed_fleet_rounds`, as the JAX package's
+    multi-process worker runs them: home/away at --nodes x --jobs, the
+    market round at an eighth of it. The line's "ok" and "parity" are
+    then those of both, and "rounds" holds each round's own report.
 
 With --ring-calls the workers then drive the ring kernel over every axis
 (parallel/launcher.py), each call held to its plain version; "ring"
@@ -60,7 +68,7 @@ def main(argv=None) -> int:
                     help="hard kill for the whole worker fleet, seconds")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--round", choices=("bench", "home_away"), default="bench")
+    ap.add_argument("--round", choices=("bench", "home_away", "market", "mixed"), default="bench")
     ap.add_argument("--ring-calls", type=int, default=0,
                     help="after the solve, drive the ring kernel this many times per case "
                          "over every axis in the same workers")
@@ -69,11 +77,9 @@ def main(argv=None) -> int:
     import torch
 
     from ..ops import kernels
-    from ..parallel.launcher import launch, save_round
     from ..parallel.mesh import pad_nodes
-    from ..parallel.scenarios import home_away_round
+    from ..parallel.scenarios import home_away_round, market_round, mixed_fleet_rounds
     from ..snapshot.round import build_round_snapshot
-    from ..solver.kernel import solve_round
     from ..solver.kernel_prep import pad_device_round, prep_device_round
     from ..workload import build_inputs
 
@@ -89,11 +95,39 @@ def main(argv=None) -> int:
         # nccl: a card per rank, and launch raises when there are fewer
         devices = None if args.backend == "nccl" else [f"cuda:{k % count}" for k in range(world)]
         kernels.build_all()  # once here, not in every worker
-    if args.round == "home_away":
-        snap = home_away_round(args.nodes, args.jobs)
+    if args.round == "mixed":
+        rounds = mixed_fleet_rounds(args.nodes, args.jobs)
+    elif args.round == "home_away":
+        rounds = [("home_away", home_away_round(args.nodes, args.jobs))]
+    elif args.round == "market":
+        rounds = [("market", market_round(args.nodes, args.jobs))]
     else:
-        snap = build_round_snapshot(*build_inputs(args.jobs, args.nodes, n_running=0, gang_every=8))
-    dev = pad_nodes(pad_device_round(prep_device_round(snap)), world)
+        rounds = [("bench", build_round_snapshot(
+            *build_inputs(args.jobs, args.nodes, n_running=0, gang_every=8)))]
+    reports = [
+        _parity(args, name, snap, pad_nodes(pad_device_round(prep_device_round(snap)), world),
+                devices)
+        for name, snap in rounds
+    ]
+    if args.round == "mixed":
+        report = {
+            "ok": all(r["ok"] for r in reports),
+            "parity": all(r["parity"] for r in reports),
+            "round": "mixed",
+            "rounds": {r["round"]: r for r in reports},
+        }
+    else:
+        report = reports[0]
+    print(json.dumps(report))
+    return 0 if report["ok"] else 1
+
+
+def _parity(args, name, snap, dev, devices):
+    """Solve the padded round `dev` on one device here and in hosts x
+    chips workers; the report of the two."""
+    from ..parallel.launcher import launch, save_round
+    from ..solver.kernel import solve_round
+
     t0 = time.monotonic()
     single = solve_round(dev, readback_rows=snap.num_jobs, device=args.device)
     single_s = time.monotonic() - t0
@@ -113,19 +147,20 @@ def main(argv=None) -> int:
         "ok": bool(res["ok"] and mismatch == []),
         "parity": mismatch == [],
         "single_mismatch": mismatch,
-        "round": args.round,
-        "n_nodes": args.nodes,
-        "n_jobs": args.jobs,
+        "round": name,
+        "n_nodes": int(snap.num_nodes),
+        "n_jobs": int(snap.num_jobs),
         "loops": int(single["num_loops"]),
         "loop_stats": [w["loop_stats"] if w else None for w in res["workers"]],
         "scheduled": int(np.asarray(single["scheduled_mask"]).sum()),
+        "preempted": int(np.asarray(single["preempted_mask"]).sum()),
+        "spot_price": float(single["spot_price"]),
         "single_solve_s": single_s,
         "rank_solve_s": [w["solve_s"] if w else None for w in res["workers"]],
     }
     if args.ring_calls:
         report["ring"] = [w.get("ring") if w else None for w in res["workers"]]
-    print(json.dumps(report))
-    return 0 if report["ok"] else 1
+    return report
 
 
 if __name__ == "__main__":

@@ -111,3 +111,64 @@ def refill(dev, cfg):
     if dev.market_driven or cfg.market_driven:
         raise ValueError("refill: a market round has no fill window")
     return dataclasses.replace(dev, **fill_fields(cfg))
+
+
+# The policy variants of a round (`policy_inputs`, `repolicy`): queue
+# weights 1, 2, ..., Q in name order, so that the priority policy's
+# leading key decides something, and for the deadline policy queue q's
+# deadline at DEADLINE_T0_S + DEADLINE_STEP_S * q, every third queue
+# with none (+inf).
+POLICY_KINDS = ("proportional", "priority", "deadline")
+DEADLINE_T0_S = 1_700_000_000.0
+DEADLINE_STEP_S = 3600.0
+
+
+def _policy_deadline(rank: int) -> float:
+    return float("inf") if rank % 3 == 2 else DEADLINE_T0_S + DEADLINE_STEP_S * rank
+
+
+def policy_inputs(inputs, kind):
+    """`build_inputs`' tuple under fairness policy `kind`: the config's
+    default policy set, queue q (in name order) at priority factor
+    1/(q + 1), and under the deadline policy each of its queued jobs
+    carrying its queue's deadline annotation."""
+    import dataclasses
+
+    from .solver.policy import DEADLINE_ANNOTATION
+
+    cfg, pool, nodes, queues, running, queued = inputs
+    rank = {name: r for r, name in enumerate(sorted(q.name for q in queues))}
+    queues = [dataclasses.replace(q, priority_factor=1.0 / (rank[q.name] + 1)) for q in queues]
+    if kind == "deadline":
+        queued = [
+            dataclasses.replace(j, annotations={
+                **j.annotations, DEADLINE_ANNOTATION: repr(_policy_deadline(rank[j.queue]))})
+            if rank[j.queue] % 3 != 2 else j
+            for j in queued
+        ]
+    cfg = dataclasses.replace(cfg, fairness_policy_default=kind)
+    return cfg, pool, nodes, queues, running, queued
+
+
+def repolicy(dev, kind):
+    """A prepared (padded) round under fairness policy `kind`, its queue
+    weights and deadlines set as `policy_inputs` sets them. For a round
+    of `build_inputs` this is what a fresh prep of `policy_inputs(inputs,
+    kind)` builds (only the policy spec, the weights and the deadlines
+    differ), without a second host prep of a 1M-job round."""
+    import dataclasses
+
+    from .solver.policy import spec_from_config
+
+    real = dev.queue_weight > 0
+    rank = dev.queue_name_rank
+    weight = np.where(real, rank + 1.0, 0.0).astype(dev.queue_weight.dtype)
+    deadline = np.full(rank.shape, np.inf)
+    if kind == "deadline":
+        deadline = np.where(real, [_policy_deadline(int(r)) for r in rank], np.inf)
+    return dataclasses.replace(
+        dev,
+        fairness_policy=spec_from_config(SchedulingConfig(fairness_policy_default=kind), "default"),
+        queue_weight=weight,
+        queue_deadline=deadline.astype(np.float64),
+    )

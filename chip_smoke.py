@@ -106,6 +106,23 @@ version. Phases, each printing one JSON line with its seconds:
    and that of a gather plus winner_reduce on the same rows.
    Prints the backend, the rank-to-device map, each rank's solve seconds
    and each launch's seconds.
+9. policies: the fairness policies, each run's round an earlier phase's
+   prepared round with its policy fields replaced (`workload.repolicy`:
+   queue weights 1 to 10 in name order; for deadline, queue q's deadline
+   3,600 q s after the first and every third queue without one; equal to
+   a fresh prep, tests/test_torch_policy.py): flagship_fast and
+   round_100k_fast (phase 6) under proportional, priority and deadline,
+   and the fused flagship (phase 5) under priority, "cuda" bit-equal to
+   "lax" with score_nodes and fill_take launched; flagship_fast under
+   priority on a 2x2 mesh of shard threads, held to its single device.
+   Prints loops by kind beside the DRF round's, solve seconds and
+   launches.
+10. market: market_round(128, 8192) (market_scarce: the spot price set,
+   jobs preempted) and market_round(2048, 8192) (market_fleet, the market
+   round of mixed_fleet_rounds(16384, 65536)), each on one device with
+   "cuda" bit-equal to "lax" and no kernel launched (a market round takes
+   no fill), then on a 2x2 mesh of shard threads held to the single
+   device, with 2 x selects x 4 shards winner_reduce launches.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -118,8 +135,11 @@ Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
 the run where the round's three kernels must launch, and for the ring
 kernel from phase 8's ring drive; the other sharded runs', the
 single-device counts, phase 6's (`launches_fast_fill_flagship`,
-`launches_home_away_2x2`) and the driver phase's (`launches_flagship_window`
-and the rest) beside them; times at the flagship's shapes,
+`launches_home_away_2x2`), the driver phase's (`launches_flagship_window`
+and the rest), the policy runs' summed (`launches_policy_runs`,
+`launches_flagship_fast_priority_2x2`) and the market runs'
+(`launches_market_single_device`, 0 for every kernel, and
+`launches_market_2x2`) beside them; times at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
 `ms_n2`): `ms` per call from CUDA events, `device_ms` per launch from the
@@ -673,11 +693,11 @@ def run_round(n_jobs, n_nodes, paths, **inputs_kw):
     return res, outs, dev
 
 
-def solve_paths(dev, paths, readback_rows, res=None):
+def solve_paths(dev, paths, readback_rows, res=None, required=("score_nodes", "fill_take")):
     """One solve of the padded round per kernel path, each admitted by the
-    round firewall, the "cuda" path with both fill kernels launched (the
-    counts set to 0 just before each solve and read just after); returns
-    (record, outputs by path)."""
+    round firewall, the "cuda" path with the kernels of `required` (both
+    fill kernels by default) launched (the counts set to 0 just before
+    each solve and read just after); returns (record, outputs by path)."""
     import dataclasses
 
     import numpy as np
@@ -716,7 +736,7 @@ def solve_paths(dev, paths, readback_rows, res=None):
         if path == "cuda":
             # The single-device path's kernels; winner_reduce runs only
             # on a mesh with more than one host (phase 7).
-            for name in ("score_nodes", "fill_take"):
+            for name in required:
                 if res["cuda_cold_launches"][name] <= 0:
                     raise AssertionError(f"kernel {name} was not launched on the cuda path")
         outs[path] = out
@@ -860,14 +880,15 @@ def phase_fast_fill(dev_flag, flag_rows):
       survivors' shared-memory budget, "cuda" equal to "lax".
     Each admitted by the round firewall, with both fill kernels launched
     on "cuda"; loops and host seconds by kind in each record. Returns the
-    records and (the flagship_fast round, its "cuda" output), which the
-    driver phase and the sharded phase solve again."""
+    records, (the flagship_fast round, its "cuda" output), which the
+    driver phase and the sharded phase solve again, and the round_100k
+    fast-fill round, whose policy variants the policies phase solves."""
     from armada_tpu_torch.parallel.scenarios import home_away_round
     from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
     from armada_tpu_torch.workload import refill, scheduling_config
 
     rec = {}
-    r100, outs, _ = run_round(100_000, 5000, ("cuda", "lax"), fast_fill=True, fill_window=512)
+    r100, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"), fast_fill=True, fill_window=512)
     assert_same_outputs(outs["cuda"], outs["lax"], "round_100k fast fill: the cuda and lax paths")
     require_merged(r100, ("cuda", "lax"), "round_100k fast fill")
     r100["cuda_equals_lax"] = True
@@ -914,7 +935,7 @@ def phase_fast_fill(dev_flag, flag_rows):
     w4["fill_take_global_sort_launches"] = int(sorts)
     rec["window_4096"] = w4
     del outs, dev
-    return rec, fast_round
+    return rec, fast_round, dev_100k
 
 
 def drive(dev, label, rows=None, **kw):
@@ -1055,6 +1076,99 @@ def phase_driver(dev_flag, flag, flag_out, dev_fast, fast, fast_out, quarter):
     return rec
 
 
+def phase_policies(dev_flag, flag, dev_fast, fast, dev_100k):
+    """The fairness policies on the card: each run's round is a prepared
+    round of an earlier phase with its policy fields replaced
+    (`workload.repolicy`: queue weights 1 to 10 in name order, for the
+    deadline policy an hour between queue deadlines and every third
+    queue without one; equal to a fresh prep, tests/test_torch_policy.py),
+    and each is admitted by the round firewall with both fill kernels
+    launched on "cuda":
+    - flagship_fast (phase 6, window 2,048) and round_100k_fast (phase 6,
+      window 512, balance eviction and the evicted-rebind window) under
+      proportional, priority and deadline: "cuda" bit-equal to "lax";
+    - the fused flagship (phase 5, the single-queue fill) under priority:
+      "cuda" bit-equal to "lax";
+    - flagship_fast under priority on a 2x2 mesh of shard threads, held
+      to its single-device output.
+    Each record holds the loops by kind, the solve seconds and the
+    launches, and the DRF round's loops beside them (`drf_loops`)."""
+    from armada_tpu_torch.workload import POLICY_KINDS, repolicy
+
+    rec = {}
+    rows = flag["readback_rows"]
+    rec_100k = fast["round_100k_fast"]
+    bases = (
+        ("flagship_fast", dev_fast, rows, fast["flagship_fast"]["cuda_loops"]),
+        ("round_100k_fast", dev_100k, rec_100k["readback_rows"], rec_100k["cuda_loops"]),
+    )
+    keep = None
+    for kind in POLICY_KINDS:
+        for label, base, base_rows, drf_loops in bases:
+            d = repolicy(base, kind)
+            r, outs = solve_paths(d, ("cuda", "lax"), base_rows,
+                                  {"policy": list(d.fairness_policy), "drf_loops": drf_loops})
+            what = f"{label} under {kind}"
+            assert_same_outputs(outs["cuda"], outs["lax"], f"{what}: the cuda and lax paths")
+            require_merged(r, ("cuda", "lax"), what)
+            r["cuda_equals_lax"] = True
+            rec[f"{label}_{kind}"] = r
+            if label == "flagship_fast" and kind == "priority":
+                keep = (d, outs["cuda"])
+            del outs, d
+
+    d = repolicy(dev_flag, "priority")
+    r, outs = solve_paths(d, ("cuda", "lax"), rows,
+                          {"policy": list(d.fairness_policy), "drf_loops": flag["cuda_loops"]})
+    assert_same_outputs(outs["cuda"], outs["lax"], "flagship under priority: the cuda and lax paths")
+    r["cuda_equals_lax"] = True
+    rec["flagship_priority"] = r
+    del outs, d
+
+    d, out = keep
+    rec["flagship_fast_priority_2x2"] = run_sharded(
+        d, out, "flagship_fast under priority", rows, ("score_nodes", "fill_take")
+    )
+    return rec
+
+
+def phase_market():
+    """Market rounds on the card (parallel/scenarios.py `market_round`:
+    bid order, the spot price, market eviction of every bound job, gangs
+    of 2, 4 and 8), each admitted by the round firewall:
+    - market_scarce, market_round(128, 8192): the cutoff is crossed, so
+      a spot price is set, and jobs are preempted;
+    - market_fleet, market_round(2048, 8192), the market round of
+      mixed_fleet_rounds(16384, 65536).
+    Each on one device, "cuda" bit-equal to "lax", where it launches no
+    kernel of the port (a market round takes no fill: prep sets its
+    window to 0), then on a 2x2 mesh of shard threads held to the single
+    device, with both stages of every select through winner_reduce."""
+    from armada_tpu_torch.parallel.scenarios import market_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+
+    rec = {}
+    for label, n_nodes, n_jobs in (("market_scarce", 128, 8192), ("market_fleet", 2048, 8192)):
+        t0 = time.time()
+        snap = market_round(n_nodes, n_jobs)
+        dev = pad_device_round(prep_device_round(snap))
+        rows = int(snap.num_jobs)
+        r, outs = solve_paths(dev, ("cuda", "lax"), rows,
+                              {"nodes": n_nodes, "jobs": n_jobs, "host_prep_s": time.time() - t0},
+                              required=())
+        if dev.batch_window != 0 or any(r["cuda_cold_launches"].values()):
+            raise AssertionError(f"{label}: a kernel launched in a market round on one device "
+                                 f"({r['cuda_cold_launches']})")
+        assert_same_outputs(outs["cuda"], outs["lax"], f"{label}: the cuda and lax paths")
+        r["cuda_equals_lax"] = True
+        spot = float(outs["cuda"]["spot_price"])
+        r["spot_price"] = None if spot != spot else spot  # NaN: the cutoff was not crossed
+        rec[label] = r
+        rec[f"{label}_2x2"] = run_sharded(dev, outs["cuda"], label, rows, ("winner_reduce",))
+        del outs, dev
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1097,14 +1211,14 @@ def main() -> int:
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
 
     t0 = time.time()
-    fast, (dev_fast, fast_out) = phase_fast_fill(dev_flag, flag["readback_rows"])
+    fast, (dev_fast, fast_out), dev_100k_fast = phase_fast_fill(dev_flag, flag["readback_rows"])
     emit({"phase": "fast_fill", **fast, "seconds": time.time() - t0})
 
     t0 = time.time()
     quarter = run_round(25_000, 1250, ("cuda",), n_running=1250)
     driver = phase_driver(dev_flag, flag, flag_outs["cuda"], dev_fast, fast["flagship_fast"],
                           fast_out, quarter)
-    del flag_outs, dev_flag
+    del flag_outs
     emit({"phase": "driver", **driver, "quarter_solve_s": quarter[0]["cuda_cold_solve_s"],
           "seconds": time.time() - t0})
 
@@ -1149,7 +1263,7 @@ def main() -> int:
     sharded["flagship_fast"] = run_sharded(
         dev_fast, fast_out, "flagship_fast", flag["readback_rows"], fill_kernels
     )
-    del dev_fast, fast_out
+    del fast_out
     emit({"phase": "sharded", **sharded, "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -1160,6 +1274,23 @@ def main() -> int:
     del gang_outs, dev_gangs
     timing["ring_exchange"] = ring_timing(multiproc)
     emit({"phase": "multiproc", **multiproc, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    policies = phase_policies(dev_flag, flag, dev_fast, fast, dev_100k_fast)
+    del dev_flag, dev_fast, dev_100k_fast
+    emit({"phase": "policies", **policies, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    market = phase_market()
+    emit({"phase": "market", **market, "seconds": time.time() - t0})
+
+    def launch_sum(records, name):
+        return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
+                       for r in records))
+
+    policy_runs = [r for k, r in policies.items() if not k.endswith("_2x2")]
+    market_2x2 = [r for k, r in market.items() if k.endswith("_2x2")]
+    market_single = [r for k, r in market.items() if not k.endswith("_2x2")]
 
     launches = dict(sharded["gangs_100k"]["launches"])
     launches["ring_exchange"] = timing["ring_exchange"]["launches"]
@@ -1191,6 +1322,11 @@ def main() -> int:
             "launches_flagship": int(flag["cuda_cold_launches"].get(name, 0)),
             "launches_round_100k": int(res["cuda_cold_launches"].get(name, 0)),
             "launches_multiproc_gangs_100k": int(mp_launches.get(name, 0)),
+            "launches_policy_runs": launch_sum(policy_runs, name),
+            "launches_flagship_fast_priority_2x2": launch_sum(
+                [policies["flagship_fast_priority_2x2"]], name),
+            "launches_market_single_device": launch_sum(market_single, name),
+            "launches_market_2x2": launch_sum(market_2x2, name),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -220,6 +220,77 @@ def test_fast_fill_rounds_on_card_equal_rounds_on_cpu(cuda_device):
             assert np.array_equal(on_card[k], on_cpu[k], equal_nan=True), k
 
 
+def _same_round(got, want, what):
+    """Decisions, num_loops and spot_price bit-equal, fair shares within
+    their ULP bounds (float64 sums may pair differently on the card)."""
+    for k in want:
+        if k in ULP_BOUNDS:
+            assert int(_ulps(got[k], want[k]).max()) <= ULP_BOUNDS[k], (what, k)
+        else:
+            assert np.array_equal(got[k], want[k], equal_nan=True), (what, k)
+
+
+@pytest.mark.cuda
+def test_policy_rounds_on_card_equal_lax_and_cpu(cuda_device):
+    """The bench round with fast fill under each fairness policy (queue
+    weights 1 to 10, deadlines stamped): "cuda" bit-equal to "lax" on the
+    card with both fill kernels launched, and equal to the CPU solve."""
+    import dataclasses
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import POLICY_KINDS, build_inputs, repolicy
+
+    base = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(4000, 200, n_running=400, fast_fill=True))))
+    for kind in POLICY_KINDS:
+        dev = repolicy(base, kind)
+        K.reset_launches()
+        stats = {}
+        on_card = solve_round(dev, stats=stats)
+        assert K.LAUNCHES["score_nodes"] > 0 and K.LAUNCHES["fill_take"] > 0, kind
+        assert stats["merged_fill_loops"] > 0, kind
+        lax = solve_round(dataclasses.replace(dev, kernel_path="lax"))
+        for k in lax:
+            assert np.array_equal(on_card[k], lax[k], equal_nan=True), (kind, k)
+        _same_round(on_card, solve_round(dev, device="cpu"), kind)
+
+
+@pytest.mark.cuda
+def test_market_round_on_card_equals_lax_cpu_and_mesh(cuda_device):
+    """market_round(128, 2048) on the card: "cuda" bit-equal to "lax"
+    (a market round takes no fill, so no kernel of the port launches on
+    one device), equal to the CPU solve, and a 2x2 mesh of shard threads
+    on the card equal to it with every select through winner_reduce."""
+    import dataclasses
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.parallel.multihost import resolve_solver
+    from armada_tpu_torch.parallel.scenarios import market_round
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+
+    dev = pad_device_round(prep_device_round(market_round(128, 2048)))
+    K.reset_launches()
+    on_card = solve_round(dev)
+    assert sum(K.LAUNCHES.values()) == 0
+    lax = solve_round(dataclasses.replace(dev, kernel_path="lax"))
+    for k in lax:
+        assert np.array_equal(on_card[k], lax[k], equal_nan=True), k
+    _same_round(on_card, solve_round(dev, device="cpu"), "market")
+    run = resolve_solver("2x2", "cuda", devices=_card_devices(4))
+    K.reset_launches()
+    sharded = run(pad_nodes(dev, 4))
+    for k in on_card:
+        assert np.array_equal(sharded[k], on_card[k], equal_nan=True), k
+    stats = run.last_stats.as_dict()
+    assert stats["selects"] > 0
+    assert K.LAUNCHES["winner_reduce"] == 2 * stats["selects"] * 4
+
+
 @pytest.mark.cuda
 def test_round_on_card_equals_round_on_cpu(cuda_device):
     """A small round of the bench's shape solves to the same arrays on the

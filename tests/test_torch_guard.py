@@ -1,7 +1,8 @@
 """The port stands alone: no module of armada_tpu_torch (the home/away
 scenario module, the hot window and the transfer ledger included), and
 not chip_smoke.py, imports jax or armada_tpu, also when the main path,
-the fast-fill path and the budgeted, compacted driver run; and the
+the fast-fill path, the budgeted, compacted driver, a market round and a
+deadline-policy round run; and the
 default device is the CUDA card, which raises where there is none."""
 
 import os
@@ -67,6 +68,19 @@ _GUARD = textwrap.dedent(
     out = solve_round(dev, device="cpu", budget_s=60.0, window=2, window_min_slots=0)
     assert out["profile"]["compacted"] and out["truncated"] is False
     assert out["profile"]["transfer"]["bytes_up"] > 0
+    # A market round (the port's market_round) and a policy round.
+    from armada_tpu_torch.parallel.scenarios import market_round
+    from armada_tpu_torch.workload import policy_inputs
+
+    dev = pad_device_round(prep_device_round(market_round(16, 256)))
+    out = solve_round(dev, device="cpu")
+    assert dev.market_driven and out["spot_price"] == out["spot_price"]
+    assert validate_round(out, dev=dev) is None
+    inputs = policy_inputs(build_inputs(60, 6, n_running=8), "deadline")
+    dev = pad_device_round(prep_device_round(build_round_snapshot(*inputs)))
+    out = solve_round(dev, device="cpu")
+    assert dev.fairness_policy[0] == "deadline" and validate_round(out, dev=dev) is None
+    assert int(out["scheduled_mask"].sum()) > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
     assert not loaded, loaded
     print("GUARD_OK", len(names))

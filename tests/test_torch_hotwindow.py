@@ -234,3 +234,26 @@ def test_gather_and_scatter_match_reference():
             _field(getattr(merged, name)), np.asarray(getattr(ref_merged, name))
         ), name
     assert np.array_equal(merged.unfeasible, np.asarray(ref_merged.unfeasible))
+
+
+@pytest.mark.parametrize("kind", ["proportional", "priority", "deadline"])
+def test_compacted_solve_bit_exact_under_policy(kind):
+    """Each fairness policy at a window of 4 slots with fast fill on: the
+    policy's rank key leads the pick, the merged step and the eviction
+    ranks in every window, bit-exact with the fused solve."""
+    from armada_tpu_torch.workload import repolicy
+
+    check_window(f"policy/{kind}", repolicy(_dev(fast_fill=True), kind), 4)
+
+
+def test_compacted_solve_bit_exact_market():
+    """The market half of the reference's mixed-fleet window test: the
+    market round (price order, no fill, so a lookahead of 1) at a window
+    of 2 slots."""
+    from armada_tpu.parallel.scenarios import mixed_fleet_rounds
+
+    (_, snap), = [r for r in mixed_fleet_rounds(24, 96) if r[0] == "market"]
+    dev = pad_device_round(prep_device_round(snap))
+    assert dev.market_driven and hotwindow.window_lookahead(dev) == 1
+    outs = check_window("market", dev, 2)
+    assert all(o["profile"]["rewindows"] >= 1 for o in outs.values())

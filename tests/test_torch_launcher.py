@@ -9,6 +9,10 @@
   num_loops and spot_price bit-exact, fair shares within their ULP
   bounds), every rank's outputs equal, and equal bit for bit to the
   in-process group's; the CollectiveStats equal the in-process run's.
+- A market round and rounds under the priority and deadline policies,
+  the same way; the round file carries their fields.
+- The multi-process tool on the market round and on both rounds of
+  `mixed_fleet_rounds` (`--round market`, `--round mixed`).
 - A worker that raises fails the launch at once, with its traceback.
 - The process group's collectives, in 4 processes: list gathers restore
   every dtype bit for bit, psum adds in axis order, unequal shapes raise.
@@ -102,6 +106,66 @@ def test_dcn_dryrun_home_away_on_cpu():
     report = json.loads(r.stdout.strip().splitlines()[-1])
     assert report["ok"] and report["parity"] and report["round"] == "home_away"
     assert all(s["merged_fill_loops"] > 0 for s in report["loop_stats"])
+
+
+@pytest.mark.parametrize(
+    "name,mesh,path",
+    [
+        ("market", (2, 2), "cuda"),
+        ("priority_eviction_gang_fast", (1, 2), "lax"),
+        ("deadline_eviction_rebalance", (2, 2), "cuda"),
+    ],
+)
+def test_multiprocess_policy_and_market_rounds_match_reference(tmp_path, name, mesh, path):
+    """A market round and fairness-policy rounds in gloo processes: the
+    saved round carries the policy and the market fields to every rank."""
+    res = check_multiprocess_round(tmp_path, name, mesh, path)
+    if name == "market":
+        assert res["collectives"]["selects"] > 0 and res["collectives"]["fills"] == 0
+        assert np.isfinite(float(res["outputs"]["spot_price"]))
+
+
+@pytest.mark.parametrize("args,rounds", [
+    (["--round", "market", "--nodes", "16", "--jobs", "256"], ("market",)),
+    (["--round", "mixed", "--nodes", "64", "--jobs", "256"], ("home_away", "market")),
+])
+def test_dcn_dryrun_market_and_mixed_on_cpu(args, rounds):
+    """The multi-process tool on the market round, and on both rounds of
+    `mixed_fleet_rounds` as the reference's worker runs them, in two gloo
+    processes on the CPU: one JSON line, parity for every round."""
+    r = subprocess.run(
+        [sys.executable, "-m", "armada_tpu_torch.tools.dcn_dryrun", *args, "--device", "cpu",
+         "--backend", "gloo", "--hosts", "1", "--chips", "2", "--timeout", str(TIMEOUT_S)],
+        capture_output=True, text=True, timeout=2 * TIMEOUT_S + 60, cwd=ROOT,
+    )
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    assert report["ok"] and report["parity"]
+    per_round = report["rounds"] if len(rounds) > 1 else {report["round"]: report}
+    assert tuple(per_round) == rounds
+    for name, rep in per_round.items():
+        assert rep["ok"] and rep["parity"] and rep["round"] == name and rep["scheduled"] > 0
+    if rounds == ("market",):
+        assert report["preempted"] > 0 and np.isfinite(report["spot_price"])
+
+
+@pytest.mark.parametrize("name", ["market", "deadline_eviction_rebalance"])
+def test_saved_policy_and_market_rounds_load_field_for_field(tmp_path, name):
+    """The market fields (slot_price, spot_price_cutoff) and the policy's
+    (queue_deadline, the fairness_policy tuple) survive the round file."""
+    dev = _port_round(name, "cuda")
+    back = load_round(save_round(dev, tmp_path / "round.npz"))
+    assert back.fairness_policy == dev.fairness_policy and type(back.fairness_policy) is tuple
+    assert back.market_driven == dev.market_driven
+    assert type(back.spot_price_cutoff) is type(dev.spot_price_cutoff)
+    assert back.spot_price_cutoff == dev.spot_price_cutoff
+    for f in ("slot_price", "queue_deadline", "queue_weight"):
+        a, b = getattr(dev, f), getattr(back, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    if name == "market":
+        assert dev.market_driven and dev.slot_price.max() > 0
+    else:
+        assert dev.fairness_policy[0] == "deadline" and np.isfinite(dev.queue_deadline).any()
 
 
 def test_saved_round_loads_field_for_field(tmp_path):

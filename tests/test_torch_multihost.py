@@ -83,6 +83,24 @@ def _twenty_one_nodes():
     return prep_device_round(home_away_round(21, 48))
 
 
+def _policy_scenario(name, kind):
+    """A round of tests/torch_scenarios.py under fairness policy `kind`
+    (deadlines stamped for the deadline policy)."""
+    from test_policy import _stamp_deadlines
+
+    cfg, nodes, queues, running, queued = SCENARIOS[name]()
+    if kind == "deadline":
+        queued = _stamp_deadlines(queued)
+    cfg = dataclasses.replace(cfg, fairness_policy_default=kind)
+    return prep_device_round(build_round_snapshot(cfg, "default", nodes, queues, running, queued))
+
+
+def _market():
+    from armada_tpu.parallel.scenarios import market_round
+
+    return prep_device_round(market_round(16, 256))
+
+
 ROUNDS = {
     "home_away": lambda: pad_device_round(_home_away()),
     "home_away_fast": lambda: pad_device_round(_home_away()),
@@ -90,11 +108,23 @@ ROUNDS = {
     "eviction_rebalance": lambda: pad_device_round(_scenario("eviction_rebalance")),
     "gang_atomicity": lambda: pad_device_round(_scenario("gang_atomicity")),
     "nodes21": _twenty_one_nodes,
+    # Market and fairness-policy rounds: price order and market eviction;
+    # the policies' rank key in the pick, the merged step and the ranks.
+    "market": lambda: pad_device_round(_market()),
+    "priority_eviction_gang_fast": lambda: pad_device_round(
+        _policy_scenario("eviction_gang", "priority")),
+    "deadline_eviction_rebalance": lambda: pad_device_round(
+        _policy_scenario("eviction_rebalance", "deadline")),
+    "proportional_home_away_fast": lambda: dataclasses.replace(
+        pad_device_round(_home_away()), fairness_policy=("proportional",)),
 }
 
 
 # The rounds solved with fast fill on; the others with it off.
-FAST_ROUNDS = ("home_away_fast", "eviction_gang_fast")
+FAST_ROUNDS = (
+    "home_away_fast", "eviction_gang_fast", "priority_eviction_gang_fast",
+    "proportional_home_away_fast",
+)
 
 
 @functools.lru_cache(maxsize=None)

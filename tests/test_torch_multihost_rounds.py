@@ -1,9 +1,11 @@
 """The port's node-sharded round against the JAX package's single-device
-round on the rounds of tests/torch_scenarios.py with eviction and gangs
-and a fast-fill round with eviction and a gang (eviction_gang: evicted
+round on the rounds of tests/torch_scenarios.py with eviction and gangs,
+a fast-fill round with eviction and a gang (eviction_gang: evicted
 rebinds and queued fills through the merged step, the gang through node
-selection), and on 21 nodes padded to
-the mesh by `pad_nodes`: the same check as
+selection), on 21 nodes padded to the mesh by `pad_nodes`, and on a
+market round (`market_round(16, 256)`: price order, market eviction, a
+spot price) and rounds under the proportional, priority and deadline
+policies, on meshes of 1x1 to 2x2: the same check as
 tests/test_torch_multihost.py, in a file of its own so the two run side
 by side."""
 
@@ -29,14 +31,25 @@ from test_torch_multihost import _twenty_one_nodes, check_sharded_round
         ("nodes21", (2, 4), "cuda"),
         ("eviction_gang_fast", (2, 2), "cuda"),
         ("eviction_gang_fast", (2, 4), "lax"),
+        ("market", (1, 1), "lax"),
+        ("market", (1, 4), "cuda"),
+        ("market", (2, 2), "cuda"),
+        ("priority_eviction_gang_fast", (1, 1), "cuda"),
+        ("priority_eviction_gang_fast", (2, 2), "cuda"),
+        ("deadline_eviction_rebalance", (1, 4), "lax"),
+        ("deadline_eviction_rebalance", (2, 2), "cuda"),
+        ("proportional_home_away_fast", (2, 2), "lax"),
     ],
 )
 def test_sharded_round_matches_reference(name, mesh, path):
     run = check_sharded_round(name, mesh, path)
-    if name.startswith("eviction"):
+    if "eviction" in name or name == "market":
         assert run.last_stats.selects > 0
     if name.endswith("_fast"):
         assert run.loop_stats["merged_fill_loops"] > 0
+    if name == "market":
+        # No fill: every queued gang selects its nodes.
+        assert run.last_stats.fills == 0 and run.loop_stats["fill_loops"] == 0
 
 
 def test_pad_nodes_matches_reference():

@@ -1,0 +1,15 @@
+"""Every round of tests/torch_scenarios.py under each fairness policy,
+fused (fast fill off): the check of tests/test_torch_policy.py, in a file
+of its own so the sweeps run side by side."""
+
+import pytest
+
+from test_policy import NON_DRF
+from test_torch_policy import check_policy_scenario
+from torch_scenarios import SCENARIOS
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+@pytest.mark.parametrize("kind", NON_DRF)
+def test_policy_scenario_round_matches_reference(kind, name):
+    check_policy_scenario(kind, name, fast=False)

@@ -115,17 +115,26 @@ def test_readback_rows_trim_is_byte_identical():
 
 
 def test_unported_paths_raise():
-    """Market rounds and the other fairness policies raise; fast fill is
-    ported (tests/test_torch_fast_fill*.py), and so are solve_round's
-    round budget, hot window and profile options, with the reference's
-    keywords (tests/test_torch_hotwindow.py, test_torch_round_deadline.py)."""
-    dev = from_reference_round(dataclasses.asdict(_reference_round("rate_limited")))
-    for bad in (
-        dataclasses.replace(dev, market_driven=True, batch_window=0),
-        dataclasses.replace(dev, fairness_policy=("proportional",)),
+    """Only a kernel path the port does not have raises now (ValueError).
+    The two rounds this test once held to NotImplementedError, a market
+    round and a proportional one, solve equal to the reference
+    (tests/test_torch_market.py and test_torch_policy*.py hold many more);
+    and solve_round takes the round budget, hot window and profile
+    options with the reference's keywords (tests/test_torch_hotwindow.py,
+    test_torch_round_deadline.py)."""
+    ref_dev = _reference_round("rate_limited")
+    for ref_round in (
+        dataclasses.replace(ref_dev, market_driven=True, batch_window=0),
+        dataclasses.replace(ref_dev, fairness_policy=("proportional",)),
     ):
-        with pytest.raises(NotImplementedError):
-            port_kernel.solve_round(bad, device="cpu")
+        want = ref_kernel.solve_round(ref_round)
+        got = port_kernel.solve_round(
+            from_reference_round(dataclasses.asdict(ref_round)), device="cpu"
+        )
+        _assert_same(f"formerly unported {ref_round.fairness_policy}", got, want)
+    dev = from_reference_round(dataclasses.asdict(ref_dev))
+    with pytest.raises(ValueError, match="kernel_path"):
+        port_kernel.solve_round(dataclasses.replace(dev, kernel_path="pallas"), device="cpu")
     fused = port_kernel.solve_round(dev, device="cpu")
     for kw in (
         {"budget_s": 60.0, "chunk_loops": 3},

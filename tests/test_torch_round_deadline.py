@@ -138,3 +138,28 @@ def test_tree_transfer_size_host_leaves_only():
         ledger.note_donated(tree["a"], site="d")
     assert outer.as_dict() == inner.as_dict()
     assert inner.bytes_up == 56 and inner.donated_bytes == 32 and inner.sites == {"up": 1, "d": 1}
+
+
+@pytest.mark.parametrize("kind", ["proportional", "priority", "deadline", "market"])
+def test_truncated_policy_and_market_rounds_bit_exact(kind):
+    """budget_s=1e-6 with 3-loop chunks under each fairness policy and on
+    a market round (market_round(16, 256), which sets a spot price): the
+    port's cut equals the reference's, `truncated` and `num_loops`
+    included, and the rescue pass runs on the evicted jobs."""
+    from armada_tpu_torch.workload import repolicy
+
+    if kind == "market":
+        from armada_tpu.parallel.scenarios import market_round
+
+        dev = pad_device_round(prep_device_round(market_round(16, 256)))
+    else:
+        dev = repolicy(_round(_evicting_inputs())[1], kind)
+    want = ref_kernel.solve_round(dev, budget_s=1e-6, chunk_loops=3)
+    assert want["truncated"] is True
+    got = port_kernel.solve_round(
+        from_reference_round(dataclasses.asdict(dev)), device="cpu", budget_s=1e-6, chunk_loops=3
+    )
+    assert got["truncated"] is True
+    _assert_same(f"cut/{kind}", _arrays(got), _arrays(want))
+    assert {k: got["profile"][k] for k in ("gang_loops", "fill_loops", "merged_fill_loops")} == {
+        k: want["profile"][k] for k in ("gang_loops", "fill_loops", "merged_fill_loops")}

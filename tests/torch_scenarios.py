@@ -6,7 +6,8 @@ its directed cases (rate limits, round fraction, lookback, eviction
 rebalance, urgency preemption, gang uniformity, gang atomicity), and a
 round that evicts with a gang among the arrivals.
 `to_port` rebuilds any of those spec objects as the port's own types, so
-the port's host prep can run from specs equal to the reference's.
+the port's host prep can run from specs equal to the reference's, and
+`to_reference` rebuilds the port's as the reference's.
 """
 
 from __future__ import annotations
@@ -21,25 +22,35 @@ from armada_tpu.core.types import Gang, JobSpec, NodeSpec, QueueSpec, RunningJob
 from test_kernel_parity import PREEMPT_CFG, rand_scenario
 
 
-def to_port(x):
-    """The same spec value built from armada_tpu_torch's types."""
+def _convert(x, src, dst):
+    """The same spec value with every dataclass of package `src` rebuilt
+    from the same-named type of package `dst`."""
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         mod = type(x).__module__
-        assert mod.startswith("armada_tpu."), mod
-        port_mod = importlib.import_module("armada_tpu_torch" + mod[len("armada_tpu"):])
-        cls = getattr(port_mod, type(x).__name__)
+        assert mod.startswith(src + "."), mod
+        cls = getattr(importlib.import_module(dst + mod[len(src):]), type(x).__name__)
         return cls(**{
-            f.name: to_port(getattr(x, f.name))
+            f.name: _convert(getattr(x, f.name), src, dst)
             for f in dataclasses.fields(x)
             if f.init
         })
     if isinstance(x, tuple):
-        return tuple(to_port(v) for v in x)
+        return tuple(_convert(v, src, dst) for v in x)
     if isinstance(x, list):
-        return [to_port(v) for v in x]
+        return [_convert(v, src, dst) for v in x]
     if isinstance(x, dict):
-        return {to_port(k): to_port(v) for k, v in x.items()}
+        return {_convert(k, src, dst): _convert(v, src, dst) for k, v in x.items()}
     return x
+
+
+def to_port(x):
+    """The same spec value built from armada_tpu_torch's types."""
+    return _convert(x, "armada_tpu", "armada_tpu_torch")
+
+
+def to_reference(x):
+    """The same spec value built from the JAX package's types."""
+    return _convert(x, "armada_tpu_torch", "armada_tpu")
 
 
 def _one_node(cpu="32", mem="128Gi"):
