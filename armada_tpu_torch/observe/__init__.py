@@ -1,1 +1,3 @@
-"""Round observatory: the host-device transfer ledger (`ledger`)."""
+"""Round observatory: the host-device transfer ledger (`ledger`) and the
+fairness ledger, preemption attribution and starvation tracker
+(`fairness`)."""

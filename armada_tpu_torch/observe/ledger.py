@@ -19,8 +19,10 @@ With no active ledger the notes are near-free no-ops.
 
 Vocabulary:
 
-- up      - host arrays uploaded to the device: numpy arrays and CPU
-            tensors; a tensor already on the card books nothing;
+- up      - arrays uploaded to the solve's device: every numpy array,
+            and every tensor on another device than the solve's; a
+            tensor already on the solve's device (a device-resident
+            round, snapshot/residency.py) books nothing;
 - down    - device results materialized on the host (the solve's numpy
             outputs);
 - donated - device buffers the solve updated in place (the hot-window
@@ -118,22 +120,41 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def _is_host(leaf) -> bool:
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two torch devices are one, an unindexed CUDA device being
+    the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+
+    def index(d):
+        return torch.cuda.current_device() if d.index is None else d.index
+
+    return index(a) == index(b)
+
+
+def _uploads(leaf, device) -> bool:
+    """Whether a leaf must travel to `device` (None: to a device other
+    than the host's CPU)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.device.type == "cpu"
+        if device is None:
+            return leaf.device.type == "cpu"
+        return not same_device(leaf.device, torch.device(device))
     return isinstance(leaf, np.ndarray)
 
 
-def tree_transfer_size(tree, host_only: bool = False) -> tuple[int, int]:
+def tree_transfer_size(tree, host_only: bool = False, device=None) -> tuple[int, int]:
     """(bytes, arrays) across a tree's array leaves, from shapes and dtypes
-    only. `host_only=True` counts host arrays exclusively (numpy arrays
-    and CPU tensors): a tensor already on the card costs nothing to
-    "upload" again, and numpy scalars are not arrays that an upload
-    moves."""
+    only. `host_only=True` counts only the leaves an upload to `device`
+    moves: every numpy array, and each tensor on another device (with
+    `device=None`, each CPU tensor). A tensor already on `device` costs
+    nothing to "upload" again, and numpy scalars are not arrays that an
+    upload moves."""
     nbytes = 0
     arrays = 0
     for leaf in _leaves(tree):
-        if host_only and not _is_host(leaf):
+        if host_only and not _uploads(leaf, device):
             continue
         if isinstance(leaf, torch.Tensor):
             n = leaf.numel() * leaf.element_size()
@@ -144,18 +165,20 @@ def tree_transfer_size(tree, host_only: bool = False) -> tuple[int, int]:
     return nbytes, arrays
 
 
-def _note(direction: str, tree, site: str, host_only: bool = False):
+def _note(direction: str, tree, site: str, host_only: bool = False, device=None):
     stack = _stack()
     if not stack:
         return
-    nbytes, arrays = tree_transfer_size(tree, host_only=host_only)
+    nbytes, arrays = tree_transfer_size(tree, host_only=host_only, device=device)
     for led in stack:
         led.note(direction, nbytes, arrays, site=site)
 
 
-def note_up(tree, site: str = "h2d"):
-    """Book a host-to-device upload: only host leaves count."""
-    _note("up", tree, site, host_only=True)
+def note_up(tree, site: str = "h2d", device=None):
+    """Book an upload to `device` (the solve's device; None for "a
+    device other than the host's CPU"): only the leaves not already
+    there count."""
+    _note("up", tree, site, host_only=True, device=device)
 
 
 def note_down(tree, site: str = "d2h"):

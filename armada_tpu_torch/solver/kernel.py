@@ -11,11 +11,14 @@ padded round (armada_tpu/solver/kernel.py, `solve_impl`).
 Where the JAX program runs `lax.while_loop`s and `lax.cond`s on device,
 this module runs Python loops and `if`s on scalars read back from the
 device, and reads the round's static tables (slot members, counts, run
-lengths, queue ranges) from the host copy of the round instead. Tensors
+lengths, queue ranges) from the host copy of the round instead (for a
+device-resident round, snapshot/residency.py, its host mirror). Tensors
 are never updated in place: a failed gang attempt keeps the carry it
 started from, as the functional reference does. The one exception is the
 hot window's scatter back into the full carry at a chunk boundary, which
-no rollback crosses (solver/hotwindow.py).
+no rollback crosses (solver/hotwindow.py); the carry fields it writes
+are the solve's own (cloned or fresh), so the round's tensors, resident
+ones included, are only read.
 
 `solve_round` runs the round fused (pass 1 as one segment run to its
 end) or through the host-driven driver the scheduler asks for: pass 1 in
@@ -2015,6 +2018,48 @@ def check_slice(dev: DeviceRound) -> None:
         raise ValueError(f"kernel_path must be 'lax' or 'cuda', not {dev.kernel_path!r}")
 
 
+def _torch_dtype(arr: np.ndarray) -> torch.dtype:
+    """The dtype `_Round` gives a host array on the device (uint32 bitsets
+    travel as their int32 words)."""
+    return torch.from_numpy(np.empty(0, np.int32 if arr.dtype == np.uint32 else arr.dtype)).dtype
+
+
+def _split_round(dev: DeviceRound, host: DeviceRound | None, device: torch.device):
+    """(h, t) for `_Round`: the host round the solve reads its static
+    tables from, and the round's tensors on `device` (None when `dev` is a
+    host round, which `_Round` uploads).
+
+    A round whose array leaves are tensors (a device-resident round,
+    snapshot/residency.py) needs `host`, the numpy mirror of those
+    tensors (`ResidentRound.host_round()`): the host side reads the mirror
+    and nothing is read back from the device. The static fields and the
+    scalars come from `dev`, whose kernel path a caller may have
+    replaced."""
+    if not any(isinstance(getattr(dev, f.name), torch.Tensor) for f in dataclasses.fields(dev)):
+        if host is not None:
+            raise ValueError("solve_round: host= is the mirror of a round of tensors; "
+                             "this round holds numpy arrays")
+        return dev, None
+    if host is None:
+        raise ValueError("solve_round: a round of tensors needs its host mirror "
+                         "(host=ResidentRound.host_round())")
+    mirror = {}
+    for f in dataclasses.fields(dev):
+        v = getattr(dev, f.name)
+        if isinstance(v, np.ndarray) and v.ndim > 0:
+            raise ValueError(f"solve_round: {f.name} is a numpy array in a round of tensors")
+        if not isinstance(v, torch.Tensor):
+            continue
+        if not ledger.same_device(v.device, device):
+            raise ValueError(f"solve_round: {f.name} is on {v.device}, the solve on {device}")
+        h = getattr(host, f.name)
+        if not (isinstance(h, np.ndarray) and tuple(h.shape) == tuple(v.shape)
+                and _torch_dtype(h) == v.dtype):
+            raise ValueError(f"solve_round: the host mirror's {f.name} does not match the tensor")
+        mirror[f.name] = h
+    return dataclasses.replace(dev, **mirror), dev
+
+
 # Round readback trim (solve_round(readback_rows=...)): the per-job
 # decision arrays whose padded tail is inert by construction — pad rows
 # are impossible jobs bound nowhere (kernel_prep.pad_device_round).
@@ -2079,11 +2124,16 @@ def solve_round(
     readback_rows: int | None = None,
     device=None,
     stats: dict | None = None,
+    host: DeviceRound | None = None,
 ):
     """Run the round solve on `device` (the CUDA card by default); returns
     the same dict of numpy arrays under the same keys as the JAX package's
     `solve_round`, plus a `truncated` flag when budgeted and a `profile`
-    dict on the host-driven paths. `dev` is a padded host DeviceRound.
+    dict on the host-driven paths. `dev` is a padded host DeviceRound, or
+    a device-resident one (snapshot/residency.py) whose array leaves are
+    tensors on `device`, with `host` its numpy mirror
+    (`ResidentRound.host_round()`); see `_split_round`. A resident round
+    books no upload, and the solve never writes into its tensors.
 
     budget_s=None (the default) runs pass 1 to completion. With a budget,
     pass 1 runs in chunks of loops with the wall clock checked between
@@ -2116,20 +2166,22 @@ def solve_round(
     over the whole solve (both passes)."""
     check_slice(dev)
     device = resolve_device(device)
+    h, t = _split_round(dev, host, device)
     use_budget = bool(budget_s) and budget_s > 0
-    pre = _window_precheck(dev, window, window_min_slots)
+    pre = _window_precheck(h, window, window_min_slots)
     if not use_budget and pre is None and not profile:
         # The fused solve, with no `truncated` or `profile` key. The
-        # ledger books the round's upload and the outputs' readback into
-        # whatever ledger the caller activated.
-        ledger.note_up(dev, site="solve.dispatch")
-        return solve_shard(dev, device, LOCAL, readback_rows=readback_rows, stats=stats)
+        # ledger books the round's upload (none for a resident round) and
+        # the outputs' readback into whatever ledger the caller activated.
+        ledger.note_up(dev, site="solve.dispatch", device=device)
+        return solve_shard(dev, device, LOCAL, readback_rows=readback_rows, stats=stats,
+                           host=host)
 
     with ledger.round_ledger() as led:
         deadline = time.monotonic() + float(budget_s) if use_budget else None
         # One upload: every chunk and window reads the round's tensors.
-        ledger.note_up(dev, site="solve.h2d")
-        rd = _Round(dev, device)
+        ledger.note_up(dev, site="solve.h2d", device=device)
+        rd = _Round(h, device, t=t)
         t0 = time.monotonic()
         c, ptr, budgets, fair_share, demand_capped, uncapped = _pass1_begin(rd)
         setup_s = time.monotonic() - t0
@@ -2212,7 +2264,7 @@ def solve_round(
         out = _finish(rd, c, budgets, fair_share, demand_capped, uncapped, truncated)
         _sync(device)
         finish_s = time.monotonic() - t0
-        out, expand = _materialize_out(out, dev, readback_rows)
+        out, expand = _materialize_out(out, h, readback_rows)
         ledger.note_down(out, site="solve.d2h")
         out = expand(out)
         if stats is not None:
@@ -2237,13 +2289,16 @@ def solve_round(
 
 
 def solve_shard(dev: DeviceRound, device: torch.device, dist, *,
-                readback_rows: int | None = None, stats: dict | None = None):
+                readback_rows: int | None = None, stats: dict | None = None,
+                host: DeviceRound | None = None):
     """The fused round on `device` through `dist`: the whole round with
     LOCAL, or one shard's round (its slice of the node-major fields) with a
     dist bound to that shard, on the shard's thread (parallel/mesh.py).
-    Returns the decision dict of numpy arrays; see `solve_round`."""
-    rd = _Round(dev, device, dist)
-    out, expand = _materialize_out(solve_impl(rd), dev, readback_rows)
+    Returns the decision dict of numpy arrays; see `solve_round` (and
+    `_split_round` for `host`)."""
+    h, t = _split_round(dev, host, device)
+    rd = _Round(h, device, dist, t=t)
+    out, expand = _materialize_out(solve_impl(rd), h, readback_rows)
     ledger.note_down(out, site="solve.d2h")
     out = expand(out)
     if stats is not None:

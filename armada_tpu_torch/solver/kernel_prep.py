@@ -29,6 +29,29 @@ from . import policy
 
 NO_NODE = -1
 
+# The static fields of a round: config constants and the paths the solve
+# takes (Python branches in solver/kernel.py). Every other field is data,
+# an array or a runtime scalar. A device-resident round
+# (snapshot/residency.py) delta-syncs data fields only, and resets when
+# one of these changes.
+_META_FIELDS = (
+    "protected_fraction",
+    "max_lookback",
+    "global_burst",
+    "queue_burst",
+    "prefer_large",
+    "num_key_groups",
+    "market_driven",
+    "has_away",
+    "batch_window",
+    "fast_fill",
+    "fill_groups",
+    "order_key_bits",
+    "fairness_policy",
+    "kernel_path",
+)
+
+
 @dataclass
 class DeviceRound:
     """Everything solve_round needs, as host numpy arrays and scalars;
@@ -152,7 +175,8 @@ class DeviceRound:
     # earliest job deadline per queue (+inf when absent; None is allowed
     # when the policy ignores deadlines — only the deadline-specialized
     # program reads it, and prep always materializes it). fairness_policy
-    # is the spec tuple; this port solves the default ("drf",) only.
+    # is the spec tuple (solver/policy.py): ("drf",), ("proportional",),
+    # ("priority",) or ("deadline", boost, horizon); the port solves each.
     queue_deadline: np.ndarray | None = None  # float64[Q]
     fairness_policy: tuple = ("drf",)
     # Solve-kernel selection (ops/kernels.py): "lax" runs the unfused

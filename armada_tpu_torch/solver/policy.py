@@ -27,8 +27,8 @@ static meta:
 The DRF spec adds no key and keeps the original cost measure.
 
 This module is the HOST half (numpy mirrors and config plumbing); the
-device half lives in kernel.py (``_policy_cost``; the torch round solves
-the DRF policy only) and must stay bit-matching with the mirrors here.
+device half lives in kernel.py (``_policy_cost``, ``_policy_fair_shares``,
+``_policy_rank_key``) and must stay bit-matching with the mirrors here.
 """
 
 from __future__ import annotations

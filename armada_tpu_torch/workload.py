@@ -15,9 +15,18 @@ mixed-fleet scenarios draw them (`parallel/scenarios.py`, `_gang_for`).
 Gangs are placed member by member through the node selection chain, so a
 round with gangs selects nodes where the bench's round only fills and
 returns evicted jobs to their own nodes.
+
+`WarmCycle` is bench.py's warm end-to-end cycle (`run_config`'s
+`warm_cycle`), the round as the scheduler runs it at steady state: an
+`IncrementalRound` takes last round's leases and fresh submits, a
+`ResidentRound` delta-syncs the padded round into persistent device
+buffers, `solve_round` solves it host-driven, and the round firewall checks
+the decisions against the host mirror.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -26,6 +35,9 @@ from .core.types import Gang, JobSpec, NodeSpec, QueueSpec, RunningJob
 
 N_QUEUES = 10
 N_RUNNING = 5000
+# The decision arrays of a solve (every key but the host-driven run's
+# `truncated` and `profile`).
+_NOT_ARRAYS = ("truncated", "profile")
 
 
 def scheduling_config(n_running=N_RUNNING, fast_fill=False, fill_window=512):
@@ -172,3 +184,153 @@ def repolicy(dev, kind):
         queue_weight=weight,
         queue_deadline=deadline.astype(np.float64),
     )
+
+
+class WarmCycle:
+    """bench.py's warm scheduling cycle on the port, over `build_inputs`'
+    tuple (or any `IncrementalRound` inputs).
+
+    `cold()` builds nothing new: it pays the reset upload and solves.
+    Each `cycle()` then, as bench.py does:
+    - binds last round's scheduled decisions (`IncrementalRound.bind`);
+    - submits as many 2-cpu / 4Gi jobs of class "low", round-robin over
+      the queues (`add_jobs`);
+    - syncs the resident round (`ResidentRound.device_round`: the O(J)
+      prep, the diff against the mirror and the delta upload);
+    - solves it host-driven (`solve_round`) at hot window `window`
+      (bench.py's 2 x the fill window) with `window_min_slots=0`,
+      reading back the live rows only;
+    - runs the round firewall on the host mirror.
+    Runs on the card unless `device` says otherwise."""
+
+    def __init__(self, inputs, *, device=None, window=None):
+        from .snapshot.incremental import IncrementalRound
+        from .snapshot.residency import ResidentRound
+
+        self.inc = IncrementalRound(*inputs)
+        self.resident = ResidentRound(device)
+        self.device = self.resident.device
+        self.queues = [q.name for q in inputs[3]]
+        self.window = 2 * int(inputs[0].batch_fill_window) if window is None else int(window)
+        self.next_id = 0
+        self.out = None
+
+    def solve(self, dev, host=None, rows=None):
+        """One solve of `dev` as the cycle solves (the resident tree with
+        its mirror, or a fresh host round)."""
+        from .solver.kernel import solve_round
+
+        return solve_round(dev, host=host, device=self.device, window=self.window,
+                           window_min_slots=0, readback_rows=rows)
+
+    def fresh_solve(self):
+        """The current generation solved from a fresh upload of
+        `pad_device_round(inc.device_round())`, as a round without
+        residency would; for holding the resident solve to it. Returns
+        (outputs, seconds of the host prep and pad, the snapshot being
+        cached for the generation)."""
+        from .solver.kernel_prep import pad_device_round
+
+        rows = self.inc.snapshot().num_jobs
+        t0 = time.perf_counter()
+        dev = pad_device_round(self.inc.device_round())
+        prep_s = time.perf_counter() - t0
+        return self.solve(dev, rows=rows), prep_s
+
+    def cold(self) -> dict:
+        """The reset upload and the first solve: their seconds, `h2d_s`
+        and `solve_s`, and the reset's `last_sync`."""
+        from .solver.kernel import _sync
+
+        t0 = time.perf_counter()
+        dev = self.resident.device_round(self.inc)
+        _sync(self.device)
+        h2d_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.out = self.solve(dev, self.resident.host_round(), self.inc.snapshot().num_jobs)
+        return {"h2d_s": h2d_s, "solve_s": time.perf_counter() - t0,
+                "sync": dict(self.resident.last_sync)}
+
+    def cycle(self) -> dict:
+        """One warm cycle; returns its seconds by part (`cycle_s` is the
+        delta, the sync and the solve; `snapshot_s`, the snapshot's
+        assembly, is the first part of the sync's `h2d_s`; the firewall
+        runs after, as in bench.py), loops, scheduled jobs, the solve's
+        transfer ledger and the sync's `last_sync`."""
+        from .observe.ledger import round_ledger
+        from .solver.kernel import _sync
+        from .solver.validate import validate_round
+
+        inc, out = self.inc, self.out
+        snap = inc.snapshot()
+        J = snap.num_jobs
+        sched = np.flatnonzero(np.asarray(out["scheduled_mask"])[:J])
+        assigned = np.asarray(out["assigned_node"])[:J]
+        prio = np.asarray(out["scheduled_priority"])[:J]
+        leases = [(str(snap.job_ids[j]), snap.node_ids[int(assigned[j])], int(prio[j]), 1.0)
+                  for j in sched]
+        new_jobs = [
+            JobSpec(
+                id=f"cycle-{self.next_id + i:08d}",
+                queue=self.queues[i % len(self.queues)],
+                priority_class="low",
+                requests={"cpu": "2", "memory": "4Gi"},
+                submitted_ts=3e6 + self.next_id + i,
+            )
+            for i in range(len(leases))
+        ]
+        self.next_id += len(leases)
+        t0 = time.perf_counter()
+        inc.bind(leases)
+        inc.add_jobs(new_jobs)
+        delta_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inc.snapshot()  # cached for the sync's prep: timed as its own part
+        snapshot_s = time.perf_counter() - t0
+        dev = self.resident.device_round(inc)
+        _sync(self.device)
+        h2d_s = time.perf_counter() - t0
+        host = self.resident.host_round()
+        t0 = time.perf_counter()
+        with round_ledger() as led:
+            out = self.solve(dev, host, J + len(new_jobs))
+        solve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        violation = validate_round({k: v for k, v in out.items() if k not in _NOT_ARRAYS},
+                                   dev=host)
+        validate_s = time.perf_counter() - t0
+        self.out = out
+        return {
+            "delta_s": delta_s,
+            "h2d_s": h2d_s,
+            "snapshot_s": snapshot_s,
+            "solve_s": solve_s,
+            "validate_s": validate_s,
+            "cycle_s": delta_s + h2d_s + solve_s,
+            "loops": int(out["num_loops"]),
+            "scheduled_jobs": int(np.asarray(out["scheduled_mask"]).sum()),
+            "leased": len(leases),
+            "violation": None if violation is None else str(violation),
+            "transfer": led.as_dict(),
+            "sync": dict(self.resident.last_sync),
+            "profile": {k: v for k, v in out.get("profile", {}).items() if k != "transfer"},
+        }
+
+    def fairness(self) -> dict:
+        """The last solve's fairness ledger (observe/fairness.py) on the
+        host mirror, as bench.py reports it: Jain index, max regret,
+        preemptions attributed, policy."""
+        from .observe.fairness import ledger_from_device_round
+
+        snap = self.inc.snapshot()
+        block = ledger_from_device_round(
+            self.resident.host_round(),
+            {k: v for k, v in self.out.items() if k not in _NOT_ARRAYS},
+            snap.num_jobs, snap.num_queues,
+        )
+        return {
+            "jain": block["ledger"]["jain"],
+            "max_regret": block["ledger"]["max_regret"],
+            "preemptions_attributed": len(block["preemptions"]),
+            "policy": block["ledger"].get("policy", "drf"),
+        }

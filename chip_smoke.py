@@ -123,6 +123,26 @@ version. Phases, each printing one JSON line with its seconds:
    "cuda" bit-equal to "lax" and no kernel launched (a market round takes
    no fill), then on a 2x2 mesh of shard threads held to the single
    device, with 2 x selects x 4 shards winner_reduce launches.
+11. warm: the warm scheduling cycle as bench.py runs it
+   (`workload.WarmCycle`: an IncrementalRound takes last round's leases
+   and as many fresh submits, a ResidentRound delta-syncs the padded round
+   into persistent buffers on the card, `solve_round` solves it host-driven
+   at hot window 2 x the fill window with no floor, and the round
+   firewall checks it on the host mirror). The flagship in bench.py's
+   configuration: the reset upload and cold solve, one settling cycle,
+   then WARM_CYCLES measured cycles, each a "delta" sync below the
+   reset's bytes, a solve booking no upload that launches score_nodes and
+   fill_take, no drift after it, and outputs bit-equal to a solve of a
+   fresh upload (outside the timed part); the last resident tree on
+   "lax" equal to "cuda". Prints the median cycle_s with min, max and
+   quartiles, the median cycle's delta_s, h2d_s (the sync; its first
+   part snapshot_s, and prep_pad_s, the same generation's prep and pad
+   timed again after the cycle), solve_s and validate_s, the reset's and
+   the deltas' bytes up and their ratio, and
+   the last round's Jain index and max regret. Then at round_25k's shape:
+   a burst past the padded capacity resets into regrown buffers (still
+   bit-equal, the next cycle a delta), and a field corrupted on the card
+   is the one check_drift names, with a clean reset after reset().
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -139,7 +159,9 @@ single-device counts, phase 6's (`launches_fast_fill_flagship`,
 and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_flagship_fast_priority_2x2`) and the market runs'
 (`launches_market_single_device`, 0 for every kernel, and
-`launches_market_2x2`) beside them; times at the flagship's shapes,
+`launches_market_2x2`) and the warm cycles' summed
+(`launches_warm_cycles`, phase 11's measured cycles) beside them; times
+at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
 `ms_n2`): `ms` per call from CUDA events, `device_ms` per launch from the
@@ -1169,6 +1191,175 @@ def phase_market():
     return rec
 
 
+WARM_CYCLES = 5  # measured warm cycles, after one that settles the shapes
+
+
+def _fresh_equal(warm, label):
+    """Hold the last warm solve to a solve of a fresh upload of the same
+    generation (`pad_device_round(inc.device_round())`), every array;
+    returns the seconds of that prep and pad."""
+    fresh, prep_s = warm.fresh_solve()
+    assert_same_outputs(warm.out, fresh, f"{label}: the resident and fresh-upload solves")
+    return prep_s
+
+
+def _check_warm_cycle(warm, rec, reset_bytes, label):
+    """A measured warm cycle's checks, made after its timed part."""
+    sync = rec["sync"]
+    if sync["mode"] != "delta" or not sync["bytes_up"] < reset_bytes:
+        raise AssertionError(f"{label}: sync {sync['mode']}, {sync['bytes_up']} bytes up "
+                             f"against the reset's {reset_bytes}")
+    if rec["transfer"]["bytes_up"] != 0:
+        raise AssertionError(f"{label}: the solve booked {rec['transfer']['bytes_up']} bytes up")
+    if rec["violation"] is not None:
+        raise AssertionError(f"{label}: validate_round rejected the round: {rec['violation']}")
+    drift = warm.resident.check_drift()
+    if drift:
+        raise AssertionError(f"{label}: the resident round drifted on {drift}")
+    for name in ("score_nodes", "fill_take"):
+        if rec["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    rec["prep_pad_s"] = _fresh_equal(warm, label)
+
+
+def _quartiles(xs):
+    import statistics
+
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return q1, q2, q3
+
+
+def phase_warm():
+    """The warm scheduling cycle as bench.py runs it (`workload.WarmCycle`:
+    leases of last round's decisions and as many fresh 2-cpu / 4Gi submits
+    into an IncrementalRound, a delta sync of the ResidentRound on the
+    card, the host-driven solve at hot window 2 x the fill window with no
+    floor, the round firewall on the host mirror):
+    - the flagship in bench.py's configuration (1M jobs x 50k nodes,
+      fast fill, window 2,048): the reset upload and the cold solve, one
+      cycle that settles the shapes, then WARM_CYCLES measured cycles,
+      each a "delta" sync below the reset's bytes, a solve booking no
+      upload with score_nodes and fill_take launched, no drift after it,
+      and outputs bit-equal to a solve of a fresh upload of the same
+      generation (made after the cycle's timed part). Then the last
+      cycle's resident tree on "lax", equal to "cuda". The record holds the median
+      cycle_s with its min, max and quartiles, the median cycle's parts,
+      the bytes of the reset and of each delta, and the last cycle's Jain
+      index and max regret (observe/fairness.py);
+    - round_25k's shape (25k jobs x 1.25k nodes x 1,250 running, the same
+      configuration): a burst of submits past the padded pow2 capacity
+      syncs as a "reset" into regrown buffers and stays bit-equal, the
+      next cycle is "delta" again; one field corrupted on the card is the
+      one check_drift names, and after reset() the next sync is a clean
+      reset."""
+    import dataclasses
+
+    import torch
+
+    from armada_tpu_torch.core.types import JobSpec
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.workload import WarmCycle, build_inputs
+
+    rec = {}
+    t0 = time.time()
+    warm = WarmCycle(build_inputs(1_000_000, 50_000, fast_fill=True, fill_window=2048))
+    rec["build_s"] = time.time() - t0
+    rec["window"] = warm.window
+    cold = warm.cold()
+    reset_bytes = cold["sync"]["bytes_up"]
+    rec["cold"] = {"h2d_s": cold["h2d_s"], "solve_s": cold["solve_s"], "reset_bytes_up": reset_bytes,
+                   "padded": {"J": int(warm.resident.host_round().job_req.shape[0]),
+                              "N": int(warm.resident.host_round().node_total.shape[0]),
+                              "S": int(warm.resident.host_round().slot_members.shape[0])}}
+    _fresh_equal(warm, "flagship cold")
+    settle = warm.cycle()
+    rec["settle"] = {k: settle[k] for k in ("cycle_s", "loops", "scheduled_jobs", "leased")}
+    rec["settle"]["sync"] = {k: settle["sync"][k] for k in ("mode", "bytes_up", "permuted")}
+    cycles = []
+    for i in range(WARM_CYCLES):
+        K.reset_launches()
+        c = warm.cycle()
+        c["launches"] = dict(K.LAUNCHES)
+        _check_warm_cycle(warm, c, reset_bytes, f"flagship warm cycle {i}")
+        c["delta_bytes_up"] = c["sync"]["bytes_up"]
+        c["sync"] = {**{k: c["sync"][k] for k in ("mode", "bytes_up", "permuted")},
+                     "fields_synced": len(c["sync"]["fields"])}
+        cycles.append(c)
+    times = sorted(c["cycle_s"] for c in cycles)
+    q1, median, q3 = _quartiles(times)
+    rep = min(cycles, key=lambda c: abs(c["cycle_s"] - median))
+    rec["cycles"] = cycles
+    rec["cycle_s"] = {"median": median, "min": times[0], "max": times[-1], "q1": q1, "q3": q3,
+                      "iqr": q3 - q1}
+    rec["median_cycle"] = {k: rep[k] for k in ("delta_s", "h2d_s", "snapshot_s", "prep_pad_s",
+                                               "solve_s", "validate_s", "cycle_s", "loops",
+                                               "scheduled_jobs")}
+    rec["bytes_up"] = {"reset": reset_bytes, "delta_median": rep["delta_bytes_up"],
+                       "reset_over_delta": reset_bytes / max(1, rep["delta_bytes_up"])}
+    rec["launches_warm_cycles"] = {
+        name: int(sum(c["launches"].get(name, 0) for c in cycles)) for name in K.KERNELS}
+    rec["fairness"] = warm.fairness()
+
+    dev = warm.resident.device_round(warm.inc)
+    host = warm.resident.host_round()
+    rows = warm.inc.snapshot().num_jobs
+    K.reset_launches()
+    lax = warm.solve(dataclasses.replace(dev, kernel_path="lax"), host, rows)
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"the lax path launched a kernel: {dict(K.LAUNCHES)}")
+    assert_same_outputs(lax, warm.out, "flagship warm: the lax and cuda solves of the resident tree")
+    rec["lax_equals_cuda"] = True
+    del lax, dev, host, warm
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    warm = WarmCycle(build_inputs(25_000, 1250, n_running=1250, fast_fill=True, fill_window=2048))
+    warm.cold()
+    first = warm.cycle()
+    if first["sync"]["mode"] != "delta":
+        raise AssertionError(f"round_25k: the first cycle synced as {first['sync']['mode']}")
+    j0 = int(warm.resident.host_round().job_req.shape[0])
+    live = warm.inc.snapshot().num_jobs
+    burst = j0 - live + 1
+    warm.inc.add_jobs([
+        JobSpec(id=f"burst-{i:06d}", queue=warm.queues[i % len(warm.queues)], priority_class="low",
+                requests={"cpu": "2", "memory": "4Gi"}, submitted_ts=4e6 + i)
+        for i in range(burst)
+    ])
+    grown = warm.cycle()
+    j1 = int(warm.resident.host_round().job_req.shape[0])
+    if grown["sync"]["mode"] != "reset" or not j1 > j0:
+        raise AssertionError(f"round_25k: a burst past J = {j0} synced as {grown['sync']['mode']}, "
+                             f"J = {j1}")
+    if warm.resident.check_drift():
+        raise AssertionError("round_25k: the regrown round drifted")
+    _fresh_equal(warm, "round_25k regrown")
+    after = warm.cycle()
+    if after["sync"]["mode"] != "delta":
+        raise AssertionError(f"round_25k: the cycle after the regrow ({after['leased']} leases) "
+                             f"synced as {after['sync']['mode']}")
+    _fresh_equal(warm, "round_25k after the regrow")
+    dev = warm.resident.device_round(warm.inc)
+    dev.job_prio[0] += 1
+    drift = warm.resident.check_drift()
+    if drift != ["job_prio"]:
+        raise AssertionError(f"round_25k: check_drift named {drift}, not ['job_prio']")
+    warm.resident.reset()
+    clean = warm.cycle()
+    if clean["sync"]["mode"] != "reset" or warm.resident.check_drift():
+        raise AssertionError("round_25k: the sync after reset() was not a clean reset")
+    _fresh_equal(warm, "round_25k after reset()")
+    rec["round_25k"] = {
+        "padded_j": [j0, j1], "burst": burst,
+        "syncs": [first["sync"]["mode"], grown["sync"]["mode"], after["sync"]["mode"],
+                  clean["sync"]["mode"]],
+        "bytes_up": [first["sync"]["bytes_up"], grown["sync"]["bytes_up"],
+                     after["sync"]["bytes_up"], clean["sync"]["bytes_up"]],
+        "drift_named": drift, "seconds": time.time() - t0,
+    }
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1284,6 +1475,10 @@ def main() -> int:
     market = phase_market()
     emit({"phase": "market", **market, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    warm = phase_warm()
+    emit({"phase": "warm", **warm, "seconds": time.time() - t0})
+
     def launch_sum(records, name):
         return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
                        for r in records))
@@ -1327,6 +1522,7 @@ def main() -> int:
                 [policies["flagship_fast_priority_2x2"]], name),
             "launches_market_single_device": launch_sum(market_single, name),
             "launches_market_2x2": launch_sum(market_2x2, name),
+            "launches_warm_cycles": warm["launches_warm_cycles"][name],
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -374,6 +374,58 @@ def test_driver_rounds_on_card_equal_rounds_on_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_warm_cycles_on_card_equal_warm_cycles_on_cpu(cuda_device):
+    """The warm cycle with its round resident on the card: each cycle a
+    delta sync below the reset's bytes, a solve booking no upload and
+    launching both fill kernels, no drift, decisions equal to a fresh
+    upload's solve on the card and to the same cycles on the CPU (fair
+    shares within the port's ULP bounds); a "lax" solve of the resident
+    tree equals it and forces no reset."""
+    import dataclasses
+
+    from armada_tpu_torch.core.config import RateLimits
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.workload import WarmCycle, build_inputs
+
+    # A burst of 200 jobs a round: every cycle leases, inside the padded
+    # capacity, on a pool with room to spare.
+    cfg, *rest = build_inputs(4000, 400, n_running=400, fast_fill=True, fill_window=32)
+    cfg = dataclasses.replace(cfg, rate_limits=RateLimits(
+        maximum_scheduling_burst=200, maximum_per_queue_scheduling_burst=200))
+    inputs = (cfg, *rest)
+    card, cpu = WarmCycle(inputs, device=cuda_device), WarmCycle(inputs, device="cpu")
+    reset = card.cold()["sync"]["bytes_up"]
+    cpu.cold()
+    for _ in range(3):
+        K.reset_launches()
+        rec = card.cycle()
+        launches = dict(K.LAUNCHES)
+        cpu.cycle()
+        assert rec["leased"] > 0, rec
+        assert rec["sync"]["mode"] == "delta" and rec["sync"]["bytes_up"] < reset, rec["sync"]
+        assert rec["transfer"]["bytes_up"] == 0 and rec["violation"] is None
+        assert launches["score_nodes"] > 0 and launches["fill_take"] > 0, launches
+        assert card.resident.check_drift() == []
+        fresh, _ = card.fresh_solve()
+        for k in fresh:
+            if k in ("profile", "truncated"):
+                continue
+            assert np.array_equal(card.out[k], fresh[k], equal_nan=True), k
+            if k in ULP_BOUNDS:
+                assert _ulps(card.out[k], cpu.out[k]).max() <= ULP_BOUNDS[k], k
+            else:
+                assert np.array_equal(card.out[k], cpu.out[k], equal_nan=True), k
+    dev = card.resident.device_round(card.inc)
+    lax = card.solve(dataclasses.replace(dev, kernel_path="lax"), card.resident.host_round(),
+                     card.inc.snapshot().num_jobs)
+    for k in ("assigned_node", "scheduled_mask", "preempted_mask", "num_loops"):
+        assert np.array_equal(lax[k], card.out[k]), k
+    card.inc.set_round_params()
+    assert card.resident.device_round(card.inc) is dev
+    assert card.resident.last_sync["mode"] == "delta"
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = _port_args(_score_inputs(np.random.default_rng(13), 256), device="cuda")
     with pytest.raises(TypeError):

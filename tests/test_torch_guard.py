@@ -1,8 +1,9 @@
 """The port stands alone: no module of armada_tpu_torch (the home/away
 scenario module, the hot window and the transfer ledger included), and
 not chip_smoke.py, imports jax or armada_tpu, also when the main path,
-the fast-fill path, the budgeted, compacted driver, a market round and a
-deadline-policy round run; and the
+the fast-fill path, a budgeted, compacted solve, a market round, a
+deadline-policy round and a warm cycle (incremental snapshot, resident
+round, fairness ledger) run; and the
 default device is the CUDA card, which raises where there is none."""
 
 import os
@@ -81,6 +82,19 @@ _GUARD = textwrap.dedent(
     out = solve_round(dev, device="cpu")
     assert dev.fairness_policy[0] == "deadline" and validate_round(out, dev=dev) is None
     assert int(out["scheduled_mask"].sum()) > 0
+    # The warm cycle: the incremental snapshot, the resident round (its
+    # sync booked, its solve booking no upload) and the fairness ledger.
+    for name in ("snapshot.incremental", "snapshot.residency", "observe.fairness"):
+        assert "armada_tpu_torch." + name in names
+    from armada_tpu_torch.workload import WarmCycle
+
+    warm = WarmCycle(build_inputs(400, 6, n_running=8, fast_fill=True, fill_window=4),
+                     device="cpu")
+    assert warm.cold()["sync"]["mode"] == "reset"
+    rec = warm.cycle()
+    assert rec["sync"]["mode"] == "delta" and rec["transfer"]["bytes_up"] == 0
+    assert rec["violation"] is None and warm.resident.check_drift() == []
+    assert 0.0 < warm.fairness()["jain"] <= 1.0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
