@@ -22,6 +22,11 @@ returns evicted jobs to their own nodes.
 `ResidentRound` delta-syncs the padded round into persistent device
 buffers, `solve_round` solves it host-driven, and the round firewall checks
 the decisions against the host mirror.
+
+`submit_events` and `ServiceRun` drive the same round through the
+control plane: the bench's queued jobs submitted through the submit
+service into an event log, and a scheduler service fed that log, with
+fake executors reporting the nodes, cycle after cycle.
 """
 
 from __future__ import annotations
@@ -334,3 +339,142 @@ class WarmCycle:
             "preemptions_attributed": len(block["preemptions"]),
             "policy": block["ledger"].get("policy", "drf"),
         }
+
+
+def submit_events(n_jobs, n_queues=N_QUEUES, fast_fill=True, fill_window=2048):
+    """(config, log entries, submit seconds): the queued jobs of
+    `build_inputs(n_jobs, ...)` (no running jobs) and their queues,
+    submitted through the port's SubmitService into a fresh event log,
+    one submit per queue. The config is `scheduling_config`'s."""
+    from .events import InMemoryEventLog
+    from .services.submit import SubmitService
+
+    cfg, _, _, queues, _, queued = build_inputs(
+        n_jobs, 1, n_running=0, n_queues=n_queues, fast_fill=fast_fill, fill_window=fill_window)
+    log = InMemoryEventLog()
+    submit = SubmitService(cfg, log)
+    for q in queues:
+        submit.create_queue(q)
+    by_queue: dict[str, list] = {}
+    for job in queued:
+        by_queue.setdefault(job.queue, []).append(job)
+    t0 = time.perf_counter()
+    for name, jobs in by_queue.items():
+        submit.submit(name, "bench", jobs, now=0.0)
+    submit_s = time.perf_counter() - t0
+    return cfg, log.read(0, log.end_offset), submit_s
+
+
+class ServiceRun:
+    """A scheduler service (kernel backend, `snapshot_mode="auto"`) fed a
+    copy of `entries`, on `device` (the card unless the caller asks for
+    the CPU), with its solve kernel path set to `kernel_path`, and
+    `n_executors` fake executors reporting `n_nodes` nodes of 32 cpu /
+    256Gi between them, in one pool; jobs run for `runtime` seconds.
+    `ingest_s` is the service's first sync of the log (the service is
+    built over an empty log, then `entries` are published into it). `cycle()` ticks
+    the executors, runs one scheduling cycle at the virtual time `now`
+    and advances it by `interval`; it returns the cycle's leases (job,
+    executor, node), preemptions, wall seconds and the service's
+    `last_cycle_stats`."""
+
+    def __init__(self, cfg, entries, n_nodes, *, kernel_path="cuda", device=None, n_executors=2,
+                 runtime=3600.0, interval=10.0):
+        import dataclasses
+
+        from .events import InMemoryEventLog
+        from .services.fake_executor import FakeExecutor, make_nodes
+        from .services.scheduler import SchedulerService
+
+        log = InMemoryEventLog()
+        self.sched = SchedulerService(dataclasses.replace(cfg, solve_kernel_path=kernel_path), log,
+                                      backend="kernel", device=device)
+        log.publish_many(e.sequence for e in entries)
+        t0 = time.perf_counter()
+        self.sched.ingester.sync()
+        self.ingest_s = time.perf_counter() - t0
+        per = n_nodes // n_executors
+        self.executors = [
+            FakeExecutor(f"executor-{k}", log, self.sched,
+                         nodes=make_nodes(f"executor-{k}", count=per, cpu="32", memory="256Gi"),
+                         runtime_for=lambda job_id: runtime)
+            for k in range(n_executors)
+        ]
+        self.now = 0.0
+        self.interval = interval
+
+    def cycle(self) -> dict:
+        from .events import JobRunLeased, JobRunPreempted
+
+        for ex in self.executors:
+            ex.tick(self.now)
+        t0 = time.perf_counter()
+        seqs = self.sched.cycle(now=self.now)
+        cycle_s = time.perf_counter() - t0
+        self.now += self.interval
+        events = [e for seq in seqs for e in seq.events]
+        return {
+            "leases": sorted((e.job_id, e.executor, e.node_id)
+                             for e in events if isinstance(e, JobRunLeased)),
+            "preempted": sorted(e.job_id for e in events if isinstance(e, JobRunPreempted)),
+            "cycle_s": cycle_s,
+            "stats": dict(self.sched.last_cycle_stats),
+        }
+
+
+def sim_workload():
+    """(cluster specs, workload spec, config) of the JAX package's
+    differential simulation (tests/test_sim_differential.py): ten nodes
+    in two zones, a steady queue of long jobs, a bursty queue of gangs of
+    8 and non-preemptible urgent jobs, and zone-pinned jobs, on a config
+    with a preemptible default class and a protected fraction of 0.5."""
+    from .sim.simulator import (
+        ClusterSpec,
+        JobTemplate,
+        NodeTemplate,
+        QueueSpecSim,
+        ShiftedExponential,
+        WorkloadSpec,
+    )
+
+    cfg = SchedulingConfig(
+        priority_classes={
+            "high": PriorityClass("high", 30000, preemptible=False),
+            "low": PriorityClass("low", 1000, preemptible=True),
+        },
+        default_priority_class="low",
+        protected_fraction_of_fair_share=0.5,
+    )
+    clusters = [ClusterSpec("c1", node_templates=(
+        NodeTemplate(count=6, cpu="16", memory="64Gi", labels={"zone": "a"}),
+        NodeTemplate(count=4, cpu="32", memory="128Gi", labels={"zone": "b"}),
+    ))]
+    spec = WorkloadSpec(queues=(
+        QueueSpecSim("steady", job_templates=(
+            JobTemplate(id="long", number=40, cpu="2", memory="4Gi",
+                        runtime=ShiftedExponential(minimum=300.0)),
+        )),
+        QueueSpecSim("bursty", priority_factor=2.0, job_templates=(
+            JobTemplate(id="gangs", number=24, cpu="4", memory="4Gi", gang_cardinality=8,
+                        submit_time=50.0, runtime=ShiftedExponential(minimum=120.0)),
+            JobTemplate(id="urgent", number=10, cpu="2", memory="2Gi", priority_class="high",
+                        submit_time=100.0, runtime=ShiftedExponential(minimum=60.0)),
+        )),
+        QueueSpecSim("zoned", job_templates=(
+            JobTemplate(id="pin", number=12, cpu="1", memory="1Gi", node_selector={"zone": "b"},
+                        submit_time=30.0,
+                        runtime=ShiftedExponential(minimum=90.0, tail_mean=30.0)),
+        )),
+    ))
+    return clusters, spec, cfg
+
+
+def sim_history(result) -> dict:
+    """The fleet history a differential simulation compares: final
+    states, placements of succeeded jobs, preemptions, finished jobs."""
+    return {
+        "states": {k: v.value for k, v in result.events_by_job.items()},
+        "placements": result.placements,
+        "preemptions": result.preemptions,
+        "finished": result.finished_jobs,
+    }

@@ -143,6 +143,31 @@ version. Phases, each printing one JSON line with its seconds:
    a burst past the padded capacity resets into regrown buffers (still
    bit-equal, the next cycle a delta), and a field corrupted on the card
    is the one check_drift names, with a clean reset after reset().
+12. service: the scheduler service (services/scheduler.py) fed through
+   the control plane (`workload.submit_events`, `workload.ServiceRun`):
+   service_100k, round_100k's 100,000 queued jobs in 10 queues submitted
+   through the SubmitService, two fake executors of 2,500 nodes of 32
+   cpu / 256Gi in one pool, the bench's config (fast fill, window 2,048,
+   default rate limits), one service on "cuda" and one on "lax" fed the
+   same events, 1 cold and 4 warm cycles each, the executors ticking
+   before each cycle: equal leases and preemptions cycle by cycle; a
+   ladder of the configured kernel path alone (no "lax" or host rung
+   below it on the card); every round on it with no failover and no
+   firewall rejection; "resident" rounds with "delta" syncs from the second cycle;
+   no drift after the last; both fill kernels launched by the "cuda"
+   service (counts set to 0 before it, read after) and none by "lax".
+   service_flagship, the flagship's 1,000,000 queued jobs on 50,000
+   nodes, one "cuda" service, 1 cold and 3 warm cycles, the same checks.
+   sim_differential, the JAX package's differential simulation
+   (`workload.sim_workload`, seed 0) through the port's Simulator on the
+   card: the kernel history equal to the oracle's, no failover, both
+   fill kernels launched; then one `solver_raise` injected on local:cuda
+   (services/chaos.SolverChaos), the one rung of the card's ladder: the
+   round is rejected with its cause recorded, its work leases a cycle
+   later on local:cuda, and the history is that of an oracle run with
+   the same fault on its one rung. Prints per cycle the jobs leased
+   and preempted, snapshot, sync, solve and cycle seconds, the sync mode
+   and bytes, and per run the submit and ingest microseconds a job.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -160,7 +185,10 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_flagship_fast_priority_2x2`) and the market runs'
 (`launches_market_single_device`, 0 for every kernel, and
 `launches_market_2x2`) and the warm cycles' summed
-(`launches_warm_cycles`, phase 11's measured cycles) beside them; times
+(`launches_warm_cycles`, phase 11's measured cycles) and phase 12's
+(`launches_service_100k`, the "cuda" service's five cycles;
+`launches_service_flagship`; `launches_sim_kernel`, the clean kernel
+simulation) beside them; times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
@@ -1360,6 +1388,164 @@ def phase_warm():
     return rec
 
 
+def require_fill_launches(launches, label):
+    for name in ("score_nodes", "fill_take"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+
+
+SERVICE_WARM_CYCLES = 4  # service_100k: warm cycles after the cold one, each service
+FLAGSHIP_SERVICE_WARM_CYCLES = 3  # service_flagship
+
+
+def _service_run(cfg, entries, n_nodes, kernel_path, cycles, label):
+    """A ServiceRun (workload.py) of `cycles` cycles on the card with its
+    launch counts, held to the phase's per-cycle checks: the card's
+    ladder is the configured kernel path alone (no "lax" or host rung
+    below it), every round on it with no failover, admitted by the firewall,
+    "resident" with a "delta" sync from the second cycle on, and no drift
+    after the last."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.workload import ServiceRun
+
+    K.reset_launches()
+    run = ServiceRun(cfg, entries, n_nodes, kernel_path=kernel_path)
+    ladder = [r.label for r in run.sched._rungs]
+    if ladder != ["LOCAL" if kernel_path == "lax" else f"local:{kernel_path}"]:
+        raise AssertionError(f"{label}: the card's ladder is {ladder}")
+    first_rung = ladder[0]
+    records = [run.cycle() for _ in range(cycles)]
+    launches = dict(K.LAUNCHES)
+    for i, rec in enumerate(records):
+        st = rec["stats"]
+        if st["rung"] != first_rung or st["failover"] is not None:
+            raise AssertionError(f"{label} cycle {i}: rung {st['rung']}, failover {st['failover']}")
+        if i and (st["snapshot_mode"] != "resident" or st["sync"]["mode"] != "delta"):
+            raise AssertionError(f"{label} cycle {i}: {st['snapshot_mode']} round, "
+                                 f"sync {(st['sync'] or {}).get('mode')}")
+        if not rec["leases"]:
+            raise AssertionError(f"{label} cycle {i}: nothing leased")
+    sched = run.sched
+    if sched.recent_failovers or sched.recent_rejections:
+        raise AssertionError(f"{label}: failovers {list(sched.recent_failovers)}, "
+                             f"rejections {list(sched.recent_rejections)}")
+    drift = sched._resident["default"].check_drift()
+    if drift:
+        raise AssertionError(f"{label}: the resident round drifted in {drift}")
+    summary = {
+        "ingest_s": run.ingest_s,
+        "ladder": ladder,
+        "launches": launches,
+        "cycles": [{
+            "leased": len(r["leases"]), "preempted": len(r["preempted"]),
+            "cycle_s": r["cycle_s"], "snapshot_s": r["stats"]["snapshot_s"],
+            "sync_s": r["stats"]["sync_s"], "solve_s": r["stats"]["solve_s"],
+            "snapshot_mode": r["stats"]["snapshot_mode"],
+            "sync": (r["stats"]["sync"] or {}).get("mode"),
+            "bytes_up": (r["stats"]["sync"] or {}).get("bytes_up"),
+            "rung": r["stats"]["rung"], "jobs": r["stats"]["jobs"],
+        } for r in records],
+    }
+    history = [(r["leases"], r["preempted"]) for r in records]
+    return summary, history
+
+
+def phase_service():
+    """The scheduler service on the card (services/scheduler.py), fed
+    through the control plane (workload.submit_events, ServiceRun):
+    - service_100k: round_100k's queued jobs (100,000 in 10 queues, no
+      running jobs) submitted through the SubmitService, two fake
+      executors of 2,500 nodes each, the bench's config (fast fill,
+      window 2,048, default rate limits); one service on the "cuda" path
+      and one on "lax", fed the same events, 1 cold and
+      SERVICE_WARM_CYCLES warm cycles each: equal leases and preemptions
+      cycle by cycle, the per-cycle checks of `_service_run`, both fill
+      kernels launched by the "cuda" service and none by the "lax" one;
+    - service_flagship: the flagship's 1,000,000 queued jobs on 50,000
+      nodes, one "cuda" service, 1 cold and FLAGSHIP_SERVICE_WARM_CYCLES
+      warm cycles, the same checks;
+    - sim_differential: the JAX package's differential simulation
+      (workload.sim_workload, seed 0) through the port's Simulator on the
+      card: the kernel history equal to the oracle's with no failover
+      and both fill kernels launched; then a kernel run with one
+      solver_raise injected on local:cuda (SolverChaos), the card's one
+      rung: that round is rejected with its cause recorded and re-solved
+      on local:cuda a cycle later, never on "lax" or the host, and the
+      history is that of an oracle run with the same fault on its one
+      rung."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.services.chaos import FaultPlan, FaultSpec
+    from armada_tpu_torch.sim import Simulator
+    from armada_tpu_torch.workload import sim_history, sim_workload, submit_events
+
+    rec = {}
+    t0 = time.time()
+    cfg, entries, submit_s = submit_events(100_000)
+    svc = {"submit_us_per_job": submit_s / 100_000 * 1e6, "build_submit_s": time.time() - t0}
+    hist = {}
+    for kp in ("cuda", "lax"):
+        summary, hist[kp] = _service_run(cfg, entries, 5000, kp, 1 + SERVICE_WARM_CYCLES,
+                                         f"service_100k/{kp}")
+        summary["ingest_us_per_job"] = summary["ingest_s"] / 100_000 * 1e6
+        svc[kp] = summary
+    if hist["cuda"] != hist["lax"]:
+        raise AssertionError("service_100k: the cuda and lax services leased differently")
+    svc["cuda_equals_lax"] = True
+    require_fill_launches(svc["cuda"]["launches"], "service_100k/cuda")
+    if any(svc["lax"]["launches"][k] for k in K.KERNELS):
+        raise AssertionError(f"service_100k: the lax service launched {svc['lax']['launches']}")
+    rec["service_100k"] = svc
+    del entries
+
+    t0 = time.time()
+    cfg, entries, submit_s = submit_events(1_000_000)
+    flag = {"submit_us_per_job": submit_s / 1_000_000 * 1e6, "build_submit_s": time.time() - t0}
+    summary, _ = _service_run(cfg, entries, 50_000, "cuda", 1 + FLAGSHIP_SERVICE_WARM_CYCLES,
+                              "service_flagship")
+    summary["ingest_us_per_job"] = summary["ingest_s"] / 1_000_000 * 1e6
+    flag.update(summary)
+    require_fill_launches(flag["launches"], "service_flagship")
+    rec["service_flagship"] = flag
+    del entries
+
+    t0 = time.time()
+    clusters, spec, cfg = sim_workload()
+    sims = {}
+    runs = (("oracle", None), ("kernel", None),
+            ("kernel_fault", FaultPlan([FaultSpec("solver_raise", "local:cuda", count=1)])),
+            ("oracle_fault", FaultPlan([FaultSpec("solver_raise", "oracle", count=1)])))
+    for name, plan in runs:
+        K.reset_launches()
+        sim = Simulator(clusters, spec, config=cfg, backend=name.split("_")[0], seed=0,
+                        max_time=5000.0, fault_plan=plan)
+        t1 = time.time()
+        res = sim.run()
+        sims[name] = {"history": sim_history(res), "seconds": time.time() - t1,
+                      "cycles": res.cycles, "finished": res.finished_jobs,
+                      "launches": dict(K.LAUNCHES),
+                      "ladder": [r.label for r in sim.scheduler._rungs],
+                      "failovers": [(f["from"], f["to"], f["cause"])
+                                    for f in sim.scheduler.recent_failovers]}
+    for name, want in (("kernel", "oracle"), ("kernel_fault", "oracle_fault")):
+        if sims[name]["history"] != sims[want]["history"]:
+            raise AssertionError(f"sim_differential: the {name} history is not the {want} one")
+        require_fill_launches(sims[name]["launches"], f"sim_differential/{name}")
+        if sims[name]["ladder"] != ["local:cuda"]:
+            raise AssertionError(f"sim_differential: the card's ladder is {sims[name]['ladder']}")
+    if sims["kernel"]["failovers"] or sims["oracle"]["failovers"]:
+        raise AssertionError(f"sim_differential: failovers {sims['kernel']['failovers']}")
+    for name, rung in (("kernel_fault", "local:cuda"), ("oracle_fault", "oracle")):
+        if sims[name]["failovers"] != [(rung, "rejected", "raise")]:
+            raise AssertionError(f"sim_differential: the {name} run's failovers were "
+                                 f"{sims[name]['failovers']}")
+    for s in sims.values():
+        s.pop("history")
+    rec["sim_differential"] = {**sims, "kernel_equals_oracle": True,
+                               "kernel_fault_equals_oracle_fault": True,
+                               "seconds": time.time() - t0}
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1479,6 +1665,10 @@ def main() -> int:
     warm = phase_warm()
     emit({"phase": "warm", **warm, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    service = phase_service()
+    emit({"phase": "service", **service, "seconds": time.time() - t0})
+
     def launch_sum(records, name):
         return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
                        for r in records))
@@ -1523,6 +1713,9 @@ def main() -> int:
             "launches_market_single_device": launch_sum(market_single, name),
             "launches_market_2x2": launch_sum(market_2x2, name),
             "launches_warm_cycles": warm["launches_warm_cycles"][name],
+            "launches_service_100k": int(service["service_100k"]["cuda"]["launches"][name]),
+            "launches_service_flagship": int(service["service_flagship"]["launches"][name]),
+            "launches_sim_kernel": int(service["sim_differential"]["kernel"]["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

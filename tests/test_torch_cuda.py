@@ -426,6 +426,41 @@ def test_warm_cycles_on_card_equal_warm_cycles_on_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_service_cycles_on_card_cuda_equal_lax(cuda_device):
+    """A small scheduler service on the card (workload.ServiceRun: 3,000
+    queued jobs through the submit service, two fake executors of 300
+    nodes), 3 cycles on the "cuda" path and 3 on "lax": equal leases and
+    preemptions cycle by cycle, a ladder of the configured path alone (no
+    "lax" or host rung below it on the card), every round on it,
+    resident with a delta sync from the second cycle on, no drift, and
+    both fill kernels launched by the "cuda" service only."""
+    from armada_tpu_torch.workload import ServiceRun, submit_events
+
+    tk.build_all()
+    cfg, entries, _ = submit_events(3000)
+    hist = {}
+    for path in ("cuda", "lax"):
+        tk.reset_launches()
+        run = ServiceRun(cfg, entries, 600, kernel_path=path)
+        recs = [run.cycle() for _ in range(3)]
+        launches = dict(tk.LAUNCHES)
+        hist[path] = [(r["leases"], r["preempted"]) for r in recs]
+        first = "local:cuda" if path == "cuda" else "LOCAL"
+        assert [r.label for r in run.sched._rungs] == [first]
+        for i, r in enumerate(recs):
+            st = r["stats"]
+            assert st["rung"] == first and st["failover"] is None, (path, i)
+            assert r["leases"], (path, i)
+            if i:
+                assert (st["snapshot_mode"], st["sync"]["mode"]) == ("resident", "delta"), (path, i)
+        assert not run.sched.recent_failovers and not run.sched.recent_rejections
+        assert run.sched._resident["default"].check_drift() == []
+        fills = (launches["score_nodes"], launches["fill_take"])
+        assert all(fills) if path == "cuda" else not any(launches.values()), (path, launches)
+    assert hist["cuda"] == hist["lax"]
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = _port_args(_score_inputs(np.random.default_rng(13), 256), device="cuda")
     with pytest.raises(TypeError):

@@ -21,6 +21,7 @@ and `aggregate_scorecard` over them agree:
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu.observe import fairness as ref_fairness
 from armada_tpu.snapshot.incremental import IncrementalRound as RefIncrementalRound

@@ -6,9 +6,9 @@ The rounds are port copies of tests/test_fill.py's: the random sweeps
 tests/test_torch_fast_fill_random.py, the directed cases here, and every
 round of tests/torch_scenarios.py with fast fill on in
 tests/test_torch_fast_fill_scenarios.py. Each padded round goes through
-the reference's `solve_round` with `fast_fill=True` and through the
-port's: port "cuda" (the kernels' plain versions on the CPU) against
-reference "pallas" (interpret mode), port "lax" against reference "lax".
+the reference's `solve_round` with `fast_fill=True` on its "lax" path
+and through the port's on both of its paths ("cuda": the kernels' plain
+versions on the CPU; "lax").
 The decisions, num_loops and spot_price are bit-exact, the fair shares
 within 4/16 ULP (`_assert_same`), the port's round firewall gives the
 reference's verdict, and the port's fast fill merged where the
@@ -27,6 +27,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.core.config import PriorityClass, SchedulingConfig
@@ -49,40 +50,35 @@ def fast_round(cfg, nodes, queues, running, queued, **replace):
     return dataclasses.replace(dev, fast_fill=True, **replace)
 
 
-def check_fast_fill(name, dev, *, pallas_as_lax=False, merges=True):
-    """Hold both port paths to the reference on the fast-fill round `dev`;
-    returns the port's "cuda" outputs and loop stats. `pallas_as_lax`
-    holds the port's "cuda" path to the reference's "lax" path: the
-    round where the reference's "pallas" path differs from its own "lax"
-    path (ROADMAP C, the reference's top-B drops nodes), which the
-    caller asserts."""
-    want = {}
-    for ref_path in ("lax", "pallas"):
-        want[ref_path] = ref_kernel.solve_round(dataclasses.replace(dev, kernel_path=ref_path))
+def check_fast_fill(name, dev, *, merges=True):
+    """Hold both port paths to the reference's "lax" path on the
+    fast-fill round `dev`; returns the port's outputs and loop stats by
+    path. The reference's fused "pallas" path is not solved here: its
+    parity with its own "lax" path is the JAX package's to hold
+    (tests/test_pallas_parity.py), and the one round where the two
+    differ (ROADMAP C, the reference's top-B drops nodes) is
+    tests/test_torch_round.py's."""
+    want = ref_kernel.solve_round(dataclasses.replace(dev, kernel_path="lax"))
     got = {}
-    for ref_path, port_path in (("lax", "lax"), ("pallas", "cuda")):
-        port_dev = from_reference_round(
-            dataclasses.asdict(dataclasses.replace(dev, kernel_path=ref_path))
+    for port_path in ("lax", "cuda"):
+        port_dev = dataclasses.replace(
+            from_reference_round(dataclasses.asdict(dataclasses.replace(dev, kernel_path="lax"))),
+            kernel_path=port_path,
         )
-        assert port_dev.kernel_path == port_path and port_dev.fast_fill
+        assert port_dev.fast_fill
         stats = {}
         out = port_kernel.solve_round(port_dev, device="cpu", stats=stats)
-        target = "lax" if pallas_as_lax else ref_path
-        _assert_same(f"{name}/{port_path}", out, want[target])
+        _assert_same(f"{name}/{port_path}", out, want)
         # The round firewall gives the reference's verdict on its own
         # output: random rounds with gangs of mixed priority classes can
         # over-commit a node for one round (docs/parity.md), in the serial
         # loop as in fast fill, and then both firewalls refuse the round.
-        verdict = ref_validate(want[target], dev=dataclasses.replace(dev, kernel_path=ref_path))
+        verdict = ref_validate(want, dev=dataclasses.replace(dev, kernel_path="lax"))
         assert _verdict(validate_round(out, dev=port_dev)) == _verdict(verdict), name
         assert stats["fill_loops"] == 0, name
         if merges:
             assert stats["merged_fill_loops"] > 0, name
         got[port_path] = (out, stats)
-    differs = any(
-        not np.array_equal(want["lax"][k], want["pallas"][k], equal_nan=True) for k in want["lax"]
-    )
-    assert differs == pallas_as_lax, name
     return got
 
 

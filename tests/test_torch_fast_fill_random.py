@@ -5,6 +5,7 @@ by side."""
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from test_kernel_parity import PREEMPT_CFG, rand_scenario
 from test_torch_fast_fill import check_fast_fill, fast_round

@@ -3,6 +3,7 @@ tests/test_torch_fast_fill.py, in a file of its own so the two run side by
 side."""
 
 import pytest
+import torch_cpu  # noqa: F401
 
 from test_torch_fast_fill import check_fast_fill, fast_round
 from torch_scenarios import SCENARIOS

@@ -8,6 +8,7 @@ and cluster model) and tests/test_torch_cuda.py (on the card)."""
 import dataclasses
 
 import numpy as np
+import torch_cpu  # noqa: F401
 
 from armada_tpu.core.config import SchedulingConfig
 from armada_tpu.core.types import QueueSpec

@@ -1,10 +1,14 @@
 """The port stands alone: no module of armada_tpu_torch (the home/away
-scenario module, the hot window and the transfer ledger included), and
-not chip_smoke.py, imports jax or armada_tpu, also when the main path,
-the fast-fill path, a budgeted, compacted solve, a market round, a
-deadline-policy round and a warm cycle (incremental snapshot, resident
-round, fairness ledger) run; and the
-default device is the CUDA card, which raises where there is none."""
+scenario module, the hot window, the transfer ledger and the control
+plane included), and not chip_smoke.py, imports jax, armada_tpu or yaml,
+also when the main path, the fast-fill path, a budgeted, compacted
+solve, a market round, a deadline-policy round, a warm cycle
+(incremental snapshot, resident round, fairness ledger) and a few
+scheduler-service cycles (event log, ingester, job database, submit
+service, fake executor, failover ladder, resident rounds, drift sweep)
+run, and a simulation with a fault injected on `local:cuda` fails over
+to LOCAL on the CPU's ladder; and the default device is the CUDA card, which raises where
+there is none."""
 
 import os
 import subprocess
@@ -12,6 +16,7 @@ import sys
 import textwrap
 
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -23,7 +28,7 @@ _GUARD = textwrap.dedent(
     class Block:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "armada_tpu"):
+            if top in ("jax", "jaxlib", "armada_tpu", "yaml"):
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -95,7 +100,51 @@ _GUARD = textwrap.dedent(
     assert rec["sync"]["mode"] == "delta" and rec["transfer"]["bytes_up"] == 0
     assert rec["violation"] is None and warm.resident.check_drift() == []
     assert 0.0 < warm.fairness()["jain"] <= 1.0
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu"))
+    # Scheduler-service cycles: submit, ingest, lease, run, finish, on
+    # the kernel backend with residency engaged and the drift sweep on.
+    for name in ("events.log", "jobdb.ingest", "services.scheduler", "services.submit",
+                 "services.fake_executor", "solver.failover", "solver.reference",
+                 "whatif.drain", "sim.simulator", "utils.carry"):
+        assert "armada_tpu_torch." + name in names
+    from armada_tpu_torch.core.config import PriorityClass, SchedulingConfig
+    from armada_tpu_torch.core.types import JobSpec, QueueSpec
+    from armada_tpu_torch.events import InMemoryEventLog
+    from armada_tpu_torch.services.fake_executor import FakeExecutor, make_nodes
+    from armada_tpu_torch.services.scheduler import SchedulerService
+    from armada_tpu_torch.services.submit import SubmitService
+
+    cfg = SchedulingConfig(priority_classes={"d": PriorityClass("d", 1000, preemptible=True)},
+                           default_priority_class="d", resident_drift_check_every=1)
+    log = InMemoryEventLog()
+    sched = SchedulerService(cfg, log, backend="kernel", device="cpu")
+    submit = SubmitService(cfg, log, scheduler=sched)
+    ex = FakeExecutor("c", log, sched, nodes=make_nodes("c", count=2, cpu="8"),
+                      runtime_for=lambda job_id: 1.5)
+    submit.create_queue(QueueSpec("q"))
+    submit.submit("q", "s", [JobSpec(id=f"j{i}", queue="", requests={"cpu": "2", "memory": "1Gi"})
+                             for i in range(10)], now=0.0)
+    for t in (0.0, 1.0, 2.0, 3.0, 4.0):
+        ex.tick(t)
+        sched.cycle(now=t)
+    assert sched.last_cycle_stats["snapshot_mode"] == "resident"
+    assert not sched.recent_failovers and not sched.recent_rejections
+    assert sum(j.state.value == "succeeded" for j in sched.jobdb.read_txn().all_jobs()) >= 8
+    # The simulator, with a fault on local:cuda: the ladder's next rung.
+    from armada_tpu_torch.services.chaos import FaultPlan, FaultSpec
+    from armada_tpu_torch.sim import ClusterSpec, JobTemplate, QueueSpecSim, Simulator, WorkloadSpec
+    from armada_tpu_torch.sim.simulator import NodeTemplate
+
+    sim = Simulator([ClusterSpec("c1", node_templates=(NodeTemplate(count=2, cpu="8"),))],
+                    WorkloadSpec(queues=(QueueSpecSim("q", job_templates=(
+                        JobTemplate(id="t", number=6, cpu="2", memory="1Gi"),)),)),
+                    backend="kernel", device="cpu", max_time=600.0,
+                    fault_plan=FaultPlan([FaultSpec("solver_raise", "local:cuda", count=1)]))
+    res = sim.run()
+    assert res.finished_jobs == 6
+    assert [(f["from"], f["to"]) for f in sim.scheduler.recent_failovers] == [
+        ("local:cuda", "LOCAL")]
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu", "yaml"))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
     """

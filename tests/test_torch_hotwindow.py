@@ -26,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.solver import kernel as ref_kernel

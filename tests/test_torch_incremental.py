@@ -20,6 +20,7 @@ import types
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 import armada_tpu.core.config as ref_config
 import armada_tpu.core.types as ref_types

@@ -49,6 +49,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from jax.experimental import pallas as pl

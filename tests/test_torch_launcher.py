@@ -28,6 +28,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu_torch.parallel.launcher import _free_port, launch, load_round, save_round
 from armada_tpu_torch.parallel.multihost import resolve_solver

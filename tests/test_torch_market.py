@@ -27,6 +27,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu.core.config import PriorityClass, SchedulingConfig
 from armada_tpu.core.types import JobSpec, NodeSpec, QueueSpec, RunningJob

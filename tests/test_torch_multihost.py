@@ -32,6 +32,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.parallel import mesh as ref_mesh

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu.parallel import mesh as ref_mesh
 from armada_tpu_torch.parallel.mesh import pad_nodes

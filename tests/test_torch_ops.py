@@ -12,6 +12,7 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.ops import bitset as jbits

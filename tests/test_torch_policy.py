@@ -1,12 +1,13 @@
 """The fairness policies (proportional, priority, deadline): the port's
 solve_round against the JAX package's, on the CPU.
 
-Each padded round goes through the reference's `solve_round` and the
-port's, port "cuda" (the kernels' plain versions on the CPU) against
-reference "pallas" (interpret mode) and port "lax" against reference
-"lax": the decisions, num_loops and spot_price bit-exact, the fair
-shares within 4 ULP (16 for the uncapped accumulator), as
-tests/test_torch_round.py holds the DRF rounds. The rounds:
+Each padded round goes through the reference's `solve_round` on its
+"lax" path and through the port's on both of its paths ("cuda": the
+kernels' plain versions on the CPU; "lax"): the decisions, num_loops and
+spot_price bit-exact, the fair shares within 4 ULP (16 for the uncapped
+accumulator), as tests/test_torch_round.py holds the DRF rounds. The
+reference's fused "pallas" path is its own tests' to hold to its "lax"
+path (tests/test_pallas_parity.py). The rounds:
 
 - the port's copy of tests/test_policy.py's oracle-parity round at seed
   0, deadlines stamped for the deadline policy;
@@ -31,6 +32,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.core.config import SchedulingConfig
@@ -47,7 +49,7 @@ from test_policy import NON_DRF, _cfg, _stamp_deadlines
 from test_torch_round import ULP_BOUNDS, _assert_same, _ulps
 from torch_scenarios import to_reference
 
-PATHS = (("pallas", "cuda"), ("lax", "lax"))
+PATHS = (("lax", "lax"), ("lax", "cuda"))
 
 
 def padded(cfg, nodes, queues, running, queued):
@@ -217,7 +219,6 @@ def check_policy_scenario(kind, name, fast):
     "pallas" top-B can drop nodes that its lax path keeps, ROADMAP C; the
     port follows the lax path on both of its paths)."""
     dev = policy_scenario(kind, name, fast)
-    got = check_round_paths(f"{name}/{kind}/fast={fast}", dev,
-                             paths=(("lax", "lax"), ("lax", "cuda")))
+    got = check_round_paths(f"{name}/{kind}/fast={fast}", dev)
     for _, stats in got.values():
         assert stats["fill_loops"] == 0 if fast else stats["merged_fill_loops"] == 0

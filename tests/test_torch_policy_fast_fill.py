@@ -4,6 +4,7 @@ keys and its barrier): the check of tests/test_torch_policy.py, in a
 file of its own so the sweeps run side by side."""
 
 import pytest
+import torch_cpu  # noqa: F401
 
 from test_policy import NON_DRF
 from test_torch_policy import check_policy_scenario

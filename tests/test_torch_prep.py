@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu.snapshot.round import build_round_snapshot as ref_build
 from armada_tpu.solver.kernel_prep import pad_device_round as ref_pad

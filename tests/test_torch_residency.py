@@ -28,6 +28,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 import torch
 
 from armada_tpu.snapshot.incremental import IncrementalRound as RefIncrementalRound

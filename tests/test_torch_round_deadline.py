@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401
 
 from armada_tpu.snapshot.round import build_round_snapshot
 from armada_tpu.solver import kernel as ref_kernel

@@ -4,6 +4,7 @@ tests/test_torch_round.py, in a file of its own so the two run side by
 side."""
 
 import pytest
+import torch_cpu  # noqa: F401
 
 from test_torch_round import GATE_AND_GANG, check_round_matches_reference
 
