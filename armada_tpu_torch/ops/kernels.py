@@ -53,10 +53,12 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 import torch
 
+from ..observe.compiles import TELEMETRY
 from .select import lex_argmin, lexsort, masked_keys
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -132,24 +134,28 @@ def _start_build(name: str):
     returns (process, tmp path, final path) or None."""
     out = _lib_path(name)
     if out.exists():
+        TELEMETRY.note_cache(hit=True)
         return None
+    TELEMETRY.note_cache(hit=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    started = time.monotonic()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return proc, tmp, out
+    return proc, tmp, out, started
 
 
 def _finish_build(name: str, job) -> None:
     if job is None:
         return
-    proc, tmp, out = job
+    proc, tmp, out, started = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
+    TELEMETRY.note_compile(time.monotonic() - started)
 
 
 def build_all() -> dict:
@@ -225,7 +231,9 @@ def _fn(name: str, sym: str | None = None):
                 if lib is None:
                     _finish_build(name, _start_build(name))
                     lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+                    TELEMETRY.note_load()
                 fn = getattr(lib, sym)
+                TELEMETRY.note_load()
                 fn.argtypes = _SIGNATURES[name][sym]
                 fn.restype = _RESTYPES.get(sym, ctypes.c_int)
                 _libs[(name, sym)] = fn

@@ -52,6 +52,8 @@ import threading
 import numpy as np
 import torch
 
+from ..observe.compiles import TELEMETRY
+
 DEFAULT_TIMEOUT_S = 900.0
 
 
@@ -116,6 +118,9 @@ class ShardGroup:
         errors = [None] * n
         finished = [0]
         cond = threading.Condition()
+        # A kernel library a shard builds or loads counts in the compile
+        # telemetry scope of the thread that runs the round.
+        scope = TELEMETRY.scope()
 
         def body(index):
             shard = Shard(self, index)
@@ -123,7 +128,8 @@ class ShardGroup:
                 shard._take_turn()
                 if shard.device.type == "cuda":
                     torch.cuda.set_device(shard.device)
-                results[index] = fn(shard)
+                with TELEMETRY.adopt(scope):
+                    results[index] = fn(shard)
             except BaseException as e:  # noqa: BLE001 - re-raised by run()
                 errors[index] = e
                 self.abort()

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observe import ledger
 from ..solver.dist import CollectiveStats, ShardDist
 from ..solver.kernel import check_slice, solve_shard
 from ..solver.kernel_prep import DeviceRound
@@ -147,6 +148,10 @@ def sharded_solve(devices, dist):
 
     def run(dev: DeviceRound, *, readback_rows: int | None = None):
         check_slice(dev)
+        # The padded host round travels to the shards' devices: booked once
+        # on the calling thread's ledgers (the shard threads keep their
+        # own), as the JAX package books its mesh placement.
+        ledger.note_up(dev, site="mesh.place")
         n = dist.n_shards
         locals_ = [shard_round(dev, i, n) for i in range(n)]
         for d in dict.fromkeys(devices):

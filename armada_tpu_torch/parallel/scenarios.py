@@ -138,6 +138,11 @@ def home_away_round(n_nodes: int, n_jobs: int, n_queues: int = 6, seed: int = 7)
 def market_round(n_nodes: int, n_jobs: int, n_queues: int = 4, seed: int = 11):
     """The MARKET pool's round snapshot: bid-priced jobs, gangs bidding as
     one unit, running low-bid incumbents facing higher-bid arrivals."""
+    return build_round_snapshot(*market_inputs(n_nodes, n_jobs, n_queues, seed))
+
+
+def market_inputs(n_nodes: int, n_jobs: int, n_queues: int = 4, seed: int = 11):
+    """(config, pool, nodes, queues, running, queued) of `market_round`."""
     rng = np.random.default_rng(seed)
     cfg = market_config()
     nodes = [
@@ -181,7 +186,7 @@ def market_round(n_nodes: int, n_jobs: int, n_queues: int = 4, seed: int = 11):
         )
         if gang_left > 0:
             gang_left -= 1
-    return build_round_snapshot(cfg, "market", nodes, queues, running, queued)
+    return cfg, "market", nodes, queues, running, queued
 
 
 def mixed_fleet_rounds(n_nodes: int, n_jobs: int, market_scale: float = 0.125):

@@ -2,8 +2,8 @@
 
 The JAX package's services/auth.py also holds the principals, the
 authenticators and the Authorizer of the gRPC transport; those wait for
-the server slice (ROADMAP A7.9). The submit service needs only the grant
-record that QueueUpsert events carry (pkg/client/queue Permissions).
+ROADMAP A2. The submit service needs only the grant record that
+QueueUpsert events carry (pkg/client/queue Permissions).
 """
 
 from __future__ import annotations

@@ -26,12 +26,12 @@ What differs:
   the host oracle ends the ladder, as in the JAX package;
 - the mesh rung waits for its solve with `torch.cuda.synchronize` where
   the reference calls `jax.block_until_ready`;
+- the round's compile delta counts the port's kernel library builds
+  and loads (observe/compiles.py), where the reference counts XLA
+  traces and compiles;
 - the seams whose modules wait for a later slice refuse to engage with
-  NotImplementedError naming their ROADMAP item: market pools and the
-  optimiser (A7.4), the compile telemetry (A7.5, so a round's profile
-  carries no compile delta), the flight recorder and its postmortem
-  bundles (A7.7), autotune and the what-if planner (A7.8), metrics and
-  the SLO tracker (A7.9); the code that only fed them is left out;
+  NotImplementedError naming their ROADMAP item: autotune and the
+  what-if planner (A1); the code that only fed them is left out;
 - `last_cycle_stats` also names each round's snapshot mode, resident
   sync, ladder rung, failover and seconds, and a kernel service refuses
   to start where its device is missing.
@@ -89,15 +89,6 @@ class SchedulerService:
         checkpoint=None,
         device=None,
     ):
-        if config.market_driven or bid_price_provider is not None:
-            raise NotImplementedError(
-                "market-driven pools and their post-round seams (pricer, "
-                "idealised value, bid refresh) wait for ROADMAP A7.4"
-            )
-        if config.optimiser is not None and config.optimiser.enabled:
-            raise NotImplementedError(
-                "the fairness optimiser pass waits for ROADMAP A7.4"
-            )
         self.config = config
         self.log = log
         # The device every kernel-backend solve, resident round and mesh
@@ -126,6 +117,10 @@ class SchedulerService:
         # solve.
         self.mesh = mesh
         self._sharded_run = None
+        # Reconnect-latency bookkeeping: executor -> instant it was
+        # dropped from the heartbeat map; observed into metrics on the
+        # first heartbeat after the heal.
+        self._disconnected_at: dict[str, float] = {}
         # Snapshot strategy: "auto" uses incremental O(delta) cycles when
         # eligible (kernel backend, no market/away) and keeps the padded
         # round device-resident across warm cycles (snapshot/residency.py)
@@ -186,6 +181,7 @@ class SchedulerService:
         # scanning every leased job every cycle forever.
         self._orphan_sweep_done = False
         self._orphan_recheck_until = 0.0
+        self.metrics = None  # set via attach_metrics
         self.last_cycle_stats: dict = {}
         # Rate-limit token buckets persisted across cycles (the reference's
         # limiter carries over; MaximumSchedulingRate refills it). Keyed per
@@ -204,10 +200,20 @@ class SchedulerService:
         self.timeline = JobTimelineStore()
         # In-process tracer (utils/tracing.py): cycle/round spans with
         # the solve profile as child spans. Defaults to the process-wide
-        # tracer; attach_tracer swaps in another.
+        # tracer; attach_tracer swaps in one with an exporter
+        # (Simulator(span_path=...)).
         from ..utils.tracing import TRACER
 
         self.tracer = TRACER
+        # Flight recorder (trace/): when attached, every pool round's
+        # solver inputs + decision stream append to an .atrace bundle for
+        # deterministic replay (attach_trace_recorder).
+        self.trace_recorder = None
+        # SLO tracker (services/slo.py): when attached, every cycle's
+        # wall clock feeds the round-latency SLO and every first lease
+        # the queue-wait SLO, with burn-rate gauges refreshed per cycle
+        # (attach_slo).
+        self.slo = None
         # Fairness observatory (armada_tpu/observe/fairness.py): every
         # round's share ledger + preemption attribution feed this
         # tracker — per-queue starvation streaks with the multiwindow
@@ -259,6 +265,17 @@ class SchedulerService:
             if config.solver_failover
             else None
         )
+        # Market mode: bid-price provider + last applied snapshot
+        # (scheduler.go:540-585 updateBidPrices; bids are not event-sourced,
+        # a restarted leader re-fetches).
+        self.bid_price_provider = bid_price_provider
+        self._bid_snapshot = None
+        # Jobs submitted since the last bid refresh: priced from the
+        # current snapshot even when no (queue, band) key changed.
+        self._unpriced_jobs: set[str] = set()
+        # Jobs the last bid refresh re-priced (the port's addition, read by
+        # workload.MarketServiceRun).
+        self.bids_repriced = 0
         if checkpoint is not None:
             # Bounded restart (services/checkpoint.py): seed the jobdb and
             # event-sourced settings from the checkpoint, then the sync
@@ -302,28 +319,32 @@ class SchedulerService:
         }
 
     def attach_metrics(self, metrics):
-        raise NotImplementedError(
-            "the scheduler metrics registry waits for ROADMAP A7.9"
-        )
+        self.metrics = metrics
 
     def attach_tracer(self, tracer):
-        """Replace the process-default tracer."""
+        """Replace the process-default tracer (e.g. with one exporting
+        OTLP/JSON, as Simulator(span_path=...) does)."""
         self.tracer = tracer
 
     def attach_trace_recorder(self, recorder):
-        raise NotImplementedError("the flight recorder waits for ROADMAP A7.7")
+        """Start appending every scheduling round (padded DeviceRound
+        inputs + decision stream) to the recorder's .atrace bundle."""
+        self.trace_recorder = recorder
 
     def attach_autotune(self, controller):
-        raise NotImplementedError("autotune waits for ROADMAP A7.8")
+        raise NotImplementedError("autotune waits for ROADMAP A1")
 
     def attach_slo(self, tracker):
-        raise NotImplementedError("the SLO tracker waits for ROADMAP A7.9")
+        """Attach an SLO tracker (services/slo.py): cycle latency and
+        per-job queue wait observations flow in, and burn-rate gauges
+        refresh per cycle."""
+        self.slo = tracker
 
     def attach_fork_capture(self, capture):
-        raise NotImplementedError("the what-if planner waits for ROADMAP A7.8")
+        raise NotImplementedError("the what-if planner waits for ROADMAP A1")
 
     def attach_whatif(self, service):
-        raise NotImplementedError("the what-if planner waits for ROADMAP A7.8")
+        raise NotImplementedError("the what-if planner waits for ROADMAP A1")
 
     def attach_solver_chaos(self, chaos):
         """Attach the solver-fault injection seam
@@ -362,12 +383,121 @@ class SchedulerService:
             "quarantine_dir": self.quarantine_dir,
         }
 
+    def _trace_round(self, snap, dev, decisions, *, solver, truncated,
+                     solve_s, profile=None, fairness=None):
+        """Append one solved round to the attached flight recorder.
+        Recording must never fail the round: errors log and drop."""
+        rec = self.trace_recorder
+        try:
+            ids = None
+            if rec.wants_ids(snap.num_jobs):
+                ids = {
+                    "jobs": list(snap.job_ids),
+                    "nodes": list(snap.node_ids),
+                    "queues": list(snap.queue_names),
+                }
+            rec.record_round(
+                pool=snap.pool,
+                dev=dev,
+                decisions=decisions,
+                num_jobs=snap.num_jobs,
+                num_queues=snap.num_queues,
+                config=snap.config,
+                cycle=self.cycle_count,
+                solver=solver,
+                truncated=truncated,
+                profile=profile,
+                solve_s=solve_s,
+                ids=ids,
+                fairness=fairness,
+                metrics=self.metrics,
+            )
+        except Exception as e:  # noqa: BLE001 - advisory path
+            self.log_.with_fields(pool=snap.pool).error(
+                "flight-recorder append failed: %r", e
+            )
+
     def _observe_transition(self, txn, event, sequence=None):
-        """Feed the per-job journey ledger (services/job_timeline.py),
-        called before each event applies — the sequence carries the
-        publisher's trace context. (The JAX package also books its
-        state-transition metrics here; they wait for ROADMAP A7.9.)"""
+        """State-transition metrics with time-in-previous-state
+        (metrics/state_metrics.go): called before each event applies, so
+        the previous state's entry time is still on the record. Also
+        feeds the per-job journey ledger (services/job_timeline.py) —
+        the sequence carries the publisher's trace context."""
+        from ..events import (
+            JobErrors as _JE,
+            JobRunLeased as _JRL,
+            JobRunRunning as _JRR,
+            JobSucceeded as _JS,
+            SubmitJob as _SJ,
+        )
+
+        if (
+            isinstance(event, _SJ)
+            and self.bid_price_provider is not None
+            and self.config.market_driven
+            and event.job is not None
+        ):
+            self._unpriced_jobs.add(event.job.id)
+        # Captured BEFORE the ledger records this event: the journey
+        # metrics below fire only on a job's FIRST lease (re-leases
+        # after preemption/requeue would multi-count ever-growing
+        # submit-anchored waits).
+        first_lease = isinstance(event, _JRL) and not self.timeline.has_leased(
+            event.job_id
+        )
         self.timeline.observe_event(event, sequence)
+        if self.slo is not None and first_lease:
+            # Queue-wait SLO sample at the first lease, on the event
+            # clock (virtual in sims) — independent of whether a
+            # metrics registry is attached.
+            job_ = txn.get(event.job_id)
+            if job_ is not None and event.created >= job_.submitted:
+                self.slo.observe(
+                    "queue_wait_seconds",
+                    event.created - job_.submitted,
+                    now=event.created,
+                )
+        m = self.metrics
+        if m is None or m.registry is None:
+            return
+
+        name, transition, since = None, None, None
+        job = txn.get(getattr(event, "job_id", "")) if hasattr(event, "job_id") else None
+        if isinstance(event, _JRL):
+            name, transition = "leased", "queued_to_leased"
+            since = job.submitted if job else None
+            if first_lease:
+                # Journey metrics at the first lease: rounds from submit
+                # through lease (1 = leased in its first round), and
+                # submit-to-lease queue wait.
+                m.job_rounds_to_schedule.observe(
+                    self.timeline.rounds_unschedulable(event.job_id) + 1
+                )
+                if job is not None and event.created >= job.submitted:
+                    m.job_queue_wait.labels(queue=job.queue).observe(
+                        event.created - job.submitted
+                    )
+        elif isinstance(event, _JRR):
+            name, transition = "running", "leased_to_running"
+            run = job.latest_run if job else None
+            since = run.leased if run else None
+        elif isinstance(event, _JS):
+            name, transition = "succeeded", "running_to_done"
+            run = job.latest_run if job else None
+            since = run.started if run else None
+        elif isinstance(event, _JE):
+            name, transition = "failed", "running_to_done"
+            run = job.latest_run if job else None
+            since = (run.started or run.leased) if run else None
+        if name is None:
+            return
+        m.job_state_transitions.labels(state=name).inc()
+        if job is not None:
+            m.queue_state_transitions.labels(queue=job.queue, state=name).inc()
+        if since and getattr(event, "created", 0) and event.created >= since:
+            m.state_seconds.labels(transition=transition).observe(
+                event.created - since
+            )
 
     # ---- control-plane inputs ----
 
@@ -460,6 +590,11 @@ class SchedulerService:
             return
         spec = fp.normalize_spec(policy)  # ValueError on unknown kinds
         policy_str = fp.spec_to_str(spec)
+        if self.config.market_driven and fp.spec_kind(spec) != "drf":
+            raise ValueError(
+                "market-driven pools price off the DRF dominant share; "
+                f"cannot flip pool {pool!r} to {policy_str!r}"
+            )
         if self.fairness_policy(pool) == policy_str:
             return
         if (
@@ -509,6 +644,14 @@ class SchedulerService:
         return spec
 
     def report_executor(self, hb: ExecutorHeartbeat):
+        dropped_at = self._disconnected_at.pop(hb.name, None)
+        if dropped_at is not None:
+            m = self.metrics
+            if m is not None and m.registry is not None:
+                m.executor_reconnects.labels(executor=hb.name).inc()
+                m.reconnect_latency.observe(
+                    max(0.0, hb.last_seen - dropped_at)
+                )
         self.executors[hb.name] = hb
 
     # ---- lease fencing (split-brain safety) ----
@@ -582,6 +725,11 @@ class SchedulerService:
                     self.fence_breached.discard(event.name)
             else:
                 self.fence_breached.add(event.name)
+            m = self.metrics
+            if m is not None and m.registry is not None:
+                m.executor_fence.labels(executor=event.name).set(
+                    self.executor_fences[event.name]
+                )
         elif isinstance(event, ExecutorCordon):
             if event.cordoned:
                 self.cordoned_executors.add(event.name)
@@ -625,8 +773,23 @@ class SchedulerService:
             self._last_token_id = token_id
             self.started_at = now
             self._orphan_sweep_done = False
-        with self._span("scheduler.cycle", cycle=self.cycle_count):
-            return self._cycle_body(now, token)
+        t_cycle = _time.monotonic()
+        try:
+            with self._span("scheduler.cycle", cycle=self.cycle_count):
+                return self._cycle_body(now, token)
+        finally:
+            # The cycle observes its own wall clock: the metric lives
+            # where the work happens, so simulator-driven cycles tick
+            # scheduler_cycle_seconds too (it was observed only by the
+            # ControlPlane loop before — registered-but-dead in sims),
+            # and the round-latency SLO gets the same sample on the
+            # caller's clock (virtual in sims).
+            cycle_s = _time.monotonic() - t_cycle
+            if self.metrics is not None and self.metrics.registry is not None:
+                self.metrics.cycle_time.observe(cycle_s)
+            if self.slo is not None:
+                self.slo.observe("round_seconds", cycle_s, now=now)
+                self.slo.update_metrics(now=now)
 
     def _span(self, name: str, **attrs):
         """A tracer span, or a no-op when tracing is detached."""
@@ -638,6 +801,7 @@ class SchedulerService:
 
     def _cycle_body(self, now: float, token) -> list[EventSequence]:
         self.ingester.sync()
+        self._refresh_bid_prices()
         sequences: list[EventSequence] = []
         sequences += self._expire_stale_executors(now)
         sequences += self._handle_failed_runs(now)
@@ -700,6 +864,33 @@ class SchedulerService:
         self.cycle_count += 1
         return sequences
 
+    def _refresh_bid_prices(self):
+        """Fetch the latest bid snapshot and re-price exactly the jobs whose
+        (queue, band) key changed (scheduler.go:540-585). Provider errors
+        keep the previous snapshot — a flaky bid store must not stall
+        scheduling cycles."""
+        if self.bid_price_provider is None or not self.config.market_driven:
+            return
+        from .pricing import refresh_job_bids
+
+        try:
+            snapshot = self.bid_price_provider.get_bid_prices()
+        except Exception as e:
+            self.log_.with_fields(cycle=self.cycle_count).warning(
+                "bid price fetch failed, keeping previous snapshot: %r", e
+            )
+            return
+        new_ids, self._unpriced_jobs = self._unpriced_jobs, set()
+        updated = refresh_job_bids(
+            self.jobdb, snapshot, self._bid_snapshot, new_job_ids=new_ids
+        )
+        self.bids_repriced = updated
+        if updated:
+            self.log_.with_fields(cycle=self.cycle_count, jobs=updated).info(
+                "re-priced jobs from bid snapshot %s", snapshot.id
+            )
+        self._bid_snapshot = snapshot
+
     def _schedule_all_pools(self, now: float) -> list[EventSequence]:
         """Per-pool rounds against one jobdb snapshot; jobs leased by an
         earlier pool are excluded from later pools (the reference writes
@@ -719,6 +910,8 @@ class SchedulerService:
         cordoned = set(self.cordoned_queues)
         overrides = dict(self.priority_overrides)
         skipped = self._skipped_executors(executors)
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.skipped_executors.set(len(skipped))
         pools = {
             (n.pool or hb.pool)
             for hb in executors.values()
@@ -807,6 +1000,8 @@ class SchedulerService:
         }
         for name in stale:
             self.executors.pop(name, None)
+            # Reconnect latency anchors at the FIRST drop of an outage.
+            self._disconnected_at.setdefault(name, now)
         if stale:
             # Leases published onto a just-dropped executor by an in-flight
             # background solve surface shortly after: keep re-checking for
@@ -1264,9 +1459,17 @@ class SchedulerService:
             "resident" if use_resident
             else ("incremental" if inc is not None else "rebuild")
         )
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.snapshot_build_seconds.labels(pool=pool).observe(
+                _time.monotonic() - t_build
+            )
+            self.metrics.snapshot_mode_total.labels(
+                pool=pool, mode=snapshot_mode_used
+            ).inc()
         solve_started = _time.time()
         t_solve = _time.monotonic()
         result = self._solve(snap, inc=inc)
+        t_solved = _time.monotonic()
         if use_resident:
             self._maybe_check_resident_drift(pool)
         if result is None:
@@ -1297,6 +1500,12 @@ class SchedulerService:
                 "scheduling round truncated by maxSchedulingDuration; "
                 "committing partial placement"
             )
+        if self.metrics is not None and self.metrics.registry is not None:
+            if truncated:
+                self.metrics.truncated_rounds.labels(pool=pool).inc()
+            self.metrics.round_truncation_streak.labels(pool=pool).set(
+                self.round_pressure.streak(pool)
+            )
         # Spend rate-limit tokens on newly scheduled jobs (ReserveN in the
         # reference, gang_scheduler.go:118-123); rescheduled evictees are
         # free (scheduled_mask covers new work only).
@@ -1314,6 +1523,81 @@ class SchedulerService:
             self._queue_rate_tokens[(pool, qn)] = max(
                 0.0, tokens - by_queue.get(qn, 0)
             )
+        if (
+            self.config.optimiser is not None
+            and self.config.optimiser.enabled
+            and not truncated  # budget already spent: skip the post-pass
+        ):
+            # Experimental fairness-improvement pass over the solved round
+            # (scheduling/optimiser/, preempting_queue_scheduler.go:659-702);
+            # mutates the result arrays with its extra decisions.
+            from ..solver.optimiser import optimise_round
+
+            decisions = optimise_round(snap, result, self.config.optimiser)
+            if decisions:
+                self.log_.with_fields(
+                    cycle=self.cycle_count, pool=pool, stage="optimiser",
+                    gangs=len(decisions),
+                ).info("optimiser placed %d gangs", len(decisions))
+        indicative = {}
+        if self.config.market_driven and self.config.gangs_to_price:
+            # Indicative gang pricing against the post-round snapshot
+            # (MarketDrivenIndicativePricer, invoked at
+            # preempting_queue_scheduler.go:637-646). Advisory: a pricer
+            # failure must not fail the round.
+            from ..solver.pricer import price_gangs
+
+            try:
+                scheduled_req = np_.asarray(
+                    snap.job_req[np_.asarray(result["scheduled_mask"], bool)]
+                ).sum(axis=0)
+                indicative = price_gangs(
+                    snap,
+                    self.config.gangs_to_price,
+                    result=result,
+                    scheduled_this_round=scheduled_req,
+                    timeout_s=self.config.gang_pricing_timeout_s,
+                )
+            except Exception as e:
+                self.log_.with_fields(cycle=self.cycle_count, pool=pool).error(
+                    "indicative pricing failed: %r", e
+                )
+        idealised: dict = {}
+        realised: dict = {}
+        if self.config.market_driven:
+            # Idealised vs realised value (idealised_value.go:23): the
+            # expectation-gap metric. Advisory — a failure must not fail
+            # the round.
+            from ..solver.idealised import (
+                calculate_idealised_value,
+                value_by_queue,
+            )
+
+            unit = {}
+            if self._bid_snapshot is not None:
+                unit = getattr(self._bid_snapshot, "resource_units", {}).get(
+                    pool, {}
+                )
+            if not unit:
+                unit = self.config.market_resource_unit
+            try:
+                placed = np_.asarray(result["scheduled_mask"], bool) | (
+                    np_.asarray(snap.job_is_running)
+                    & ~np_.asarray(result["preempted_mask"], bool)
+                )
+                realised = value_by_queue(snap, placed, unit)
+                idealised = calculate_idealised_value(
+                    self.config, pool, nodes, queues, running, queued,
+                    # Hypothetical mega-node solves: skip the fairness
+                    # ledger and the ladder/firewall guard (nothing off
+                    # this path is ever committed).
+                    lambda s: self._solve(s, fairness=False, guard=False),
+                    unit,
+                )
+            except Exception as e:
+                self.log_.with_fields(cycle=self.cycle_count, pool=pool).error(
+                    "idealised value failed: %r", e
+                )
         resident = self._resident.get(pool) if use_resident else None
         self.last_cycle_stats = {
             "pool": pool,
@@ -1330,7 +1614,11 @@ class SchedulerService:
             "truncated": truncated,
             "snapshot_s": t_solve - t_build,
             "sync_s": result.get("sync_s", 0.0),
-            "solve_s": _time.monotonic() - t_solve,
+            "compiles": result.get("compiles"),
+            "solve_s": t_solved - t_solve,
+            # The market's post-round passes (optimiser, indicative
+            # pricing, idealised value), 0 elsewhere.
+            "post_round_s": _time.monotonic() - t_solved,
         }
         if self.tracer is not None:
             round_span = self.tracer.current_span()
@@ -1357,7 +1645,10 @@ class SchedulerService:
             preempted=self.last_cycle_stats["preempted"],
             solve_s=round(_time.time() - solve_started, 4),
         ).info("scheduling round complete")
-        self._record_round(pool, snap, result, solve_started, now=now)
+        self._record_round(
+            pool, snap, result, solve_started, indicative,
+            idealised=idealised, realised=realised, now=now,
+        )
 
         by_jobset: dict[tuple, list] = {}
         import numpy as np
@@ -1457,14 +1748,109 @@ class SchedulerService:
             self._mesh_size = self._sharded_run.n_shards
         return self._sharded_run
 
+    def _note_mesh_metrics(self, pool: str, solve_s: float):
+        """Mesh topology + per-program collective accounting gauges, so
+        DCN cost regressions show in the metrics trajectory alongside
+        the per-shard (this host's) sharded-solve wall clock."""
+        if self.metrics is None or self.metrics.registry is None:
+            return
+        run = self._sharded_run
+        shape = run.mesh_shape
+        hosts, chips = (shape if len(shape) == 2 else (1, shape[0]))
+        self.metrics.solve_mesh_extent.labels(axis="hosts").set(hosts)
+        self.metrics.solve_mesh_extent.labels(axis="chips").set(chips)
+        # last_stats describes the program the cycle just executed;
+        # run.stats only the most recently TRACED one, which with several
+        # pools / shape buckets may be a different program.
+        stats = getattr(run, "last_stats", None) or run.stats
+        if stats is not None:
+            for kind, value in (
+                ("selects", stats.selects),
+                ("fills", stats.fills),
+                ("point_ops", stats.point_ops),
+            ):
+                self.metrics.solve_collective_sites.labels(kind=kind).set(
+                    value
+                )
+            for level, nbytes in (
+                ("ici", stats.ici_bytes),
+                ("dcn", stats.dcn_bytes),
+            ):
+                self.metrics.solve_collective_bytes.labels(level=level).set(
+                    nbytes
+                )
+            self.metrics.solve_dcn_scalars_per_select.set(
+                stats.per_select_dcn_scalars
+            )
+        self.metrics.shard_solve_time.labels(pool=pool).observe(solve_s)
+
+    def _note_solve_kernel(self, pool: str, path: str):
+        """Info-style active-kernel gauge (mirrors fairness_policy_info):
+        the series for the path the pool's last committed round actually
+        ran reads 1; on a flip — config change or a failover demotion
+        off the "cuda" path onto "lax" (the CPU's ladder) — the stale path's
+        series drops to 0 instead of freezing at 1."""
+        if self.metrics is None or self.metrics.registry is None:
+            return
+        live = getattr(self, "_solve_kernel_live", None)
+        if live is None:
+            live = self._solve_kernel_live = {}
+        prev = live.get(pool)
+        if prev is not None and prev != path:
+            self.metrics.solve_kernel_info.labels(pool=pool, path=prev).set(
+                0.0
+            )
+        self.metrics.solve_kernel_info.labels(pool=pool, path=path).set(1.0)
+        live[pool] = path
+
+    def _note_transfer(self, pool: str, transfer: dict | None,
+                       compiles: dict | None = None):
+        """Round observatory metrics (observe/): the last
+        round's host↔device transfer ledger as per-pool gauges plus
+        cumulative byte counters, and the round's compile-telemetry
+        delta (observe/compiles.py: kernel library builds and loads) —
+        zero compiles/loads is the warm steady state, so any movement
+        here during warm cycles is the regression signal."""
+        m = self.metrics
+        if not transfer or m is None or m.registry is None:
+            return
+        for direction, bytes_key, arrays_key in (
+            ("up", "bytes_up", "arrays_up"),
+            ("down", "bytes_down", "arrays_down"),
+            ("donated", "donated_bytes", "donated_buffers"),
+        ):
+            nbytes = int(transfer.get(bytes_key, 0))
+            m.round_transfer_bytes.labels(
+                pool=pool, direction=direction
+            ).set(nbytes)
+            m.round_transfer_arrays.labels(
+                pool=pool, direction=direction
+            ).set(int(transfer.get(arrays_key, 0)))
+            if nbytes:
+                m.transfer_bytes_total.labels(direction=direction).inc(nbytes)
+        if compiles:
+            if compiles.get("compiles"):
+                m.xla_compiles.inc(int(compiles["compiles"]))
+            if compiles.get("traces"):
+                m.xla_retraces.inc(int(compiles["traces"]))
+            if compiles.get("compile_seconds"):
+                m.xla_compile_seconds.inc(float(compiles["compile_seconds"]))
+            for outcome, key in (("hit", "cache_hits"), ("miss", "cache_misses")):
+                if compiles.get(key):
+                    m.xla_cache_events.labels(outcome=outcome).inc(
+                        int(compiles[key])
+                    )
+
     def _emit_solve_spans(self, pool: str, profile: dict | None,
-                          solve_s: float, transfer: dict | None = None):
+                          solve_s: float, transfer: dict | None = None,
+                          compiles: dict | None = None):
         """Child spans of the open round span for the hot-window solve
         profile: setup/pass1/gather/finish laid out sequentially over
         the measured solve window, plus the loop mix and rewindow count
         as attrs on the round span itself — so the exported spans show
-        WHERE a round spent its time. The transfer ledger rides as
-        round-span attrs."""
+        WHERE a round spent its time. The transfer ledger and compile
+        delta ride as round-span attrs: the exported view answers "is it
+        churn or solve" without leaving the trace."""
         tracer = self.tracer
         if tracer is None:
             return
@@ -1485,6 +1871,12 @@ class SchedulerService:
                         transfer.get("donated_buffers", 0)
                     ),
                 )
+            if compiles:
+                parent.attrs.update(
+                    xla_compiles=int(compiles.get("compiles", 0)),
+                    xla_retraces=int(compiles.get("traces", 0)),
+                    xla_compile_s=float(compiles.get("compile_seconds", 0.0)),
+                )
         if not profile:
             return
         if parent is not None:
@@ -1502,6 +1894,32 @@ class SchedulerService:
         add_segment_spans(
             tracer, parent, _t.time_ns() - int(solve_s * 1e9), profile,
             pool=pool,
+        )
+
+    def _note_solve_profile(self, pool: str, profile: dict | None):
+        """Per-segment solve timings + pass-1 loop mix from the
+        host-driven kernel driver (solve_round's `profile` block), so
+        future perf work can see WHERE a round spends its time instead
+        of one opaque solve number."""
+        if (
+            not profile
+            or self.metrics is None
+            or self.metrics.registry is None
+        ):
+            return
+        for segment in ("setup", "pass1", "gather", "finish"):
+            self.metrics.solve_segment_time.labels(
+                pool=pool, segment=segment
+            ).observe(float(profile.get(f"{segment}_s", 0.0)))
+        for kind in ("gang", "fill", "merged_fill"):
+            self.metrics.solve_loops_by_kind.labels(
+                pool=pool, kind=kind
+            ).set(int(profile.get(f"{kind}_loops", 0)))
+        self.metrics.solve_rewindows.labels(pool=pool).set(
+            int(profile.get("rewindows", 0))
+        )
+        self.metrics.solve_window_slots.labels(pool=pool).set(
+            int(profile.get("window_slots", 0))
         )
 
     # ------------------------------------------------------------------
@@ -1799,9 +2217,11 @@ class SchedulerService:
         self.log_.with_fields(
             pool=pool, cycle=self.cycle_count, fields=",".join(drifted),
         ).error("device-resident round drifted from host mirror; resetting")
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.resident_drift.labels(pool=pool).inc()
         resident.reset()
 
-    def _solve(self, snap, inc=None):
+    def _solve(self, snap, inc=None, fairness=True, guard=True):
         """Solve one round, guarded by the self-healing solve path:
         every attempt's output passes the admission firewall
         (solver/validate.py) before anything commits, and a
@@ -1809,17 +2229,28 @@ class SchedulerService:
         ladder (solver/failover.py) within the same cycle. Returns the
         round's result dict, or None when every usable rung failed —
         the caller then commits NOTHING and the work stays queued.
-        (The JAX package's unguarded, ledger-free solve serves the
-        market's idealised-value pass, which waits for ROADMAP A7.4.)"""
+
+        `fairness=False` skips the per-round fairness block: the
+        idealised-value pass re-solves hypothetical mega-node snapshots
+        whose ledger no caller reads. `guard=False` additionally
+        bypasses ladder and firewall — hypothetical solves are never
+        committed, so there is nothing to protect. It runs the first
+        rung only (on the card `local:cuda`)."""
         from ..services.chaos import SolverHangError
         from ..solver.validate import RoundRejected
 
+        if not guard:
+            return self._attempt_round(
+                snap, self._rungs[0], inc=inc, fairness=fairness,
+                validate=False,
+            )
         validate = bool(self.config.solver_validate)
         ladder = self.failover
         if ladder is None:
             try:
                 result = self._attempt_round(
-                    snap, self._rungs[0], inc=inc, validate=validate,
+                    snap, self._rungs[0], inc=inc, fairness=fairness,
+                    validate=validate,
                 )
             except RoundRejected as rj:
                 self._note_rejection(snap, self._rungs[0], rj)
@@ -1831,6 +2262,8 @@ class SchedulerService:
         chosen = None
         first_failed = None
         last_cause = None
+        # The raised or hung attempt that ended the ladder, if any.
+        last_failed = last_error = None
         for i, rung in enumerate(live):
             if i > 0 and self._round_deadline is not None and (
                 self._round_deadline - _time.monotonic() <= 0.0
@@ -1845,20 +2278,22 @@ class SchedulerService:
                 )
                 break
             cause = None
+            error = None
             try:
                 result = self._attempt_round(
-                    snap, rung, inc=inc, validate=validate,
+                    snap, rung, inc=inc, fairness=fairness,
+                    validate=validate,
                 )
             except RoundRejected as rj:
                 self._note_rejection(snap, rung, rj)
                 cause = "validation"
             except SolverHangError as e:
-                cause = "hang"
+                cause, error = "hang", e
                 self.log_.with_fields(
                     cycle=self.cycle_count, pool=snap.pool, rung=rung.label
                 ).error("solver rung hung past budget: %r", e)
             except Exception as e:  # noqa: BLE001 - any solve fault fails over
-                cause = "raise"
+                cause, error = "raise", e
                 self.log_.with_fields(
                     cycle=self.cycle_count, pool=snap.pool, rung=rung.label
                 ).error("solver rung raised: %r", e)
@@ -1868,6 +2303,7 @@ class SchedulerService:
                 break
             ladder.record_failure(rung.label, self.cycle_count)
             last_cause = cause
+            last_failed, last_error = rung, error
             if first_failed is None:
                 first_failed = rung
             nxt = live[i + 1] if i + 1 < len(live) else None
@@ -1892,7 +2328,26 @@ class SchedulerService:
                     self.log_.with_fields(
                         cycle=self.cycle_count, rung=rung.label
                     ).info("solver rung restored after clean shadow probe")
+        if self.metrics is not None and self.metrics.registry is not None:
+            for row in ladder.snapshot(self.cycle_count):
+                self.metrics.solver_rung_state.labels(rung=row["rung"]).set(
+                    row["state_code"]
+                )
         if result is None:
+            if last_error is not None:
+                # The ladder ended on a rung that raised or hung (on the
+                # card its only rung): quarantine the round's inputs so
+                # the fault reproduces offline. A raised solve has no
+                # decision stream, so the bundle holds none.
+                from ..solver.validate import RoundViolation
+
+                bundle = self._capture_postmortem(
+                    snap, None, {},
+                    violation=RoundViolation(last_cause, repr(last_error)),
+                    rung=last_failed,
+                )
+                if bundle and self.recent_failovers:
+                    self.recent_failovers[-1]["bundle"] = bundle
             return None
         # The rung that produced the committed placement (read by
         # last_cycle_stats; the JAX package's result has no such key).
@@ -1906,8 +2361,12 @@ class SchedulerService:
         return result
 
     def _note_rejection(self, snap, rung, rj):
-        """Book a firewall rejection: doctor ledger, log line."""
+        """Book a firewall rejection: metric, doctor ledger, log line."""
         v = rj.violation
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.round_rejected.labels(
+                pool=snap.pool, invariant=v.invariant
+            ).inc()
         self.recent_rejections.append(
             {
                 "cycle": self.cycle_count,
@@ -1927,9 +2386,13 @@ class SchedulerService:
         )
 
     def _note_failover(self, pool, from_rung, to_rung, cause):
-        """Book one ladder step: doctor ledger, log line.
+        """Book one ladder step: metric, doctor ledger, log line.
         to_rung None means the ladder was exhausted (round rejected)."""
         to_label = to_rung.label if to_rung is not None else "rejected"
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.solver_failover.labels(
+                **{"from": from_rung.label, "to": to_label, "cause": cause}
+            ).inc()
         self.recent_failovers.append(
             {
                 "cycle": self.cycle_count,
@@ -1943,14 +2406,112 @@ class SchedulerService:
             "solver failover %s -> %s (%s)", from_rung.label, to_label, cause
         )
 
+    def _capture_postmortem(self, snap, dev, decisions, *, violation, rung):
+        """Quarantine a rejected round as a single-round .atrace bundle
+        so tools/replay_gate.py reproduces the rejection offline. An
+        empty `decisions` (a solve that raised) records the round's
+        inputs with no decision stream. Advisory: capture failure must
+        never mask the rejection."""
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from ..trace import TraceRecorder
+
+        try:
+            if dev is None:
+                # Oracle rounds and raised solves left no DeviceRound in
+                # hand: prep the same DeviceRound the kernel would consume
+                # so the bundle replays offline.
+                from ..solver.kernel_prep import (
+                    pad_device_round,
+                    prep_device_round,
+                )
+
+                dev = pad_device_round(prep_device_round(snap))
+                if decisions:
+                    sp = decisions.get("spot_price")
+                    decisions = {
+                        **{
+                            k: np.asarray(decisions[k])
+                            for k in (
+                                "assigned_node",
+                                "scheduled_priority",
+                                "scheduled_mask",
+                                "preempted_mask",
+                                "fair_share",
+                                "demand_capped_fair_share",
+                                "uncapped_fair_share",
+                            )
+                            if decisions.get(k) is not None
+                        },
+                        "spot_price": np.float64(
+                            np.nan if sp is None else float(sp)
+                        ),
+                        "num_loops": int(decisions.get("num_loops") or 0),
+                    }
+            qdir = self.quarantine_dir or os.path.join(
+                tempfile.gettempdir(), f"armada-quarantine-{os.getpid()}"
+            )
+            os.makedirs(qdir, exist_ok=True)
+            safe_rung = rung.label.replace(":", "-").replace("/", "-")
+            path = os.path.join(
+                qdir,
+                f"round-c{self.cycle_count:06d}-{snap.pool}-"
+                f"{violation.invariant}-{safe_rung}.atrace",
+            )
+            rec = TraceRecorder(
+                path,
+                source="postmortem",
+                config=snap.config,
+                max_rounds=1,
+                meta={
+                    "pool": snap.pool,
+                    "cycle": self.cycle_count,
+                    "rung": rung.label,
+                    "invariant": violation.invariant,
+                    "detail": violation.detail,
+                },
+            )
+            try:
+                ids = None
+                if rec.wants_ids(snap.num_jobs):
+                    ids = {
+                        "jobs": list(snap.job_ids),
+                        "nodes": list(snap.node_ids),
+                        "queues": list(snap.queue_names),
+                    }
+                rec.record_round(
+                    pool=snap.pool,
+                    dev=dev,
+                    decisions=decisions,
+                    num_jobs=snap.num_jobs,
+                    num_queues=snap.num_queues,
+                    config=snap.config,
+                    cycle=self.cycle_count,
+                    solver={"backend": rung.label, "postmortem": True},
+                    truncated=False,
+                    ids=ids,
+                )
+            finally:
+                rec.close()
+            return path
+        except Exception as e:  # noqa: BLE001 - advisory path
+            self.log_.with_fields(pool=snap.pool).error(
+                "postmortem capture failed: %r", e
+            )
+            return None
+
     def _attempt_round(self, snap, rung, *, inc=None, fairness=True,
                        validate=True, shadow=False):
         """One solve attempt on a single ladder rung. Raises the
         solver's own faults (the ladder catches them) and RoundRejected
         when the admission firewall refuses the output. `shadow=True`
         is the half-open probe mode: the solve runs and validates, but
-        no advisory round seam (the round spans) observes it and no fault
-        is injected into it; its output is discarded either way."""
+        no advisory round seam (recorder, metrics, spans) observes it, no
+        fault is injected into it, and no postmortem is captured — its
+        output is discarded either way."""
         budget_s = self._remaining_budget()
         chaos = self.solver_chaos if not shadow else None
         if chaos is not None:
@@ -1962,6 +2523,7 @@ class SchedulerService:
             import numpy as np
 
             from ..observe import ledger as _tledger
+            from ..observe.compiles import TELEMETRY as _compiles
             from ..solver.kernel import solve_round
             from ..solver.kernel_prep import pad_device_round, prep_device_round
 
@@ -1969,8 +2531,9 @@ class SchedulerService:
             # persistent device buffers are delta-synced inside the round
             # ledger below so the (delta-sized) upload books against this
             # round; every host-side consumer downstream — admission
-            # firewall, fairness ledger — reads the host mirror
-            # (dev_host) so nothing pulls the resident tree back to host.
+            # firewall, fairness ledger, recorder, postmortem — reads the
+            # host mirror (dev_host) so nothing pulls the resident tree
+            # back to host.
             # The mesh rung re-pads and re-places the node axis per
             # round, so it always takes the fresh prep.
             resident = (
@@ -1985,10 +2548,14 @@ class SchedulerService:
             else:
                 dev = dev_host = pad_device_round(prep_device_round(snap))
             t_solve = _t.monotonic()
-            # Round observatory (observe/ledger.py): one ledger spans the
-            # whole solve — the resident sync or the upload, the result
-            # readback — so every round reports its host<->device cost
-            # end to end.
+            # Round observatory (observe/): one ledger spans the whole
+            # solve — the resident sync or the upload, the result readback
+            # — and a compile-telemetry delta brackets it (kernel library
+            # builds and loads, observe/compiles.py), so every round
+            # reports its host<->device cost end to end. The bracket is
+            # thread-scoped: the shard threads of a mesh solve adopt this
+            # thread's scope, another thread's build does not count.
+            _comp0 = _compiles.thread_snapshot()
             sync_s = 0.0
             with _tledger.round_ledger() as _led:
                 if resident is not None:
@@ -2007,6 +2574,7 @@ class SchedulerService:
                         str(getattr(snap.config, "solve_kernel_path", "lax")
                             or "lax")
                     )
+                    t_mesh = _t.monotonic()
                     out = run(pad_nodes(dev, self._mesh_size))
                     # CUDA launches are asynchronous: wait for the shards'
                     # cards so the histogram records solve wall clock.
@@ -2015,6 +2583,10 @@ class SchedulerService:
                             torch.cuda.synchronize(d)
                     out = {k: np.asarray(v) for k, v in out.items()}
                     _tledger.note_down(out, site="mesh.d2h")
+                    if not shadow:
+                        self._note_mesh_metrics(
+                            snap.pool, _t.monotonic() - t_mesh
+                        )
                     out["truncated"] = False
                     shape = run.mesh_shape
                     hosts, chips = shape if len(shape) == 2 else (1, shape[0])
@@ -2081,11 +2653,15 @@ class SchedulerService:
                 chaos.corrupt(rung.label, out)
             # Fold the round's cost accounting into one profile view:
             # the scheduler-round ledger (covers the resident sync or
-            # upload AND the solve's own books). The same numbers land
-            # on the round span (_emit_solve_spans).
+            # upload AND the solve's own books) plus the compile delta.
+            # The same numbers land in metrics (_note_transfer), the round
+            # span (_emit_solve_spans) and the flight-recorder record — so
+            # replay can diff cost, not just decisions.
             transfer = _led.as_dict()
+            compiles = _compiles.delta_since(_comp0, thread=True)
             cost_profile = dict(out.get("profile") or {})
             cost_profile["transfer"] = transfer
+            cost_profile["compiles"] = compiles
             # Fairness observatory (observe/fairness.py): the canonical
             # per-round share ledger + preemption attribution, computed
             # host-side from the EXACT padded DeviceRound the kernel
@@ -2106,12 +2682,10 @@ class SchedulerService:
             if validate:
                 # Round admission firewall (solver/validate.py): cheap
                 # host-side invariants against the same padded
-                # DeviceRound the solve consumed. A violation rejects
-                # the round BEFORE the round span observes it —
-                # nothing downstream ever sees a poisoned decision
-                # stream. (The JAX package also quarantines the round
-                # as a postmortem bundle; the flight recorder that
-                # writes one waits for ROADMAP A7.7.)
+                # DeviceRound the solve consumed. A violation quarantines
+                # the round BEFORE the recorder/metrics seams observe it
+                # — nothing downstream ever sees a poisoned decision
+                # stream.
                 from ..solver.validate import RoundRejected, validate_round
 
                 t_v = _t.monotonic()
@@ -2120,13 +2694,34 @@ class SchedulerService:
                 )
                 cost_profile["validate_s"] = round(_t.monotonic() - t_v, 6)
                 if violation is not None:
-                    raise RoundRejected(violation, None)
+                    bundle = None
+                    if not shadow:
+                        bundle = self._capture_postmortem(
+                            snap, dev_host, out, violation=violation, rung=rung
+                        )
+                    raise RoundRejected(violation, bundle)
             if "profile" in out:
                 out["profile"] = cost_profile
             if not shadow:
+                self._note_transfer(snap.pool, transfer, compiles)
+                self._note_solve_kernel(
+                    snap.pool, str(solver_info.get("kernel") or "lax")
+                )
+                if self.trace_recorder is not None:
+                    self._trace_round(
+                        snap,
+                        dev_host,
+                        out,
+                        solver=solver_info,
+                        truncated=truncated,
+                        solve_s=round(_t.monotonic() - t_solve, 4),
+                        profile=cost_profile,
+                        fairness=fairness_block,
+                    )
+                self._note_solve_profile(snap.pool, out.get("profile"))
                 self._emit_solve_spans(
                     snap.pool, out.get("profile"), _t.monotonic() - t_solve,
-                    transfer=transfer,
+                    transfer=transfer, compiles=compiles,
                 )
             J, Q = snap.num_jobs, snap.num_queues
             return {
@@ -2147,9 +2742,10 @@ class SchedulerService:
                     if np.isnan(float(out["spot_price"]))
                     else float(out["spot_price"])
                 ),
-                # The port's addition: the resident sync's share of the
-                # attempt (read by last_cycle_stats).
+                # The port's additions: the resident sync's share of the
+                # attempt and its compile delta (read by last_cycle_stats).
                 "sync_s": sync_s,
+                "compiles": compiles,
             }
         import time as _t
 
@@ -2189,10 +2785,61 @@ class SchedulerService:
                 job_is_running=snap.job_is_running,
             )
             if violation is not None:
-                raise RoundRejected(violation, None)
-        # Oracle rounds leave result["fairness"] None: _record_round
-        # computes the host-unit ledger_from_snapshot fallback for the
-        # live surfaces.
+                bundle = None
+                if not shadow:
+                    bundle = self._capture_postmortem(
+                        snap, None, result, violation=violation, rung=rung
+                    )
+                raise RoundRejected(violation, bundle)
+        if self.trace_recorder is not None and not shadow:
+            # Oracle-backed services record too: the bundle's DeviceRound
+            # is the same device prep the kernel would see, so a trace
+            # captured here replays any candidate kernel against the
+            # oracle's decisions (spot price + loop accounting are
+            # oracle-specific and skipped by the replay compare). The
+            # fairness block is computed from that same DeviceRound so a
+            # replay recomputation compares against identical units.
+            import numpy as np
+
+            from ..solver.kernel_prep import pad_device_round, prep_device_round
+
+            dev = pad_device_round(prep_device_round(snap))
+            decisions = {
+                "assigned_node": res.assigned_node,
+                "scheduled_priority": res.scheduled_priority,
+                "scheduled_mask": res.scheduled_mask,
+                "preempted_mask": res.preempted_mask,
+                "fair_share": res.fair_share,
+                "demand_capped_fair_share": res.demand_capped_fair_share,
+                "uncapped_fair_share": res.uncapped_fair_share,
+                "spot_price": np.float64(
+                    np.nan if res.spot_price is None else res.spot_price
+                ),
+                "num_loops": int(res.num_loops),
+            }
+            if fairness:
+                try:
+                    from ..observe.fairness import ledger_from_device_round
+
+                    result["fairness"] = ledger_from_device_round(
+                        dev, decisions, snap.num_jobs, snap.num_queues
+                    )
+                except Exception as e:  # noqa: BLE001 - advisory path
+                    self.log_.with_fields(pool=snap.pool).error(
+                        "fairness ledger failed: %r", e
+                    )
+            self._trace_round(
+                snap,
+                dev,
+                decisions,
+                solver={"backend": "oracle"},
+                truncated=bool(res.truncated),
+                solve_s=round(_t.monotonic() - t_solve, 4),
+                fairness=result["fairness"],
+            )
+        # Oracle rounds with no recorder (no DeviceRound in hand) leave
+        # result["fairness"] None: _record_round computes the host-unit
+        # ledger_from_snapshot fallback for the live surfaces.
         if not shadow:
             self._emit_solve_spans(snap.pool, None, _t.monotonic() - t_solve)
         return result
@@ -2246,7 +2893,8 @@ class SchedulerService:
             preemptions.append(p)
         return {"ledger": resolved["ledger"], "preemptions": preemptions}
 
-    def _record_round(self, pool, snap, result, started, now=None):
+    def _record_round(self, pool, snap, result, started, indicative=None,
+                      idealised=None, realised=None, now=None):
         import numpy as np
 
         from ..solver.drf import unweighted_cost
@@ -2285,6 +2933,7 @@ class SchedulerService:
             termination_reason=result.get("termination_reason", ""),
             fairness_policy=self.fairness_policy(pool),
             spot_price=result.get("spot_price"),
+            indicative_prices=dict(indicative or {}),
         )
         sched_by_q = {}
         preempt_by_q = {}
@@ -2314,6 +2963,8 @@ class SchedulerService:
                 starved=bool(fr.get("starved", False)),
                 scheduled_jobs=sched_by_q.get(q, 0),
                 preempted_jobs=preempt_by_q.get(q, 0),
+                idealised_value=float((idealised or {}).get(name, 0.0)),
+                realised_value=float((realised or {}).get(name, 0.0)),
             )
         reasons = result.get("unschedulable_reason")
         if reasons is not None:
@@ -2328,10 +2979,15 @@ class SchedulerService:
             # Stamped with the CYCLE clock (virtual in the simulator),
             # the same time base as the transition entries — wall clock
             # here would misorder sim journeys.
-            self.timeline.note_round_reasons(
+            reason_totals = self.timeline.note_round_reasons(
                 pool, now if now is not None else finished,
                 report.job_reasons,
             )
+            if self.metrics is not None and self.metrics.registry is not None:
+                for reason, count in reason_totals.items():
+                    self.metrics.unschedulable_reason.labels(
+                        reason=reason
+                    ).inc(count)
             # Per-queue unschedulable-reason histogram (queue report depth).
             for j in range(snap.num_jobs):
                 if not reasons[j]:
@@ -2398,7 +3054,68 @@ class SchedulerService:
                 pool,
                 decorated,
                 now=now if now is not None else finished,
+                metrics=self.metrics,
+                slo=self.slo,
             )
+
+        if self.metrics is not None and self.metrics.registry is not None:
+            self.metrics.solve_time.labels(pool=pool).observe(finished - started)
+            self.metrics.considered_jobs.labels(pool=pool).set(snap.num_jobs)
+            for q, name in enumerate(snap.queue_names):
+                self.metrics.fair_share.labels(pool=pool, queue=name).set(
+                    float(result["demand_capped_fair_share"][q])
+                )
+                self.metrics.actual_share.labels(pool=pool, queue=name).set(
+                    float(actual[q])
+                )
+                if idealised or realised:
+                    self.metrics.idealised_value.labels(
+                        pool=pool, queue=name
+                    ).set(float((idealised or {}).get(name, 0.0)))
+                    self.metrics.realised_value.labels(
+                        pool=pool, queue=name
+                    ).set(float((realised or {}).get(name, 0.0)))
+                if sched_by_q.get(q):
+                    self.metrics.scheduled_jobs.labels(pool=pool, queue=name).inc(
+                        sched_by_q[q]
+                    )
+                if preempt_by_q.get(q):
+                    self.metrics.preempted_jobs.labels(pool=pool, queue=name).inc(
+                        preempt_by_q[q]
+                    )
+                    self.metrics.preempted_by_type.labels(
+                        pool=pool, type="round"
+                    ).inc(preempt_by_q[q])
+                # Demand by queue as dominant-share cost (cycle_metrics.go).
+                demand_cost = unweighted_cost(
+                    snap.queue_demand[q : q + 1].astype(float), total, mult
+                )
+                self.metrics.queue_demand.labels(pool=pool, queue=name).set(
+                    float(demand_cost[0])
+                )
+            for shape, pr in (indicative or {}).items():
+                ok = pr.evaluated and pr.schedulable
+                # NaN when unschedulable/unevaluated: a gauge left at its
+                # last price would read as a live quote on dashboards.
+                self.metrics.indicative_gang_price.labels(
+                    pool=pool, shape=shape
+                ).set(pr.price if ok else float("nan"))
+                self.metrics.indicative_gang_schedulable.labels(
+                    pool=pool, shape=shape
+                ).set(1.0 if ok else 0.0)
+            self.metrics.event_log_offset.set(self.log.end_offset)
+            self.metrics.ingester_lag.set(
+                max(0, self.log.end_offset - self.ingester.cursor)
+            )
+            if "num_loops" in result:
+                self.metrics.solve_loops.labels(pool=pool).set(
+                    int(result["num_loops"])
+                )
+            now_hb = _time.time()
+            for ex_name, hb in self.executors.items():
+                self.metrics.executor_heartbeat_age.labels(
+                    executor=ex_name
+                ).set(max(0.0, now_hb - hb.last_seen))
 
 
 def from_reference_checkpoint(cursor: int, state: dict):

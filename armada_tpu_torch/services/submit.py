@@ -54,11 +54,7 @@ class SubmitService:
                  slo=None):
         if frontdoor is not None:
             raise NotImplementedError(
-                "the front door waits for the server slice (ROADMAP A7.9)"
-            )
-        if slo is not None:
-            raise NotImplementedError(
-                "the SLO tracker waits for the server slice (ROADMAP A7.9)"
+                "the front door waits for the server slice (ROADMAP A3)"
             )
         self.config = config
         self.log = log
@@ -73,7 +69,7 @@ class SubmitService:
         # -> (healthy, reason); submissions are shed while the store is
         # backed up (the reference rejects work on etcd capacity).
         self.store_health = store_health
-        # Optional front door (armada_tpu/frontdoor): job submissions
+        # Optional front door (frontdoor/, the server slice): job submissions
         # route through per-tenant admission and a jobset-keyed shard WAL
         # (the ack point) instead of publishing straight to the log; the
         # shard ingesters deliver into the log exactly-once. Queue CRUD

@@ -15,8 +15,8 @@ WorkloadSpec{queues -> job templates with counts/sizes/arrival times}.
 
 This is the port's copy of the JAX package's sim/simulator.py; its
 kernel backend (the default) solves on `device` (the CUDA card unless
-the caller asks for the CPU). The YAML front end (sim/cli.py) waits for the server and
-CLI slice (ROADMAP A7.9).
+the caller asks for the CPU). The YAML front end (sim/cli.py) waits for
+the clients and CLI slice (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -126,27 +126,32 @@ class Simulator:
         # The device of every kernel-backend solve (SchedulerService's
         # `device`): the CUDA card unless the caller asks for the CPU.
         device=None,
+        # Flight recorder (trace/): append every scheduling round's
+        # DeviceRound inputs + decision stream to this .atrace bundle,
+        # seeds included, for deterministic replay.
+        trace_path: str | None = None,
+        # Span export (utils/tracing.py): write the run's cycle/round/
+        # solve-segment spans as OTLP-JSON lines to this path.
+        span_path: str | None = None,
+        # SLO tracking (services/slo.py): True attaches a tracker built
+        # from the config's declared SLOs (defaults when none), a
+        # prebuilt SLOTracker attaches as-is. Observations ride the
+        # sim's VIRTUAL clock, so burn windows mean virtual seconds.
+        slo=None,
         # The JAX package's options whose modules wait for a later slice;
         # each refuses anything but its default: data_dir (the
-        # file-backed log, ROADMAP A7.9), trace_path and span_path (the
-        # flight recorder and span export, A7.7), autotune and whatif
-        # (A7.8), frontdoor and slo (A7.9).
+        # file-backed log, ROADMAP A2), autotune and whatif (A1), frontdoor
+        # (the server slice, A3).
         data_dir: str | None = None,
-        trace_path: str | None = None,
-        span_path: str | None = None,
         autotune=False,
         whatif=False,
         frontdoor=None,
-        slo=None,
     ):
         for name, value, item in (
-            ("data_dir", data_dir, "A7.9"),
-            ("trace_path", trace_path, "A7.7"),
-            ("span_path", span_path, "A7.7"),
-            ("autotune", autotune, "A7.8"),
-            ("whatif", whatif, "A7.8"),
-            ("frontdoor", frontdoor, "A7.9"),
-            ("slo", slo, "A7.9"),
+            ("data_dir", data_dir, "A2"),
+            ("autotune", autotune, "A1"),
+            ("whatif", whatif, "A1"),
+            ("frontdoor", frontdoor, "A3"),
         ):
             if value:
                 raise NotImplementedError(
@@ -200,9 +205,44 @@ class Simulator:
                 self.scheduler.attach_solver_chaos(
                     SolverChaos(fault_plan, clock=self.chaos_clock)
                 )
+        self.slo = None
+        if slo:
+            from ..services.slo import SLOTracker
+
+            self.slo = (
+                slo
+                if not isinstance(slo, bool)
+                else SLOTracker.from_config(self.config)
+            )
+            self.scheduler.attach_slo(self.slo)
         self.submit = SubmitService(
-            self.config, self.log, scheduler=self.scheduler
+            self.config, self.log, scheduler=self.scheduler, slo=self.slo
         )
+        self.span_tracer = None
+        if span_path is not None:
+            from ..utils.tracing import OtlpJsonFileExporter, Tracer
+
+            open(span_path, "w").close()  # one run = one span file
+            self.span_tracer = Tracer(
+                exporter=OtlpJsonFileExporter(span_path, service_name="armada-tpu-sim"),
+                export_every=256,
+            )
+            self.scheduler.attach_tracer(self.span_tracer)
+        self.trace_recorder = None
+        if trace_path is not None:
+            from ..trace import TraceRecorder
+
+            seeds = {"workload_seed": seed}
+            if fault_plan is not None:
+                seeds["fault_plan_seed"] = getattr(fault_plan, "seed", None)
+            self.trace_recorder = TraceRecorder(
+                trace_path,
+                source="sim",
+                config=self.config,
+                seeds=seeds,
+                meta={"backend": backend, "cycle_interval": cycle_interval},
+            )
+            self.scheduler.attach_trace_recorder(self.trace_recorder)
 
         self._runtimes: dict[str, float] = {}
         self.executors: list[FakeExecutor] = []
@@ -275,6 +315,15 @@ class Simulator:
         self._pending_submissions.sort(key=lambda x: x[0])
 
     def run(self) -> SimResult:
+        try:
+            return self._run()
+        finally:
+            if self.trace_recorder is not None:
+                self.trace_recorder.close()
+            if self.span_tracer is not None:
+                self.span_tracer.flush()
+
+    def _run(self) -> SimResult:
         t = 0.0
         cycles = 0
         preemptions = 0

@@ -1,15 +1,16 @@
-"""Tracing hooks.
+"""Tracing and profiling hooks.
 
 Plays the role of internal/common/observability/ (OTel init, wired at
-schedulerapp.go:63-70): lightweight in-process spans with structured-log
-export (the span API is OTel-shaped).
+schedulerapp.go:63-70) and internal/common/profiling/ (the pprof HTTP
+endpoint): lightweight in-process spans with structured-log export (the
+span API is OTel-shaped), an OTLP/JSON file exporter, and a
+cProfile-based capture equivalent to pprof's CPU profile endpoint.
 
 Cross-process propagation is W3C Trace Context: `Span.traceparent`
 formats the header and `Tracer.span(remote_parent=...)` adopts one, so
 one trace id follows a job submit -> ingest -> round -> lease ->
-run-report. Span export to a file (the JAX package's
-OtlpJsonFileExporter) and the CPU profile capture wait for the flight
-recorder slice (ROADMAP A7.7).
+run-report. `Simulator(span_path=...)` exports a run's spans through
+OtlpJsonFileExporter.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def parse_traceparent(value: str | None) -> tuple[str, str] | None:
 # Per-thread registry of OPEN spans across every Tracer instance: the
 # logging layer (utils/logging.py) stamps the current trace id on every
 # record, and a process may run several tracers at once (the process
-# default plus any a caller makes) — log
+# default plus an exporter-attached one in the scheduler) — log
 # correlation must not care which instance opened the active span.
 _ACTIVE_SPANS = threading.local()
 
@@ -104,16 +105,102 @@ class Span:
         return format_traceparent(self.trace_id, self.span_id)
 
 
+class OtlpJsonFileExporter:
+    """Span exporter writing the OTLP/JSON `resourceSpans` shape, one
+    export batch per line (the reference initializes a real OTel
+    exporter at common/observability; here the sink is a file that any
+    OTLP file receiver or post-processor ingests)."""
+
+    def __init__(self, path: str, service_name: str = "armada-tpu"):
+        self.path = path
+        self.service_name = service_name
+        self._lock = threading.Lock()
+
+    def export(self, spans: list[Span]) -> None:
+        if not spans:
+            return
+        import json
+
+        payload = {
+            "resourceSpans": [
+                {
+                    "resource": {
+                        "attributes": [
+                            {
+                                "key": "service.name",
+                                "value": {"stringValue": self.service_name},
+                            }
+                        ]
+                    },
+                    "scopeSpans": [
+                        {
+                            "scope": {"name": "armada_tpu_torch.utils.tracing"},
+                            "spans": [
+                                {
+                                    "traceId": s.trace_id,
+                                    "spanId": s.span_id,
+                                    "parentSpanId": s.parent_id,
+                                    "name": s.name,
+                                    "kind": 1,  # SPAN_KIND_INTERNAL
+                                    "startTimeUnixNano": str(s.start_unix_ns),
+                                    "endTimeUnixNano": str(
+                                        s.start_unix_ns
+                                        + int(s.duration_s * 1e9)
+                                    ),
+                                    "attributes": [
+                                        {
+                                            "key": k,
+                                            "value": {"stringValue": str(v)},
+                                        }
+                                        for k, v in s.attrs.items()
+                                    ],
+                                }
+                                for s in spans
+                            ],
+                        }
+                    ],
+                }
+            ]
+        }
+        line = json.dumps(payload) + "\n"
+        with self._lock:
+            with open(self.path, "a") as f:
+                f.write(line)
+
+
 class Tracer:
     """Per-process tracer: span stack per thread, ring buffer of finished
-    spans, optional logger export."""
+    spans, optional logger export, optional OTLP exporter (batched;
+    flushed every `export_every` finished spans or on flush())."""
 
-    def __init__(self, logger=None, keep: int = 1024):
+    def __init__(self, logger=None, keep: int = 1024, exporter=None,
+                 export_every: int = 64, export_interval_s: float = 10.0,
+                 max_pending: int | None = None):
         self.logger = logger
         self.keep = keep
+        self.exporter = exporter
+        self.export_every = export_every
+        # Time-based flush: low-traffic processes must not hold spans
+        # hostage to the batch size (and atexit drains the final batch).
+        self.export_interval_s = export_interval_s
+        # A raising exporter must not grow _pending without bound while
+        # it stays down: failed batches are retried on later flushes but
+        # capped here (oldest dropped first; the `finished` ring buffer
+        # stays the authoritative in-process record either way).
+        self.max_pending = (
+            max_pending if max_pending is not None else max(keep, 8 * export_every)
+        )
+        self._export_warned = False
+        self.export_failures = 0
+        self._last_flush = time.monotonic()
         self.finished: list[Span] = []
+        self._pending: list[Span] = []
         self._local = threading.local()
         self._lock = threading.Lock()
+        if exporter is not None:
+            import atexit
+
+            atexit.register(self.flush)
 
     def _stack(self):
         if not hasattr(self._local, "stack"):
@@ -188,7 +275,7 @@ class Tracer:
         profile's setup/pass1/gather/finish segments, measured inside the
         kernel driver and emitted as children of the round span after the
         solve returns). Timestamps are the caller's; the span lands in
-        the ring buffer like any other."""
+        the ring buffer and export batch like any other."""
         import secrets
 
         now = time.monotonic()
@@ -211,6 +298,46 @@ class Tracer:
             self.finished.append(s)
             if len(self.finished) > self.keep:
                 del self.finished[: len(self.finished) - self.keep]
+            flush_now = False
+            if self.exporter is not None:
+                self._pending.append(s)
+                flush_now = (
+                    len(self._pending) >= self.export_every
+                    or time.monotonic() - self._last_flush
+                    >= self.export_interval_s
+                )
+        if flush_now:
+            self.flush()
+
+    def flush(self) -> None:
+        """Export pending spans (batch-size/interval triggers, atexit).
+        Exporter failures never propagate to the traced code path: the
+        batch is re-queued for a later flush, bounded by max_pending."""
+        if self.exporter is None:
+            return
+        with self._lock:
+            batch, self._pending = self._pending, []
+            self._last_flush = time.monotonic()
+        if not batch:
+            return
+        try:
+            self.exporter.export(batch)
+        except Exception as e:  # noqa: BLE001 - observability must not fail work
+            self.export_failures += 1
+            with self._lock:
+                requeued = batch + self._pending
+                self._pending = requeued[-self.max_pending:]
+            if not self._export_warned:
+                self._export_warned = True
+                import logging
+
+                logging.getLogger("armada_tpu_torch.tracing").warning(
+                    "span exporter failed (%r); retrying on later flushes, "
+                    "pending capped at %d spans (ring buffer unaffected). "
+                    "Further failures are silent.",
+                    e,
+                    self.max_pending,
+                )
 
     def summary(self) -> dict:
         """Aggregate durations by span name (count, total, max)."""
@@ -249,3 +376,18 @@ def add_segment_spans(tracer: Tracer, parent, start_unix_ns: int,
                         duration_s=dur, parent=parent, **attrs)
         at += int(dur * 1e9)
     return at
+
+
+@contextlib.contextmanager
+def profile_cpu(path: str):
+    """Capture a CPU profile to `path` (pprof StartCPUProfile analogue);
+    readable with pstats / snakeviz."""
+    import cProfile
+
+    profiler = cProfile.Profile()
+    profiler.enable()
+    try:
+        yield profiler
+    finally:
+        profiler.disable()
+        profiler.dump_stats(path)

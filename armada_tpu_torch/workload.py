@@ -27,10 +27,17 @@ the decisions against the host mirror.
 control plane: the bench's queued jobs submitted through the submit
 service into an event log, and a scheduler service fed that log, with
 fake executors reporting the nodes, cycle after cycle.
+
+`MarketServiceRun` drives a market pool the same way: the jobs of
+`parallel/scenarios.market_inputs` submitted through the submit service,
+with the market's post-round seams on (the optimiser, indicative prices
+of two gang shapes, the idealised value) and a bid provider
+(`StepBidProvider`) whose band-B price rises after a given fetch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -478,3 +485,135 @@ def sim_history(result) -> dict:
         "preemptions": result.preemptions,
         "finished": result.finished_jobs,
     }
+
+
+# The gang shapes a market service quotes every round, and the share of
+# its single jobs that bid through price band B (every BAND_B_EVERY-th).
+MARKET_GANG_SHAPES = {
+    "gang-2x4cpu": {"size": 2, "resources": {"cpu": "4", "memory": "4Gi"}},
+    "gang-8x2cpu": {"size": 8, "resources": {"cpu": "2", "memory": "2Gi"}},
+}
+BAND_B_EVERY = 8
+
+
+def market_service_config(kernel_path="cuda"):
+    """The market pool's config (`parallel/scenarios.market_config`) with
+    the post-round seams on: the optimiser, indicative prices of
+    MARKET_GANG_SHAPES with a deadline no shape reaches, and the solve
+    kernel path."""
+    from .core.config import GangDefinition, OptimiserConfig
+    from .parallel.scenarios import market_config
+
+    return dataclasses.replace(
+        market_config(),
+        gangs_to_price={name: GangDefinition(**shape) for name, shape in MARKET_GANG_SHAPES.items()},
+        gang_pricing_timeout_s=3600.0,
+        optimiser=OptimiserConfig(enabled=True),
+        solve_kernel_path=kernel_path,
+    )
+
+
+class StepBidProvider:
+    """A bid provider quoting band B of every queue in `pool`: `low` for
+    the first `raise_after` fetches, `high` after them. Deterministic, so
+    two services fed by two such providers see the same prices."""
+
+    def __init__(self, queues, pool, low=5.0, high=12.0, raise_after=2):
+        self.queues = list(queues)
+        self.pool = pool
+        self.low, self.high, self.raise_after = low, high, raise_after
+        self.fetches = 0
+
+    def get_bid_prices(self):
+        from .services.pricing import PRICE_BANDS, Bid, BidPriceSnapshot
+
+        self.fetches += 1
+        price = self.low if self.fetches <= self.raise_after else self.high
+        return BidPriceSnapshot(
+            id=f"band-b-{price}", timestamp=float(self.fetches),
+            bids={(q, PRICE_BANDS["B"]): {self.pool: Bid(price, price)} for q in self.queues},
+        )
+
+
+class MarketServiceRun:
+    """A market-pool scheduler service on `backend` ("kernel" on `device`,
+    the card unless the caller asks for the CPU, with its solve kernel
+    path set to `kernel_path`; or "oracle"), fed the queued jobs of
+    `market_inputs(n_nodes, n_jobs)` through the submit service (one
+    submit per queue; every BAND_B_EVERY-th single job bids through
+    price band B, the rest keep their own bids) and a StepBidProvider,
+    with `n_executors` fake executors reporting `n_nodes` nodes of 16 cpu
+    / 64Gi in pool "market". `cycle()` ticks the executors, runs one
+    cycle at the virtual time `now`, advances it by `interval`, and
+    returns the cycle's leases, preemptions, wall seconds, the service's
+    `last_cycle_stats` and the round's market report: spot price,
+    indicative prices by shape, idealised and realised value by queue,
+    and the jobs the cycle's bid refresh re-priced."""
+
+    def __init__(self, n_nodes, n_jobs, *, kernel_path="cuda", backend="kernel", device=None,
+                 n_executors=2, runtime=3600.0, interval=10.0):
+        from .events import InMemoryEventLog
+        from .parallel.scenarios import market_inputs
+        from .services.fake_executor import FakeExecutor, make_nodes
+        from .services.pricing import PRICE_BAND_ANNOTATION
+        from .services.scheduler import SchedulerService
+        from .services.submit import SubmitService
+
+        _, self.pool, _, queues, _, queued = market_inputs(n_nodes, n_jobs)
+        cfg = market_service_config(kernel_path)
+        log = InMemoryEventLog()
+        self.provider = StepBidProvider([q.name for q in queues], self.pool)
+        self.sched = SchedulerService(cfg, log, backend=backend, device=device,
+                                      bid_price_provider=self.provider)
+        submit = SubmitService(cfg, log, scheduler=self.sched)
+        for q in queues:
+            submit.create_queue(q)
+        by_queue: dict[str, list] = {}
+        for i, job in enumerate(queued):
+            if job.gang is None and i % BAND_B_EVERY == 3:
+                job = job.with_(annotations={PRICE_BAND_ANNOTATION: "B"})
+            by_queue.setdefault(job.queue, []).append(job)
+        t0 = time.perf_counter()
+        for name, jobs in by_queue.items():
+            submit.submit(name, "market", jobs, now=0.0)
+        self.submit_s = time.perf_counter() - t0
+        per = n_nodes // n_executors
+        self.executors = [
+            FakeExecutor(f"executor-{k}", log, self.sched,
+                         nodes=make_nodes(f"executor-{k}", count=per, pool=self.pool,
+                                          cpu="16", memory="64Gi"),
+                         runtime_for=lambda job_id: runtime)
+            for k in range(n_executors)
+        ]
+        self.now = 0.0
+        self.interval = interval
+
+    def cycle(self) -> dict:
+        from .events import JobRunLeased, JobRunPreempted
+
+        for ex in self.executors:
+            ex.tick(self.now)
+        t0 = time.perf_counter()
+        seqs = self.sched.cycle(now=self.now)
+        cycle_s = time.perf_counter() - t0
+        self.now += self.interval
+        events = [e for seq in seqs for e in seq.events]
+        report = self.sched.reports.latest_reports()[self.pool]
+        return {
+            "leases": sorted((e.job_id, e.executor, e.node_id)
+                             for e in events if isinstance(e, JobRunLeased)),
+            "preempted": sorted(e.job_id for e in events if isinstance(e, JobRunPreempted)),
+            "cycle_s": cycle_s,
+            "stats": dict(self.sched.last_cycle_stats),
+            "market": {
+                "spot_price": report.spot_price,
+                "indicative": {
+                    name: dataclasses.asdict(r) for name, r in sorted(report.indicative_prices.items())
+                },
+                "values": {
+                    q: (r.idealised_value, r.realised_value) for q, r in sorted(report.queues.items())
+                },
+                "repriced": self.sched.bids_repriced,
+            },
+        }
+

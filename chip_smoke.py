@@ -6,7 +6,16 @@ Drives armada_tpu_torch's main path, one scheduling round as the
 scheduler runs it (build_round_snapshot -> prep_device_round ->
 pad_device_round -> solve_round -> validate_round), on the card, and holds
 every hand-written CUDA kernel of that path against its plain torch
-version. Phases, each printing one JSON line with its seconds:
+version. Phases, each printing one JSON line with its seconds. Every
+phase after the kernels' is bound by the host, the card idle most of the
+time, so after phase 3 a second process on the same card (`SidePhases`)
+runs phases 10, 12 and 13, which need nothing of the others, while this
+one runs 4 to 7, 9 and 11; phase 8 runs alone once the side process has
+ended (its ring kernel spins across four processes' contexts, and its
+times would count a fifth one's work). Launch counts are per process,
+set to 0 and read within each run as before. The side's lines are
+printed when it ends, then one line of each process's peak reserved
+device memory.
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
 2. build: the nvcc build of armada_tpu_torch/csrc/ (one nvcc per source,
@@ -119,10 +128,11 @@ version. Phases, each printing one JSON line with its seconds:
    launches.
 10. market: market_round(128, 8192) (market_scarce: the spot price set,
    jobs preempted) and market_round(2048, 8192) (market_fleet, the market
-   round of mixed_fleet_rounds(16384, 65536)), each on one device with
-   "cuda" bit-equal to "lax" and no kernel launched (a market round takes
-   no fill), then on a 2x2 mesh of shard threads held to the single
-   device, with 2 x selects x 4 shards winner_reduce launches.
+   round of mixed_fleet_rounds(16384, 65536)), each on one device on
+   "cuda" with no kernel launched (a market round takes no fill, and the
+   kernel path chooses only the fill's kernels), then on a 2x2 mesh of
+   shard threads held to the single device, with 2 x selects x 4 shards
+   winner_reduce launches.
 11. warm: the warm scheduling cycle as bench.py runs it
    (`workload.WarmCycle`: an IncrementalRound takes last round's leases
    and as many fresh submits, a ResidentRound delta-syncs the padded round
@@ -157,7 +167,7 @@ version. Phases, each printing one JSON line with its seconds:
    no drift after the last; both fill kernels launched by the "cuda"
    service (counts set to 0 before it, read after) and none by "lax".
    service_flagship, the flagship's 1,000,000 queued jobs on 50,000
-   nodes, one "cuda" service, 1 cold and 3 warm cycles, the same checks.
+   nodes, one "cuda" service, 1 cold and 1 warm cycle, the same checks.
    sim_differential, the JAX package's differential simulation
    (`workload.sim_workload`, seed 0) through the port's Simulator on the
    card: the kernel history equal to the oracle's, no failover, both
@@ -167,7 +177,31 @@ version. Phases, each printing one JSON line with its seconds:
    later on local:cuda, and the history is that of an oracle run with
    the same fault on its one rung. Prints per cycle the jobs leased
    and preempted, snapshot, sync, solve and cycle seconds, the sync mode
-   and bytes, and per run the submit and ingest microseconds a job.
+   and bytes, the round's compile delta (no kernel library built or
+   loaded in a warm cycle), and per run the submit and ingest
+   microseconds a job.
+13. observatory: the round observatory and the market pool's post-round
+   seams (`phase_observatory`). fixture_replay, the committed bundle the
+   JAX package recorded (tests/fixtures/sim_steady.atrace) replayed by
+   the port under LOCAL ("cuda"), "lax" and hotwindow:64 (compacted, on
+   "cuda"), one replay each: zero divergences, both fill kernels launched
+   by LOCAL and by hotwindow:64, none by "lax". recorded_service,
+   service_100k's "cuda" service with a TraceRecorder, the metrics and
+   an SLOTracker attached, 1 cold and 2 warm cycles: every round in the
+   bundle, no kernel library built or loaded in a warm cycle, the bundle
+   replayed under LOCAL and "lax" with zero divergences and no build;
+   bytes and recording seconds a round, alloc_segments a cycle, the SLO
+   burn rates. market_service, `workload.MarketServiceRun` at
+   market_round(128, 8192) on the card ("cuda") and on the host oracle,
+   fed the same events (the optimiser on, two gang shapes priced, band
+   B's bid raised after the second fetch), 1 cold and 2 warm cycles:
+   equal leases, preemptions, spot prices, indicative prices (none timed
+   out), idealised and realised values, and the third cycle's refresh
+   re-prices jobs. A market round's window is 0, so the card's service
+   launches no fill kernel. postmortem, phase 12's
+   faulted kernel simulation with a recorder: the rejected round's
+   postmortem bundle replays on "cuda" with zero divergences and its
+   replayed solve passes the round firewall.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -188,7 +222,8 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 (`launches_warm_cycles`, phase 11's measured cycles) and phase 12's
 (`launches_service_100k`, the "cuda" service's five cycles;
 `launches_service_flagship`; `launches_sim_kernel`, the clean kernel
-simulation) beside them; times
+simulation) and phase 13's summed (`launches_observatory`) beside them;
+times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
 and found included) and the ring's at n = 4, K = 3 (and at n = 2,
@@ -1190,10 +1225,12 @@ def phase_market():
       a spot price is set, and jobs are preempted;
     - market_fleet, market_round(2048, 8192), the market round of
       mixed_fleet_rounds(16384, 65536).
-    Each on one device, "cuda" bit-equal to "lax", where it launches no
-    kernel of the port (a market round takes no fill: prep sets its
-    window to 0), then on a 2x2 mesh of shard threads held to the single
-    device, with both stages of every select through winner_reduce."""
+    Each on one device on "cuda", where it launches no kernel of the port
+    (a market round takes no fill: prep sets its window to 0, and the
+    kernel path chooses only the fill's kernels, so "lax" would run the
+    same operations), then on a 2x2 mesh of shard threads held to the
+    single device, with both stages of every select through
+    winner_reduce."""
     from armada_tpu_torch.parallel.scenarios import market_round
     from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
 
@@ -1203,14 +1240,12 @@ def phase_market():
         snap = market_round(n_nodes, n_jobs)
         dev = pad_device_round(prep_device_round(snap))
         rows = int(snap.num_jobs)
-        r, outs = solve_paths(dev, ("cuda", "lax"), rows,
+        r, outs = solve_paths(dev, ("cuda",), rows,
                               {"nodes": n_nodes, "jobs": n_jobs, "host_prep_s": time.time() - t0},
                               required=())
         if dev.batch_window != 0 or any(r["cuda_cold_launches"].values()):
             raise AssertionError(f"{label}: a kernel launched in a market round on one device "
                                  f"({r['cuda_cold_launches']})")
-        assert_same_outputs(outs["cuda"], outs["lax"], f"{label}: the cuda and lax paths")
-        r["cuda_equals_lax"] = True
         spot = float(outs["cuda"]["spot_price"])
         r["spot_price"] = None if spot != spot else spot  # NaN: the cutoff was not crossed
         rec[label] = r
@@ -1395,7 +1430,14 @@ def require_fill_launches(launches, label):
 
 
 SERVICE_WARM_CYCLES = 4  # service_100k: warm cycles after the cold one, each service
-FLAGSHIP_SERVICE_WARM_CYCLES = 3  # service_flagship
+FLAGSHIP_SERVICE_WARM_CYCLES = 1  # service_flagship (cut from 3 for the time limit)
+
+
+def _require_warm(compiles, label):
+    """A warm cycle builds and loads no kernel library."""
+    if compiles is None or compiles["compiles"] or compiles["traces"]:
+        raise AssertionError(f"{label}: a warm round built or loaded a kernel library "
+                             f"({compiles})")
 
 
 def _service_run(cfg, entries, n_nodes, kernel_path, cycles, label):
@@ -1423,6 +1465,8 @@ def _service_run(cfg, entries, n_nodes, kernel_path, cycles, label):
         if i and (st["snapshot_mode"] != "resident" or st["sync"]["mode"] != "delta"):
             raise AssertionError(f"{label} cycle {i}: {st['snapshot_mode']} round, "
                                  f"sync {(st['sync'] or {}).get('mode')}")
+        if i:
+            _require_warm(st["compiles"], f"{label} cycle {i}")
         if not rec["leases"]:
             raise AssertionError(f"{label} cycle {i}: nothing leased")
     sched = run.sched
@@ -1444,6 +1488,7 @@ def _service_run(cfg, entries, n_nodes, kernel_path, cycles, label):
             "sync": (r["stats"]["sync"] or {}).get("mode"),
             "bytes_up": (r["stats"]["sync"] or {}).get("bytes_up"),
             "rung": r["stats"]["rung"], "jobs": r["stats"]["jobs"],
+            "compiles": r["stats"]["compiles"],
         } for r in records],
     }
     history = [(r["leases"], r["preempted"]) for r in records]
@@ -1546,36 +1591,295 @@ def phase_service():
     return rec
 
 
-def main() -> int:
+OBSERVATORY_CYCLES = 3  # 1 cold and 2 warm, in the recorded and market services
+MARKET_SERVICE_NODES, MARKET_SERVICE_JOBS = 128, 8192  # market_round(128, 8192)
+FIXTURE = os.path.join(HERE, "tests", "fixtures", "sim_steady.atrace")
+
+
+def _replay(path, solvers, label, **kw):
+    """replay_trace of one bundle on the card with the compile delta of
+    the whole replay; zero divergences of any class required."""
+    from armada_tpu_torch.observe.compiles import TELEMETRY
+    from armada_tpu_torch.trace import load_trace, replay_trace
+
+    t0 = time.time()
+    trace = load_trace(path)
+    comp0 = TELEMETRY.thread_snapshot()
+    report = replay_trace(trace, solvers=solvers, **kw)
+    compiles = TELEMETRY.delta_since(comp0, thread=True)
+    if not report["ok"] or report["divergences"]:
+        bad = [r for r in report["results"] if r["divergences"]][:3]
+        raise AssertionError(f"{label}: replay diverged {report['divergences']}: {bad}")
+    return {"rounds": report["rounds"], "skipped": report["skipped"], "solvers": list(solvers),
+            "replay_s": [r["replay_s"] for r in report["results"]], "compiles": compiles,
+            "seconds": time.time() - t0}
+
+
+def phase_observatory(tmp):
+    """The round observatory and the market pool's post-round seams on
+    the card, bundles under `tmp`:
+    - fixture_replay: the committed bundle the JAX package recorded
+      (tests/fixtures/sim_steady.atrace: 6 rounds, x64, fill window 2)
+      replayed by the port's replayer under LOCAL (the "cuda" path), "lax"
+      and hotwindow:64 (compacted, on "cuda") with allow_foreign, one
+      replay each: zero divergences of any class, both fill kernels
+      launched by LOCAL and by hotwindow:64, none by "lax";
+    - recorded_service: phase 12's service_100k "cuda" service with a
+      TraceRecorder, the metrics registry (None without
+      prometheus_client) and an SLOTracker attached, 1 cold and 2 warm
+      cycles: the bundle holds every round; no kernel library built or
+      loaded in a warm cycle; the bundle replays under LOCAL and "lax"
+      with zero divergences (a build on a replayed shape would be a
+      `retrace` one) and no build or load; bytes and recording seconds a
+      round, alloc_segments a cycle, the SLO burn rates;
+    - market_service: workload.MarketServiceRun (market_round(128,
+      8192)'s jobs submitted through the SubmitService, two executors of
+      64 nodes of 16 cpu / 64Gi, the optimiser on, two gang shapes priced,
+      band B's bid raised after the second fetch) on the "kernel" backend
+      ("cuda") and on the host oracle, an independent solver, 1 cold and
+      2 warm cycles each: equal leases, preemptions, spot prices,
+      indicative prices (none timed out), idealised and realised values
+      cycle by cycle, and the third cycle's bid refresh re-prices jobs;
+    - postmortem: phase 12's kernel simulation with one solver_raise on
+      local:cuda, with a TraceRecorder attached: the rejected round leaves
+      a single-round postmortem bundle in the quarantine directory,
+      which replays on "cuda" with zero divergences (a raised solve has no
+      decision stream; the replayed solve passes the round firewall on
+      the bundle's own round), and the run's bundle replays on LOCAL.
+    Launch counts are set to 0 before each run and read after it."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.services.chaos import FaultPlan, FaultSpec
+    from armada_tpu_torch.services.metrics import SchedulerMetrics
+    from armada_tpu_torch.services.slo import SLOTracker
+    from armada_tpu_torch.sim import Simulator
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.validate import validate_round
+    from armada_tpu_torch.trace import TraceRecorder, load_trace
+    from armada_tpu_torch.workload import (
+        MarketServiceRun,
+        ServiceRun,
+        sim_workload,
+        submit_events,
+    )
+
+    rec = {}
+    launches = {name: 0 for name in K.KERNELS}
+
+    def count(label, required=()):
+        got = dict(K.LAUNCHES)
+        for name in launches:
+            launches[name] += got[name]
+        for name in required:
+            if not got[name]:
+                raise AssertionError(f"{label}: {name} was not launched ({got})")
+        return got
+
+    t0 = time.time()
+    fixture = {}
+    for solver in ("LOCAL", "lax", "hotwindow:64"):
+        K.reset_launches()
+        label = f"fixture_replay {solver}"
+        fixture[solver] = _replay(FIXTURE, (solver,), label, allow_foreign=True)
+        fixture[solver]["launches"] = count(
+            label, () if solver == "lax" else ("score_nodes", "fill_take"))
+        if solver == "lax" and any(fixture[solver]["launches"].values()):
+            raise AssertionError(f"{label}: the lax path launched a kernel")
+    fixture["seconds"] = time.time() - t0
+    rec["fixture_replay"] = fixture
+
+    t0 = time.time()
+    cfg, entries, _ = submit_events(100_000)
+    path = os.path.join(tmp, "service_100k.atrace")
+    K.reset_launches()
+    run = ServiceRun(cfg, entries, 5000, kernel_path="cuda")
+    del entries
+    recorder = TraceRecorder(path, source="scheduler", config=run.sched.config)
+    record_s, record_bytes = [], []
+    record_round = recorder.record_round
+
+    def timed_record(**kw):
+        t1, b1 = time.perf_counter(), recorder.bytes_written
+        out = record_round(**kw)
+        record_s.append(time.perf_counter() - t1)
+        record_bytes.append(recorder.bytes_written - b1)
+        return out
+
+    recorder.record_round = timed_record
+    run.sched.attach_trace_recorder(recorder)
+    run.sched.attach_metrics(SchedulerMetrics())
+    slo = SLOTracker()
+    run.sched.attach_slo(slo)
+    cycles = []
+    for i in range(OBSERVATORY_CYCLES):
+        r = run.cycle()
+        st = r["stats"]
+        if st["rung"] != "local:cuda" or st["failover"] is not None or not r["leases"]:
+            raise AssertionError(f"recorded_service cycle {i}: {st['rung']}, {st['failover']}")
+        if i:
+            _require_warm(st["compiles"], f"recorded_service cycle {i}")
+        cycles.append({"leased": len(r["leases"]), "cycle_s": r["cycle_s"],
+                       "solve_s": st["solve_s"], "compiles": st["compiles"]})
+    service_launches = count("recorded_service", ("score_nodes", "fill_take"))
+    recorder.close()
+    if recorder.rounds_recorded != OBSERVATORY_CYCLES or len(record_s) != OBSERVATORY_CYCLES:
+        raise AssertionError(f"recorded_service: {recorder.rounds_recorded} rounds recorded "
+                             f"of {OBSERVATORY_CYCLES}")
+    if len(load_trace(path).rounds) != OBSERVATORY_CYCLES:
+        raise AssertionError("recorded_service: the bundle does not hold every round")
+    now = run.now
+    slo_doc = slo.snapshot(now=now)
+    del run
+    K.reset_launches()
+    replay = _replay(path, ("LOCAL", "lax"), "recorded_service replay")
+    _require_warm(replay["compiles"], "recorded_service replay")
+    replay["launches"] = count("recorded_service replay", ("score_nodes", "fill_take"))
+    rec["recorded_service"] = {
+        "cycles": cycles, "launches": service_launches,
+        "bundle_bytes": os.path.getsize(path), "bytes_per_round": record_bytes,
+        "record_s_per_round": record_s, "replay": replay,
+        "slo": {s["name"]: {"observed": s["observed"], "compliance": s["compliance"],
+                            "burn": s.get("burn")} for s in slo_doc["slos"]},
+        "seconds": time.time() - t0,
+    }
+
+    t0 = time.time()
+    hist, market = {}, {}
+    for backend, rung in (("kernel", "local:cuda"), ("oracle", "oracle")):
+        K.reset_launches()
+        t1 = time.time()
+        run = MarketServiceRun(MARKET_SERVICE_NODES, MARKET_SERVICE_JOBS, backend=backend,
+                               kernel_path="cuda")
+        recs = [run.cycle() for _ in range(OBSERVATORY_CYCLES)]
+        label = f"market_service/{backend}"
+        for i, r in enumerate(recs):
+            st = r["stats"]
+            if st["rung"] != rung or st["failover"]:
+                raise AssertionError(f"{label} cycle {i}: {st['rung']}")
+            if not all(s["evaluated"] for s in r["market"]["indicative"].values()):
+                raise AssertionError(f"{label} cycle {i}: a gang shape timed out")
+            if i and backend == "kernel":
+                _require_warm(st["compiles"], f"{label} cycle {i}")
+        if not recs[0]["leases"] or recs[-1]["market"]["repriced"] <= 0:
+            raise AssertionError(f"{label}: leased {len(recs[0]['leases'])}, "
+                                 f"re-priced {recs[-1]['market']['repriced']}")
+        hist[backend] = [(r["leases"], r["preempted"], r["market"]) for r in recs]
+        market[backend] = {
+            "submit_s": run.submit_s, "launches": count(label),
+            "cycles": [{"leased": len(r["leases"]), "preempted": len(r["preempted"]),
+                        "cycle_s": r["cycle_s"], "solve_s": r["stats"]["solve_s"],
+                        "post_round_s": r["stats"]["post_round_s"], **r["market"]}
+                       for r in recs],
+            "seconds": time.time() - t1,
+        }
+        del run
+    if hist["kernel"] != hist["oracle"]:
+        raise AssertionError("market_service: the card's service and the host oracle's differ")
+    market["kernel_equals_oracle"] = True
+    market["seconds"] = time.time() - t0
+    rec["market_service"] = market
+
+    t0 = time.time()
+    clusters, spec, cfg = sim_workload()
+    K.reset_launches()
+    sim = Simulator(clusters, spec, config=cfg, backend="kernel", seed=0, max_time=5000.0,
+                    fault_plan=FaultPlan([FaultSpec("solver_raise", "local:cuda", count=1)]),
+                    trace_path=os.path.join(tmp, "sim_fault.atrace"))
+    sim.scheduler.quarantine_dir = os.path.join(tmp, "quarantine")
+    res = sim.run()
+    failovers = list(sim.scheduler.recent_failovers)
+    if [(f["from"], f["to"], f["cause"]) for f in failovers] != [("local:cuda", "rejected", "raise")]:
+        raise AssertionError(f"postmortem: failovers {failovers}")
+    bundle = failovers[0].get("bundle")
+    if not bundle or not os.path.exists(bundle):
+        raise AssertionError("postmortem: the rejected round left no bundle")
+    sim_launches = count("postmortem simulation", ("score_nodes", "fill_take"))
+    (round_,) = load_trace(bundle).rounds
+    pm_replay = _replay(bundle, ("cuda",), "postmortem replay")
+    dev = round_.device_round()
+    out = solve_round(dev)
+    violation = validate_round(out, dev=dev)
+    if violation is not None:
+        raise AssertionError(f"postmortem: the replayed round is rejected: {violation}")
+    sim_replay = _replay(os.path.join(tmp, "sim_fault.atrace"), ("LOCAL",), "postmortem sim replay")
+    count("postmortem replays")
+    rec["postmortem"] = {
+        "finished": res.finished_jobs, "cycles": res.cycles, "launches": sim_launches,
+        "bundle": os.path.basename(bundle), "bundle_bytes": os.path.getsize(bundle),
+        "bundle_jobs": round_.num_jobs, "replay": pm_replay,
+        "replayed_scheduled": int(out["scheduled_mask"].sum()), "sim_replay": sim_replay,
+        "seconds": time.time() - t0,
+    }
+    rec["launches"] = launches
+    return rec
+
+
+SIDE_PHASES = ("market", "service", "observatory")  # phases 10, 12 and 13
+SIDE_TIMEOUT_S = 1000.0
+
+
+def side_main(out_path) -> int:
+    """Phases 10, 12 and 13 in a process of their own on the card, each
+    printing its phase line; writes their records and this process's
+    peak reserved device memory to `out_path`. They need nothing of the
+    other phases, and every phase is host-bound, so the two processes
+    share the card's idle time."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 2
     from armada_tpu_torch.device import resolve_device
-    from armada_tpu_torch.ops import kernels as K
 
     resolve_device()
-    t0 = time.time()
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "seconds": time.time() - t0})
 
-    t0 = time.time()
-    ptxas = ptxas_start()
-    libs = K.build_all()
-    emit({"phase": "build", "libraries": libs, "seconds": time.time() - t0})
-    ptxas = ptxas_finish(ptxas)
+    def observatory():
+        with tempfile.TemporaryDirectory(prefix="observatory-") as tmp:
+            return phase_observatory(tmp)
 
-    t0 = time.time()
-    checks, timing = phase_kernels()
-    wchecks, timing["winner_reduce"] = phase_winner()
-    floor_ms = floor_device_ms()
-    emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
-          "floor_device_ms": floor_ms, "seconds": time.time() - t0})
+    rec = {}
+    for name, fn in zip(SIDE_PHASES, (phase_market, phase_service, observatory)):
+        t0 = time.time()
+        rec[name] = fn()
+        emit({"phase": name, **rec[name], "seconds": time.time() - t0})
+    rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
 
+
+class SidePhases:
+    """`side_main` in a child interpreter, started at construction. Its
+    phase lines go to a file under `tmp` and are printed by `finish`, so
+    they never interleave with this process's lines; its log goes to this
+    process's standard error."""
+
+    def __init__(self, tmp):
+        self.out_path = os.path.join(tmp, "side.json")
+        self.log_path = os.path.join(tmp, "side.out")
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"sys.exit(chip_smoke.side_main({self.out_path!r}))")
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, cwd=HERE)
+
+    def finish(self) -> dict:
+        """Waits for the side process, prints its phase lines and returns
+        its records; raises if it failed."""
+        rc = self.proc.wait(timeout=SIDE_TIMEOUT_S)
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        if rc != 0:
+            raise AssertionError(f"the side process (phases {', '.join(SIDE_PHASES)}) "
+                                 f"exited with code {rc}")
+        with open(self.out_path) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def main_phases(timing, side):
+    """Phases 4 to 7, 9 and 11 in this process while `side` runs 10, 12
+    and 13, then phase 8 alone; returns their records and the side's."""
     t0 = time.time()
     res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"))
     assert_same_outputs(outs["cuda"], outs["lax"], "round: the cuda and lax paths")
@@ -1644,6 +1948,19 @@ def main() -> int:
     emit({"phase": "sharded", **sharded, "seconds": time.time() - t0})
 
     t0 = time.time()
+    policies = phase_policies(dev_flag, flag, dev_fast, fast, dev_100k_fast)
+    del dev_flag, dev_fast, dev_100k_fast
+    emit({"phase": "policies", **policies, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    warm = phase_warm()
+    emit({"phase": "warm", **warm, "seconds": time.time() - t0})
+
+    # The ring drive times a kernel that spins across four processes'
+    # contexts on the card, so it runs once the side process has ended.
+    side_rec = side.finish()
+
+    t0 = time.time()
     multiproc = phase_multiproc(
         dev_gangs, gang_outs["cuda"], gangs["readback_rows"],
         sharded["gangs_100k"]["collective_stats"],
@@ -1651,23 +1968,49 @@ def main() -> int:
     del gang_outs, dev_gangs
     timing["ring_exchange"] = ring_timing(multiproc)
     emit({"phase": "multiproc", **multiproc, "seconds": time.time() - t0})
+    return res, flag, fast, driver, sharded, multiproc, policies, warm, side_rec
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from armada_tpu_torch.device import resolve_device
+    from armada_tpu_torch.ops import kernels as K
+
+    resolve_device()
+    t0 = time.time()
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "seconds": time.time() - t0})
 
     t0 = time.time()
-    policies = phase_policies(dev_flag, flag, dev_fast, fast, dev_100k_fast)
-    del dev_flag, dev_fast, dev_100k_fast
-    emit({"phase": "policies", **policies, "seconds": time.time() - t0})
+    ptxas = ptxas_start()
+    libs = K.build_all()
+    emit({"phase": "build", "libraries": libs, "seconds": time.time() - t0})
+    ptxas = ptxas_finish(ptxas)
 
     t0 = time.time()
-    market = phase_market()
-    emit({"phase": "market", **market, "seconds": time.time() - t0})
+    checks, timing = phase_kernels()
+    wchecks, timing["winner_reduce"] = phase_winner()
+    floor_ms = floor_device_ms()
+    emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
+          "floor_device_ms": floor_ms, "seconds": time.time() - t0})
 
-    t0 = time.time()
-    warm = phase_warm()
-    emit({"phase": "warm", **warm, "seconds": time.time() - t0})
-
-    t0 = time.time()
-    service = phase_service()
-    emit({"phase": "service", **service, "seconds": time.time() - t0})
+    with tempfile.TemporaryDirectory(prefix="smoke-side-") as side_dir:
+        side = SidePhases(side_dir)
+        try:
+            (res, flag, fast, driver, sharded, multiproc, policies, warm,
+             side_rec) = main_phases(timing, side)
+        finally:
+            side.stop()
+    market, service, observatory = (side_rec[k] for k in SIDE_PHASES)
+    emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
+          "side_reserved_bytes": side_rec["peak_reserved_bytes"]})
 
     def launch_sum(records, name):
         return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
@@ -1716,6 +2059,7 @@ def main() -> int:
             "launches_service_100k": int(service["service_100k"]["cuda"]["launches"][name]),
             "launches_service_flagship": int(service["service_flagship"]["launches"][name]),
             "launches_sim_kernel": int(service["sim_differential"]["kernel"]["launches"][name]),
+            "launches_observatory": int(observatory["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -461,6 +461,43 @@ def test_service_cycles_on_card_cuda_equal_lax(cuda_device):
 
 
 @pytest.mark.cuda
+def test_recorded_rounds_replay_on_card(cuda_device, tmp_path):
+    """The round observatory on the card: the committed bundle the JAX
+    package recorded replays under LOCAL (the "cuda" path), "lax" and
+    hotwindow:64 (on "cuda") with zero divergences, both fill kernels
+    launched by LOCAL and by hotwindow:64 and none by "lax"; a
+    small "cuda" service records every round with no kernel library
+    built or loaded after its first cycle, and its bundle replays on the
+    card and on the CPU with zero divergences."""
+    import os
+
+    from armada_tpu_torch.trace import TraceRecorder, load_trace, replay_trace
+    from armada_tpu_torch.workload import ServiceRun, submit_events
+
+    tk.build_all()
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "sim_steady.atrace")
+    for solver in ("LOCAL", "lax", "hotwindow:64"):
+        tk.reset_launches()
+        report = replay_trace(load_trace(fixture), solvers=(solver,), allow_foreign=True)
+        assert report["ok"] and report["rounds"] == 6, (solver, report["divergences"])
+        fills = (tk.LAUNCHES["score_nodes"], tk.LAUNCHES["fill_take"])
+        assert all(fills) if solver != "lax" else not any(fills), (solver, fills)
+    cfg, entries, _ = submit_events(3000)
+    run = ServiceRun(cfg, entries, 600, kernel_path="cuda")
+    path = str(tmp_path / "service.atrace")
+    run.sched.attach_trace_recorder(TraceRecorder(path, config=run.sched.config))
+    recs = [run.cycle() for _ in range(3)]
+    run.sched.trace_recorder.close()
+    for r in recs[1:]:
+        assert not r["stats"]["compiles"]["compiles"] and not r["stats"]["compiles"]["traces"]
+    trace = load_trace(path)
+    assert len(trace.rounds) == 3
+    for device in (None, "cpu"):
+        report = replay_trace(trace, solvers=("LOCAL", "lax"), device=device)
+        assert report["ok"] and report["rounds"] == 3, (device, report["divergences"])
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = _port_args(_score_inputs(np.random.default_rng(13), 256), device="cuda")
     with pytest.raises(TypeError):

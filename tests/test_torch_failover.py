@@ -13,6 +13,7 @@ rejects the round and requeues its work, with no "lax" or host rung to
 hide it.
 """
 
+import os
 import time as _time
 import types
 
@@ -228,8 +229,10 @@ def test_injected_fault_on_local_cuda_fails_over_to_lax(kind, cause):
             assert [(f["from"], f["to"], f["cause"]) for f in port.recent_failovers] == [
                 ("local:cuda", "LOCAL", cause)]
             if cause == "validation":
+                # The rejected round is quarantined as a postmortem bundle.
                 assert port.recent_rejections[-1]["rung"] == "local:cuda"
-                assert port.recent_rejections[-1]["bundle"] == ""
+                assert port.recent_rejections[-1]["bundle"].endswith(".atrace")
+                assert os.path.exists(port.recent_rejections[-1]["bundle"])
         else:
             assert stats["failover"] is None and stats["rung"] == "local:cuda"
     assert chaos.injected.get(kind) == 1
@@ -315,3 +318,45 @@ def test_fault_on_the_card_ladder_rejects_and_requeues():
             assert stats["rung"] == "local:cuda" and stats["failover"] is None
             assert stats["scheduled"] == 7
     assert [(f["from"], f["to"]) for f in ref.recent_failovers] == [("oracle", "rejected")]
+
+
+def test_card_ladder_rejection_leaves_a_postmortem_bundle(tmp_path):
+    """A fault that ends the card's one-rung ladder quarantines the
+    rejected round as a single-round bundle in the quarantine directory:
+    the round's inputs (a raised solve has no decision stream), named
+    after its cycle, pool, cause and rung. The bundle replays on the
+    "cuda" path, its solve valid on the bundle's own round; the
+    health surface's solver-ladder checker stays healthy and names the
+    rejection's rung once its breaker opens."""
+    import dataclasses
+
+    from armada_tpu_torch.services.health import SolverLadderChecker
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.validate import validate_round
+    from armada_tpu_torch.trace import load_trace, replay_trace
+
+    clock = [0.0]
+    plan = FaultPlan([FaultSpec("solver_raise", "local:cuda", start=1.0, duration=3.5)])
+    port, ex, _ = _stack(PORT, SolverChaos(plan, clock=lambda: clock[0]))
+    port.config = dataclasses.replace(port.config, quarantine_dir=str(tmp_path))
+    port.quarantine_dir = str(tmp_path)
+    port._rungs = build_ladder("kernel", None, port.config, device="cuda")
+    port.failover = FailoverLadder(port._rungs, failure_threshold=3)
+    for t in (1.0, 2.0, 3.0):
+        clock[0] = t
+        ex.tick(t)
+        port.cycle(now=t)
+    bundles = [f["bundle"] for f in port.recent_failovers]
+    assert len(bundles) == 3 and all(os.path.dirname(b) == str(tmp_path) for b in bundles)
+    assert os.path.basename(bundles[0]) == "round-c000000-default-raise-local-cuda.atrace"
+    trace = load_trace(bundles[0])
+    assert trace.header["source"] == "postmortem" and trace.header["meta"]["invariant"] == "raise"
+    (rec,) = trace.rounds
+    assert rec.raw["decisions"] == {} and rec.num_jobs == 7
+    report = replay_trace(trace, solvers=("cuda",), device="cpu")
+    assert report["ok"] and report["rounds"] == 1, report
+    dev = rec.device_round()
+    out = solve_round(dev, device="cpu")
+    assert validate_round(out, dev=dev) is None and int(out["scheduled_mask"].sum()) == 7
+    healthy, detail = SolverLadderChecker(port).check()
+    assert healthy and "local:cuda=open" in detail, detail

@@ -1,13 +1,17 @@
 """The port stands alone: no module of armada_tpu_torch (the home/away
-scenario module, the hot window, the transfer ledger and the control
-plane included), and not chip_smoke.py, imports jax, armada_tpu or yaml,
-also when the main path, the fast-fill path, a budgeted, compacted
-solve, a market round, a deadline-policy round, a warm cycle
-(incremental snapshot, resident round, fairness ledger) and a few
-scheduler-service cycles (event log, ingester, job database, submit
+scenario module, the hot window, the transfer ledger, the control plane
+and the round observatory included), and not chip_smoke.py, imports
+jax, armada_tpu or yaml, also when the main path, the fast-fill path, a
+budgeted, compacted solve, a market round, a deadline-policy round, a
+warm cycle (incremental snapshot, resident round, fairness ledger) and a
+few scheduler-service cycles (event log, ingester, job database, submit
 service, fake executor, failover ladder, resident rounds, drift sweep)
-run, and a simulation with a fault injected on `local:cuda` fails over
-to LOCAL on the CPU's ladder; and the default device is the CUDA card, which raises where
+run, a simulation with a fault injected on `local:cuda` fails over to
+LOCAL on the CPU's ladder, a market-pool service runs its post-round
+seams, and a simulation records a flight-recorder bundle (with metrics
+and the SLO tracker attached) that the port replays. prometheus_client
+is blocked too: the metrics stay optional (no registry, an empty
+rendering). The default device is the CUDA card, which raises where
 there is none."""
 
 import os
@@ -28,7 +32,7 @@ _GUARD = textwrap.dedent(
     class Block:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "armada_tpu", "yaml"):
+            if top in ("jax", "jaxlib", "armada_tpu", "yaml", "prometheus_client"):
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -143,8 +147,42 @@ _GUARD = textwrap.dedent(
     assert res.finished_jobs == 6
     assert [(f["from"], f["to"]) for f in sim.scheduler.recent_failovers] == [
         ("local:cuda", "LOCAL")]
+    # The market pool's post-round seams and the round observatory.
+    for name in ("solver.optimiser", "solver.pricer", "solver.idealised", "services.pricing",
+                 "services.metrics", "services.slo", "services.health", "observe.compiles",
+                 "trace.codec", "trace.recorder", "trace.replayer", "trace.policy_ab",
+                 "utils.compress", "tools.replay_gate", "tools.slo_gate"):
+        assert "armada_tpu_torch." + name in names
+    from armada_tpu_torch.services.metrics import HAVE_PROMETHEUS, SchedulerMetrics
+
+    metrics = SchedulerMetrics()
+    assert not HAVE_PROMETHEUS and metrics.registry is None and metrics.render() == b""
+    from armada_tpu_torch.workload import MarketServiceRun
+
+    run = MarketServiceRun(8, 96, device="cpu")
+    recs = [run.cycle() for _ in range(3)]
+    assert recs[0]["leases"] and recs[2]["market"]["repriced"] > 0
+    assert all(r["market"]["indicative"] and r["market"]["values"] for r in recs)
+    import os, tempfile
+    from armada_tpu_torch.services.health import SolverLadderChecker
+    from armada_tpu_torch.trace import load_trace, replay_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sim.atrace")
+        sim = Simulator([ClusterSpec("c1", node_templates=(NodeTemplate(count=2, cpu="8"),))],
+                        WorkloadSpec(queues=(QueueSpecSim("q", job_templates=(
+                            JobTemplate(id="t", number=6, cpu="2", memory="1Gi"),)),)),
+                        device="cpu", max_time=600.0, trace_path=path,
+                        span_path=os.path.join(tmp, "spans.jsonl"), slo=True)
+        sim.scheduler.attach_metrics(metrics)
+        assert sim.run().finished_jobs == 6
+        assert sim.slo.evaluate()["ok"]
+        assert SolverLadderChecker(sim.scheduler).check()[0]
+        report = replay_trace(load_trace(path), solvers=("LOCAL", "lax"), device="cpu")
+        assert report["ok"] and report["rounds"] > 0, report
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu", "yaml"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu", "yaml",
+                                           "prometheus_client"))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
     """

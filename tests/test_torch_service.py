@@ -1,9 +1,8 @@
 """The port's scheduler service and control plane (submit service, fake
 executor, event log, job database) against the JAX package's, on the CPU.
 
-Every case of tests/test_control_plane.py (but test_metrics_rendered,
-whose metrics registry waits for the server slice) runs twice, once on
-each package's stack, with the same backend on both: "oracle" (the host
+Every case of tests/test_control_plane.py runs twice, once on each
+package's stack, with the same backend on both: "oracle" (the host
 solver) and "kernel" (the port on `device="cpu"`, the reference on its
 JAX kernel). The case's own assertions hold on both stacks, and after
 every cycle the two job databases hold the same leases: per job its
@@ -16,7 +15,10 @@ ids are random). Also here:
   leases still the reference's;
 - a reference service carried into the port (`from_reference_events`,
   `from_reference_checkpoint`), after which both go on with equal leases;
-- the seams that wait for a later slice refuse with NotImplementedError.
+- the seams this slice wires (metrics, the flight recorder, the SLO
+  tracker, SubmitService(slo=), market pools, the optimiser) work, and
+  those that wait for a later slice refuse with NotImplementedError
+  naming their ROADMAP item.
 """
 
 import pytest
@@ -358,6 +360,37 @@ def case_incremental_cycle_respects_pool_restriction(pkg, backend, h):
     assert txn.get("job-0001").state == pkg.JobState.QUEUED
 
 
+def case_metrics_rendered(pkg, backend, h):
+    """Headline prometheus metrics are populated by a cycle, including the
+    skipped-executors gauge (metrics.go / cycle_metrics.go families)."""
+    import importlib
+
+    metrics = importlib.import_module(f"{pkg.name}.services.metrics").SchedulerMetrics()
+    if metrics.registry is None:
+        pytest.skip("prometheus_client unavailable")
+    _, _, sched, submit, ex = mk_stack(pkg, backend, h, n_nodes=2)
+    sched.attach_metrics(metrics)
+    submit.create_queue(pkg.QueueSpec("q"))
+    # a cordon on an unregistered executor must NOT count as skipped
+    sched.set_executor_cordon("ghost-exec", True)
+    sched.set_executor_cordon("cluster-a", True)
+    t = 1.0
+    ex.tick(t)
+    submit.submit("q", "s", [job(pkg, i) for i in range(3)], now=t)
+    sched.cycle(now=t)
+    text = metrics.render().decode()
+    assert "scheduler_skipped_executors 1.0" in text
+    sched.set_executor_cordon("cluster-a", False)
+    t += 1.0
+    ex.tick(t)
+    sched.cycle(now=t)
+    text = metrics.render().decode()
+    assert "scheduler_skipped_executors 0.0" in text
+    assert 'scheduler_queue_fair_share{pool="default",queue="q"}' in text
+    assert 'scheduler_jobs_scheduled_total{pool="default",queue="q"} 3.0' in text
+    assert 'scheduler_solve_seconds_count{pool="default"}' in text
+
+
 CASES = {
     name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")
 }
@@ -522,33 +555,91 @@ def test_service_run_cuda_path_equals_lax_path():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.attach_metrics(object()),
-    lambda s: s.attach_trace_recorder(object()),
     lambda s: s.attach_autotune(object()),
-    lambda s: s.attach_slo(object()),
     lambda s: s.attach_fork_capture(object()),
     lambda s: s.attach_whatif(object()),
 ])
 def test_waiting_seams_refuse(call):
+    """Autotune and the what-if planner wait for ROADMAP A1."""
     sched = PORT.SchedulerService(config(PORT), PORT.InMemoryEventLog(), backend="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         call(sched)
 
 
-def test_waiting_config_refuses():
+def _attach_metrics(sched, tmp_path):
+    from armada_tpu_torch.services.metrics import SchedulerMetrics
+
+    sched.attach_metrics(SchedulerMetrics())
+    return lambda: sched.metrics.render()
+
+
+def _attach_recorder(sched, tmp_path):
+    from armada_tpu_torch.trace import TraceRecorder, load_trace
+
+    path = str(tmp_path / "service.atrace")
+    sched.attach_trace_recorder(TraceRecorder(path, source="scheduler"))
+    return lambda: (sched.trace_recorder.close(), len(load_trace(path).rounds))[1]
+
+
+def _attach_slo(sched, tmp_path):
+    from armada_tpu_torch.services.slo import SLOTracker
+
+    sched.attach_slo(SLOTracker())
+    return lambda: {s["name"]: s["observed"] for s in sched.slo.snapshot()["slos"]}
+
+
+@pytest.mark.parametrize("attach, check", [
+    (_attach_metrics, lambda got: b"scheduler_cycle_seconds_count 2.0" in got),
+    (_attach_recorder, lambda got: got == 2),
+    (_attach_slo, lambda got: got["round-latency"] == 2 and got["queue-wait"] == 3),
+])
+def test_attached_seams_observe_the_cycles(attach, check, tmp_path):
+    """The seams that refused before this slice now observe the port's
+    kernel cycles: the metrics registry, the flight recorder (a round
+    per cycle), the SLO tracker (cycle latency and first-lease waits)."""
+    from armada_tpu_torch.services.metrics import HAVE_PROMETHEUS
+
+    if attach is _attach_metrics and not HAVE_PROMETHEUS:
+        pytest.skip("prometheus_client unavailable")
+    h = History()
+    _, _, sched, submit, ex = mk_stack(PORT, "kernel", h, n_nodes=2)
+    read = attach(sched, tmp_path)
+    submit.create_queue(PORT.QueueSpec("q"))
+    submit.submit("q", "s", [job(PORT, i) for i in range(3)], now=0.0)
+    for t in (1.0, 2.0):
+        ex.tick(t)
+        sched.cycle(now=t)
+    assert check(read())
+
+
+def test_market_optimiser_and_slo_config_accepted():
+    """A market pool with a bid provider, the optimiser and an SLO
+    tracker on the submit service start and cycle on the port; the front
+    door still waits for the server slice (ROADMAP A3)."""
     import dataclasses
 
     from armada_tpu_torch.core.config import OptimiserConfig
+    from armada_tpu_torch.services.pricing import LocalBidPriceService
+    from armada_tpu_torch.services.slo import SLOTracker
 
     log = PORT.InMemoryEventLog()
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        PORT.SchedulerService(config(PORT, market_driven=True), log)
-    cfg = config(PORT)
-    cfg = dataclasses.replace(cfg, optimiser=OptimiserConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        PORT.SchedulerService(cfg, log)
-    with pytest.raises(NotImplementedError, match="A7.9"):
-        PORT.SubmitService(config(PORT), log, slo=object())
+    cfg = dataclasses.replace(config(PORT, market_driven=True),
+                              optimiser=OptimiserConfig(enabled=True))
+    sched = PORT.SchedulerService(
+        cfg, log, bid_price_provider=LocalBidPriceService(["default"], lambda: ["q"]))
+    slo = SLOTracker()
+    submit = PORT.SubmitService(cfg, log, scheduler=sched, slo=slo)
+    submit.create_queue(PORT.QueueSpec("q"))
+    submit.submit("q", "s", [job(PORT, 0)], now=0.0)
+    ex = PORT.FakeExecutor("cluster-a", log, sched,
+                           nodes=PORT.make_nodes("cluster-a", count=1, cpu="16", memory="64Gi"))
+    ex.tick(1.0)
+    sched.cycle(now=1.0)
+    assert sched.jobdb.get("job-0000").latest_run is not None
+    assert sched.reports.latest_reports()["default"].queues["q"].realised_value > 0
+    assert {s["name"]: s["observed"] for s in slo.snapshot()["slos"]}["frontdoor-p99"] == 1
+    with pytest.raises(NotImplementedError, match="A3"):
+        PORT.SubmitService(cfg, log, frontdoor=object())
 
 
 def test_kernel_service_needs_its_device():

@@ -3,8 +3,12 @@ the JAX package and from the port, and the plain form their records are
 compared in.
 
 `plain` turns dataclasses and enums of either package into dicts,
-tuples and values, so a reference record and a port record compare with
-`==`. `jobdb_view` is a job database in that form, keyed by job id; with
+tuples and values, and numpy arrays into their dtype, shape and bytes,
+so a reference record and a port record compare with `==`, exactly.
+`to_reference` carries a port value to the reference (the inverse of the
+port's `utils.carry.to_port`), and `twinned` runs a port function and
+its reference counterpart on the same inputs and holds them equal.
+`jobdb_view` is a job database in that form, keyed by job id; with
 `run_ids=False` it drops the run ids, which the scheduler draws at random
 (`events.model.new_id`), so two services fed the same events compare
 equal. `Package` gathers one package's control-plane classes under the
@@ -21,6 +25,14 @@ import types
 
 
 def plain(value):
+    import numpy as np
+
+    if isinstance(value, (np.ndarray, np.generic)):
+        # Bit for bit: dtype, shape and bytes (NaNs included).
+        a = np.asarray(value)
+        return ("ndarray", str(a.dtype), a.shape, a.tobytes())
+    if isinstance(value, float) and value != value:
+        return ("nan",)
     if isinstance(value, enum.Enum):
         return value.value
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
@@ -107,3 +119,63 @@ class Package(types.SimpleNamespace):
 
 REF = Package("armada_tpu")
 PORT = Package("armada_tpu_torch")
+
+
+def _reference_class(cls):
+    module = cls.__module__
+    head, _, rest = module.partition(".")
+    if head != "armada_tpu_torch":
+        return cls
+    ref = importlib.import_module(f"armada_tpu.{rest}" if rest else "armada_tpu")
+    return getattr(ref, cls.__qualname__)
+
+
+def to_reference(value):
+    """`value` with every port dataclass and enum replaced by the JAX
+    package's of the same module path and name: the inverse of the
+    port's `utils.carry.to_port`, for feeding a port input to the
+    reference."""
+    if isinstance(value, enum.Enum):
+        return _reference_class(type(value))(value.value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = _reference_class(type(value))
+        fields = dataclasses.fields(value)
+        out = cls(**{f.name: to_reference(getattr(value, f.name)) for f in fields if f.init})
+        for f in fields:
+            if not f.init:
+                object.__setattr__(out, f.name, to_reference(getattr(value, f.name)))
+        return out
+    if isinstance(value, dict):
+        return {to_reference(k): to_reference(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple, set, frozenset)):
+        return type(value)(to_reference(v) for v in value)
+    return value
+
+
+def twinned(port_fn, ref_fn):
+    """`port_fn` that also runs `ref_fn` on the same inputs carried to the
+    reference (`to_reference`; callables among them get the reference's
+    arguments carried back with `to_port`) and asserts that both return
+    the same value and leave their mutable arguments the same, in the
+    plain form, compared exactly."""
+    import copy
+
+    from armada_tpu_torch.utils.carry import to_port
+
+    def carry(v):
+        if callable(v) and not isinstance(v, type) and not dataclasses.is_dataclass(v):
+            return lambda *a, **k: v(*to_port(a), **to_port(k))
+        return to_reference(copy.deepcopy(v))
+
+    def call(*args, **kwargs):
+        ref_args = [carry(a) for a in args]
+        ref_kwargs = {k: carry(v) for k, v in kwargs.items()}
+        got = port_fn(*args, **kwargs)
+        want = ref_fn(*ref_args, **ref_kwargs)
+        assert plain(got) == plain(want), port_fn.__name__
+        for i, (a, b) in enumerate(zip(args, ref_args)):
+            if isinstance(a, dict):
+                assert plain(a) == plain(b), f"{port_fn.__name__}: argument {i}"
+        return got
+
+    return call
