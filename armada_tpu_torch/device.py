@@ -30,7 +30,10 @@ def resolve_device(device=None) -> torch.device:
     # cuBLAS refuses deterministic mode without a fixed workspace; set it
     # before the first CUDA call (the solver itself runs no matmul).
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
+    # The switch is process-wide and nothing in the port turns it off
+    # (ops/segment.py sums integers without it), so it is set once.
+    if not torch.are_deterministic_algorithms_enabled():
+        torch.use_deterministic_algorithms(True)
     # Deterministic mode also fills every fresh allocation, which a round
     # of small eager ops pays as one extra kernel per op; no op here reads
     # memory it did not write, so the fill is turned off.

@@ -30,6 +30,14 @@ One is a collective of a process shard group (parallel/pgroup.py):
   over peer memory, one member per process. Replaces the JAX package's
   Pallas `ring_winner_exchange`; as there, the round does not call it.
 
+One carries the round's integer scatter-adds on the "cuda" path
+(ops/segment.py):
+
+- `segment_add` (csrc/segment_add.cu): `x.index_add(dim, index, values)`
+  for int32 and int64 tensors by atomic adds, exact in any order, so it
+  needs none of torch's deterministic switch. Replaces the reference's
+  integer `jax.ops.segment_sum` calls, which XLA lowers to a scatter.
+
 Each wrapper takes the plain version for CPU tensors (the tests) and, for
 CUDA tensors, launches the kernel or raises; nothing falls back. Each
 counts its kernel launches in `LAUNCHES`, under a lock: the shards of a
@@ -48,6 +56,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -68,7 +77,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("score_nodes", "fill_take", "winner_reduce", "ring_exchange")
+KERNELS = ("score_nodes", "fill_take", "winner_reduce", "ring_exchange", "segment_add")
 
 # Kernel launches since the last reset_launches(); only a wrapper's
 # kernel launch counts, never its plain version. "fill_take_global_sort"
@@ -212,6 +221,10 @@ _SIGNATURES = {
         "armada_ring_open": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
         "armada_ring_close": [ctypes.c_int, ctypes.c_void_p],
         "armada_ring_free": [ctypes.c_int, ctypes.c_void_p],
+    },
+    "segment_add": {
+        "armada_segment_add": [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+        + [ctypes.c_void_p],
     },
 }
 _RESTYPES = {"armada_ring_bytes": ctypes.c_longlong}
@@ -823,6 +836,52 @@ def winner_reduce_rows(rows, pick=False):
         _stream(device),
     )
     return (out, gid, found) if pick else out
+
+
+# ---------------------------------------------------------------------------
+# Integer scatter-add (the round's segment sums)
+# ---------------------------------------------------------------------------
+
+
+def segment_add_plain(x, dim, index, values):
+    """Plain torch version of the segment kernel: `x.index_add(dim, index,
+    values)`, a new tensor."""
+    return x.index_add(dim, index, values)
+
+
+def segment_add(x, dim, index, values):
+    """`x.index_add(dim, index, values)` for int32 or int64 `x`, as a new
+    tensor: `values` has x's dtype and x's shape with `index.numel()` at
+    `dim`, `index` holds positions in [0, x.shape[dim]). By the kernel on a
+    CUDA tensor (an index outside that range adds nothing there, where
+    index_add raises)."""
+    if x.device.type == "cpu":
+        return segment_add_plain(x, dim, index, values)
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"segment_add: unsupported device {device}")
+    if x.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_add: int32 or int64 only, not {x.dtype}")
+    # The round calls this every loop: its host checks stay cheap.
+    shape = x.shape
+    dim = dim % len(shape)
+    k = index.numel()
+    want = shape[:dim] + (k,) + shape[dim + 1:]
+    if values.shape != want:
+        raise ValueError(f"segment_add: values {tuple(values.shape)}, expected {tuple(want)}")
+    if index.dim() != 1:
+        index = index.reshape(k)
+    index, values = index.contiguous(), values.contiguous()
+    _check("segment_add.index", index, torch.int64, 1, device)
+    _check("segment_add.values", values, x.dtype, len(shape), device)
+    out = x.contiguous().clone()
+    outer, inner = math.prod(shape[:dim]), math.prod(shape[dim + 1:])
+    if outer and k and inner:
+        _launch(
+            "segment_add", _ptr(out), _ptr(index), _ptr(values), x.element_size(),
+            outer, shape[dim], k, inner, _stream(device),
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------

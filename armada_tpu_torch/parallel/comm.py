@@ -24,13 +24,11 @@ lock to another shard, a thread switch per operation. With turns the
 switches happen only at collectives. The device work a shard launches is
 asynchronous, so turns serialise nothing on the card.
 
-Turns are also what keeps the sharded round bit-exact, not only a speed
-measure: ops/segment.py turns torch's process-wide deterministic switch
-off around its integer scatter-adds, and a float op that another shard
-ran in that window would be non-deterministic. A shard gives up
-its turn only while it waits at a barrier, so no other shard runs while
-the switch is off. A change that lets shards run side by side (a turn
-released around device work, say) must first make that switch safe.
+Turns do not guard torch's process-wide deterministic switch: nothing in
+the port turns it off (ops/segment.py sums integers without it), so no
+shard, and no other thread of the process, ever runs an op while it is off. The turns
+stay for the thread switches above, and for any code that counts on one
+shard running at a time.
 
 Hand-over between devices and streams is explicit: the producer records
 a CUDA event on its current stream after publishing; the consumer makes

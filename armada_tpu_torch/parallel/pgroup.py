@@ -30,8 +30,7 @@ int32 and returned as `sum > 0`, as comm.py does.
 The group also owns the peer-memory buffers of the ring kernel
 (ops/kernels.ring_winner_exchange): one per (axis, row width), made at
 first use by a collective over the axis, closed and freed by `destroy`.
-A rank owns one shard, so the in-process group's turns and its guard of
-the process-wide deterministic switch (ops/segment.py) have nothing to
+A rank owns one shard, so the in-process group's turns have nothing to
 guard here.
 """
 

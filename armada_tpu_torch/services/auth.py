@@ -2,7 +2,7 @@
 
 The JAX package's services/auth.py also holds the principals, the
 authenticators and the Authorizer of the gRPC transport; those wait for
-ROADMAP A2. The submit service needs only the grant record that
+ROADMAP A1. The submit service needs only the grant record that
 QueueUpsert events carry (pkg/client/queue Permissions).
 """
 

@@ -21,7 +21,7 @@ Fault kinds:
   lease_timeout    lease RPCs fail with a timeout
   torn_log_write   an event-log append "crashes" mid-record, leaving a
                    torn tail for recovery to truncate (the file-backed
-                   log that consumes it waits, ROADMAP A2)
+                   log that consumes it waits, ROADMAP A1)
   leader_flap      leadership is lost for the window
 
 Network fault kinds — consumed by the TCP chaos proxy

@@ -7,7 +7,7 @@ Kubernetes is out of scope. A cycle captures a token at its start, and
 publishes only validate against that token — losing leadership mid-cycle
 invalidates the token so the next leader re-derives events idempotently
 (scheduler.go:225-233). The JAX package's file-lease mode (multi-process
-HA on a shared filesystem) waits for persistence (ROADMAP A2).
+HA on a shared filesystem) waits for persistence (ROADMAP A1).
 """
 
 from __future__ import annotations

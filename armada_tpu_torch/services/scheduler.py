@@ -29,9 +29,10 @@ What differs:
 - the round's compile delta counts the port's kernel library builds
   and loads (observe/compiles.py), where the reference counts XLA
   traces and compiles;
-- the seams whose modules wait for a later slice refuse to engage with
-  NotImplementedError naming their ROADMAP item: autotune and the
-  what-if planner (A1); the code that only fed them is left out;
+- the autotune controller's tuned window applies on a `local` rung,
+  which on the card is `local:cuda` (both fill kernels); what-if
+  rollouts (whatif/planner.py) boot their own services on this
+  service's device;
 - `last_cycle_stats` also names each round's snapshot mode, resident
   sync, ladder rung, failover and seconds, and a kernel service refuses
   to start where its device is missing.
@@ -209,6 +210,20 @@ class SchedulerService:
         # solver inputs + decision stream append to an .atrace bundle for
         # deterministic replay (attach_trace_recorder).
         self.trace_recorder = None
+        # Solver autopilot (autotune/): when attached, each kernel round
+        # on a `local` rung runs with the controller's per-pool perf-only
+        # vector (hot window / engagement floor / budgeted chunk) and
+        # feeds its solve profile back so the bounded hill-climb can
+        # adjust between rounds (attach_autotune).
+        self.autotune = None
+        # What-if planner (whatif/): when a fork capture is attached,
+        # every REBUILD-path round hands it references to the already-
+        # built round inputs + decisions right after the solve (the
+        # flight-recorder seam) — forking costs no extra array builds on
+        # the round thread. `whatif` is the planner service the RPC
+        # surfaces reach through the scheduler.
+        self.fork_capture = None
+        self.whatif = None
         # SLO tracker (services/slo.py): when attached, every cycle's
         # wall clock feeds the round-latency SLO and every first lease
         # the queue-wait SLO, with burn-rate gauges refreshed per cycle
@@ -332,7 +347,12 @@ class SchedulerService:
         self.trace_recorder = recorder
 
     def attach_autotune(self, controller):
-        raise NotImplementedError("autotune waits for ROADMAP A1")
+        """Close the tuning loop (autotune/): the controller's per-pool
+        parameter vector overrides the static hot-window/chunk config for
+        every solve on a `local` rung, and each such solve's profile
+        feeds the controller's hysteresis'd hill-climb. Only perf-only
+        knobs ever move — placements are bit-exact regardless."""
+        self.autotune = controller
 
     def attach_slo(self, tracker):
         """Attach an SLO tracker (services/slo.py): cycle latency and
@@ -341,10 +361,15 @@ class SchedulerService:
         self.slo = tracker
 
     def attach_fork_capture(self, capture):
-        raise NotImplementedError("the what-if planner waits for ROADMAP A1")
+        """Start handing every rebuild-path round's inputs + decisions
+        to the what-if fork capture (references only; see
+        whatif/fork.py)."""
+        self.fork_capture = capture
 
     def attach_whatif(self, service):
-        raise NotImplementedError("the what-if planner waits for ROADMAP A1")
+        """Attach the what-if planner service (whatif/): the RPC and
+        lookout surfaces reach it via `scheduler.whatif`."""
+        self.whatif = service
 
     def attach_solver_chaos(self, chaos):
         """Attach the solver-fault injection seam
@@ -1481,6 +1506,36 @@ class SchedulerService:
                 cycle=self.cycle_count, pool=pool, stage="scheduling-round",
             ).warning("round rejected; committing nothing, work requeued")
             return []
+        if self.fork_capture is not None and inc is None:
+            # What-if fork seam (whatif/fork.py): references to the
+            # round's already-built inputs + decision arrays — every
+            # referenced object is frozen or freshly built this round, so
+            # this costs a few small copies, never an array build.
+            # Incremental rounds share mutable snapshot state across
+            # cycles and are skipped (the planner falls back to a jobdb
+            # fork off the round thread). Advisory: a capture failure
+            # must never fail the round.
+            try:
+                self.fork_capture.capture(
+                    pool=pool,
+                    cycle=self.cycle_count,
+                    now=now,
+                    config=self.config,
+                    snap=snap,
+                    result=result,
+                    inputs=(nodes, queues, running, queued, excluded_nodes),
+                    node_executor=dict(node_executor),
+                    cordoned_queues=set(
+                        cordoned if cordoned is not None
+                        else self.cordoned_queues
+                    ),
+                    cordoned_executors=set(self.cordoned_executors),
+                    backend=self.backend,
+                )
+            except Exception as e:  # noqa: BLE001 - advisory path
+                self.log_.with_fields(pool=pool).error(
+                    "what-if fork capture failed: %r", e
+                )
         # Round-deadline guardrail: a truncated round still commits the
         # partial placement below (queued placements are a prefix of the
         # full round's decisions; evicted running jobs got their pinned
@@ -2596,6 +2651,11 @@ class SchedulerService:
                         "kernel": getattr(dev, "kernel_path", "lax"),
                     }
                 else:
+                    tuned = (
+                        self.autotune.params_for(snap.pool)
+                        if self.autotune is not None and rung.kind == "local"
+                        else None
+                    )
                     if rung.kind == "hotwindow":
                         # Degraded retry on a different solve program: the
                         # forced small window runs pass 1 on the "lax"
@@ -2603,6 +2663,10 @@ class SchedulerService:
                         window = int(rung.param or 64)
                         window_min_slots = 0
                         chunk_loops = 1
+                    elif tuned is not None:
+                        window = tuned.hot_window_slots or None
+                        window_min_slots = tuned.hot_window_min_slots
+                        chunk_loops = tuned.chunk_loops
                     else:
                         window = snap.config.hot_window_slots or None
                         window_min_slots = snap.config.hot_window_min_slots
@@ -2639,6 +2703,7 @@ class SchedulerService:
                         "kernel": want,
                         "window": int(window or 0),
                         "budget": bool(budget_s),
+                        "autotuned": tuned is not None,
                         "resident": resident is not None,
                     }
             truncated = bool(out.get("truncated", False))
@@ -2683,9 +2748,9 @@ class SchedulerService:
                 # Round admission firewall (solver/validate.py): cheap
                 # host-side invariants against the same padded
                 # DeviceRound the solve consumed. A violation quarantines
-                # the round BEFORE the recorder/metrics seams observe it
-                # — nothing downstream ever sees a poisoned decision
-                # stream.
+                # the round BEFORE the recorder/metrics/autotune seams
+                # observe it — nothing downstream ever sees a poisoned
+                # decision stream.
                 from ..solver.validate import RoundRejected, validate_round
 
                 t_v = _t.monotonic()
@@ -2719,6 +2784,20 @@ class SchedulerService:
                         fairness=fairness_block,
                     )
                 self._note_solve_profile(snap.pool, out.get("profile"))
+                if self.autotune is not None and rung.kind == "local":
+                    # Between-rounds adjustment. Only rounds the
+                    # single-device kernel actually solved on its tuned
+                    # parameters feed the loop: the sharded (mesh) solve
+                    # takes no window vector, and a hotwindow fallback
+                    # round ran a forced degraded window — either would
+                    # read as a false disengagement signal.
+                    self.autotune.observe_round(
+                        snap.pool,
+                        out.get("profile"),
+                        solve_s=_t.monotonic() - t_solve,
+                        metrics=self.metrics,
+                        log=self.log_,
+                    )
                 self._emit_solve_spans(
                     snap.pool, out.get("profile"), _t.monotonic() - t_solve,
                     transfer=transfer, compiles=compiles,

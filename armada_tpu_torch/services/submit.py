@@ -54,7 +54,7 @@ class SubmitService:
                  slo=None):
         if frontdoor is not None:
             raise NotImplementedError(
-                "the front door waits for the server slice (ROADMAP A3)"
+                "the front door waits for the server slice (ROADMAP A2)"
             )
         self.config = config
         self.log = log

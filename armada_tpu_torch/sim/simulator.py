@@ -16,7 +16,7 @@ WorkloadSpec{queues -> job templates with counts/sizes/arrival times}.
 This is the port's copy of the JAX package's sim/simulator.py; its
 kernel backend (the default) solves on `device` (the CUDA card unless
 the caller asks for the CPU). The YAML front end (sim/cli.py) waits for
-the clients and CLI slice (ROADMAP A5).
+the clients and CLI slice (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -138,20 +138,27 @@ class Simulator:
         # prebuilt SLOTracker attaches as-is. Observations ride the
         # sim's VIRTUAL clock, so burn windows mean virtual seconds.
         slo=None,
+        # Solver autopilot (autotune/): attach an online controller
+        # (opt-in regardless of config.autotune_enabled, so differential
+        # tests can force the closed loop on). Pass True for a fresh
+        # controller or a prebuilt AutotuneController (e.g. with a
+        # pre-seeded tuning store).
+        autotune=False,
+        # What-if planner (whatif/): attach a WhatIfService (fork capture
+        # on the round seam + bounded shadow-solve worker, its rollouts
+        # on the scheduler's device) so sim tests exercise planning
+        # against live sim state.
+        whatif=False,
         # The JAX package's options whose modules wait for a later slice;
         # each refuses anything but its default: data_dir (the
-        # file-backed log, ROADMAP A2), autotune and whatif (A1), frontdoor
-        # (the server slice, A3).
+        # file-backed log, ROADMAP A1) and frontdoor (the server slice,
+        # A2).
         data_dir: str | None = None,
-        autotune=False,
-        whatif=False,
         frontdoor=None,
     ):
         for name, value, item in (
-            ("data_dir", data_dir, "A2"),
-            ("autotune", autotune, "A1"),
-            ("whatif", whatif, "A1"),
-            ("frontdoor", frontdoor, "A3"),
+            ("data_dir", data_dir, "A1"),
+            ("frontdoor", frontdoor, "A2"),
         ):
             if value:
                 raise NotImplementedError(
@@ -243,6 +250,28 @@ class Simulator:
                 meta={"backend": backend, "cycle_interval": cycle_interval},
             )
             self.scheduler.attach_trace_recorder(self.trace_recorder)
+        self.whatif = None
+        if whatif:
+            from ..whatif import WhatIfService
+
+            self.whatif = (
+                whatif
+                if not isinstance(whatif, bool)
+                else WhatIfService(
+                    self.scheduler, cycle_interval=cycle_interval
+                )
+            )
+            self.scheduler.attach_whatif(self.whatif)
+        self.autotune = None
+        if autotune:
+            from ..autotune import AutotuneController
+
+            self.autotune = (
+                autotune
+                if isinstance(autotune, AutotuneController)
+                else AutotuneController(self.config, enabled=True)
+            )
+            self.scheduler.attach_autotune(self.autotune)
 
         self._runtimes: dict[str, float] = {}
         self.executors: list[FakeExecutor] = []

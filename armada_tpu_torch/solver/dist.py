@@ -153,20 +153,21 @@ class LocalDist:
         okb = ok.reshape(ok.shape + (1,) * (v.dim() - 1))
         return torch.where(okb, v, torch.zeros_like(v))
 
-    def add_col(self, alloc, n, delta):
-        """alloc[:, n] += delta ([P, R]) at a global node index (0-d)."""
-        return index_add_int(alloc, 1, n.reshape(1), delta.unsqueeze(1))
+    def add_col(self, alloc, n, delta, kernel):
+        """alloc[:, n] += delta ([P, R]) at a global node index (0-d); by
+        the segment kernel when `kernel` (ops/segment.py), as below."""
+        return index_add_int(alloc, 1, n.reshape(1), delta.unsqueeze(1), kernel)
 
-    def add_row_at(self, alloc, row, n, delta):
+    def add_row_at(self, alloc, row, n, delta, kernel):
         """alloc[row, n] += delta ([R]) at a global node index (0-d)."""
         out = alloc.clone()
-        out[row] = index_add_int(out[row], 0, n.reshape(1), delta.unsqueeze(0))
+        out[row] = index_add_int(out[row], 0, n.reshape(1), delta.unsqueeze(0), kernel)
         return out
 
-    def segment_to_nodes(self, contrib, nodes, ln):
+    def segment_to_nodes(self, contrib, nodes, ln, kernel):
         """Sum [J, ...] contributions into their (global) nodes -> local
         node-major array. Rows with out-of-range nodes must be zero."""
-        return segment_sum(contrib, torch.clamp(nodes, 0, ln - 1), ln)
+        return segment_sum(contrib, torch.clamp(nodes, 0, ln - 1), ln, kernel)
 
     def fill_candidates(self, keys, mask, caps, gids, B, path="lax", nbits=None):
         """The globally best (lex-smallest-key) <=B candidate nodes, in fill
@@ -279,22 +280,24 @@ class ShardDist:
         okb = ok.reshape(ok.shape + (1,) * (v.dim() - 1))
         return self._psum(torch.where(okb, v, torch.zeros_like(v)))
 
-    def add_col(self, alloc, n, delta):
+    def add_col(self, alloc, n, delta, kernel):
         local, ok = self._owned(n, alloc.shape[1])
         delta = torch.where(ok, delta, torch.zeros_like(delta))
-        return index_add_int(alloc, 1, local.reshape(1), delta.unsqueeze(1))
+        return index_add_int(alloc, 1, local.reshape(1), delta.unsqueeze(1), kernel)
 
-    def add_row_at(self, alloc, row, n, delta):
+    def add_row_at(self, alloc, row, n, delta, kernel):
         local, ok = self._owned(n, alloc.shape[1])
         delta = torch.where(ok, delta, torch.zeros_like(delta))
         out = alloc.clone()
-        out[row] = index_add_int(out[row], 0, local.reshape(1), delta.unsqueeze(0))
+        out[row] = index_add_int(out[row], 0, local.reshape(1), delta.unsqueeze(0), kernel)
         return out
 
-    def segment_to_nodes(self, contrib, nodes, ln):
+    def segment_to_nodes(self, contrib, nodes, ln, kernel):
         local, ok = self._owned(nodes, ln)
         okb = ok.reshape(ok.shape + (1,) * (contrib.dim() - 1))
-        return segment_sum(torch.where(okb, contrib, torch.zeros_like(contrib)), local, ln)
+        return segment_sum(
+            torch.where(okb, contrib, torch.zeros_like(contrib)), local, ln, kernel
+        )
 
     def _local_candidates(self, keys, mask, caps, gids, B, path, nbits):
         """This shard's top-B entries: (masked keys..., caps, gids)."""

@@ -178,6 +178,9 @@ class _Round:
                 dev.batch_window,
             )
         self.kpath = kpath
+        # The integer scatter-adds run the segment kernel on the "cuda"
+        # path and torch's index_add on "lax" (ops/segment.py).
+        self.seg_kernel = kpath == "cuda"
         self.knbits = sum(self.kbits) if self.kbits else None
 
     def up(self, arr, dtype=None):
@@ -428,7 +431,7 @@ def _fair_preemption(rd, c, j, static_ok, fp_order):
     freed = torch.sum(
         torch.where(consumed[:, None], t.job_req_fit, 0), dim=0
     ).to(c.alloc.dtype)
-    new_alloc = dist.add_row_at(c.alloc, 0, sel_node, torch.where(found, freed, 0))
+    new_alloc = dist.add_row_at(c.alloc, 0, sel_node, torch.where(found, freed, 0), rd.seg_kernel)
     new_rank = torch.where(consumed, -2, rank)
     preempted_at = torch.max(torch.where(consumed, c.job_prio, MIN_PRIORITY))
     return sel_node, found, preempted_at, new_alloc, new_rank
@@ -549,9 +552,9 @@ def _bind(rd, c: Carry, j, n, at_prio, was_evicted) -> Carry:
     t, h, dist = rd.t, rd.h, rd.dist
     rows = _bind_rows(rd, j, at_prio)
     delta = torch.where(rows[:, None], t.job_req_fit[j], 0).to(c.alloc.dtype)
-    alloc = dist.add_col(c.alloc, n, -delta)
+    alloc = dist.add_col(c.alloc, n, -delta, rd.seg_kernel)
     if was_evicted:
-        alloc = dist.add_row_at(alloc, 0, n, t.job_req_fit[j])
+        alloc = dist.add_row_at(alloc, 0, n, t.job_req_fit[j], rd.seg_kernel)
     job_scheduled = c.job_scheduled
     if not was_evicted and not bool(h.job_is_running[j]):
         job_scheduled = _set(job_scheduled, j, True)
@@ -1088,7 +1091,8 @@ def _fill_apply(rd, c, qstar, sstar, kmax):
 
     cnt = torch.clamp(kstar - (prefix - cand_caps), min=torch.zeros_like(cand_caps), max=cand_caps)
     delta = dist.segment_to_nodes(
-        (cnt[:, None] * req_fit[None, :]).to(c.alloc.dtype), cand_gids, c.alloc.shape[1]
+        (cnt[:, None] * req_fit[None, :]).to(c.alloc.dtype), cand_gids, c.alloc.shape[1],
+        rd.seg_kernel,
     )
     rows = _bind_rows(rd, j, prio)
     alloc = c.alloc - torch.where(rows[:, None, None], delta[None, :, :], 0)
@@ -1245,7 +1249,7 @@ def _window_fill_apply(rd, c, q, widx_q, j_q, gid_q, rank_q, kq, pc, j0):
     ivec = torch.arange(W, dtype=torch.int32, device=dev)
     ent = ivec < kq
     gidc = torch.clamp(gid_q, 0, G - 1).to(torch.int64)
-    cnt_g = segment_sum(ent.to(torch.int32), gidc, G)
+    cnt_g = segment_sum(ent.to(torch.int32), gidc, G, rd.seg_kernel)
     rep = torch.full((G,), BIG, dtype=torch.int32, device=dev).scatter_reduce(
         0, gidc, torch.where(ent, ivec, BIG), reduce="amin", include_self=True
     )
@@ -1272,7 +1276,7 @@ def _window_fill_apply(rd, c, q, widx_q, j_q, gid_q, rank_q, kq, pc, j0):
             placed - (prefix - cand_caps), min=torch.zeros_like(cand_caps), max=cand_caps
         )
         used = used + dist.segment_to_nodes(
-            (cnt[:, None] * req_fit[None, :]).to(used.dtype), cand_gids, ln
+            (cnt[:, None] * req_fit[None, :]).to(used.dtype), cand_gids, ln, rd.seg_kernel
         )
         # Fewer than W candidate nodes (small clusters, shard merges): the
         # gids pad with zeros and the prefix with its last value, so the
@@ -1296,7 +1300,7 @@ def _window_fill_apply(rd, c, q, widx_q, j_q, gid_q, rank_q, kq, pc, j0):
     node_e = cand_gids_g[gidc, torch.clamp(pos, 0, W - 1)][:applied]
     jobs = j_q[:applied]
     req_fit_e = t.job_req_fit[jobs]
-    delta = dist.segment_to_nodes(req_fit_e.to(c.alloc.dtype), node_e, ln)
+    delta = dist.segment_to_nodes(req_fit_e.to(c.alloc.dtype), node_e, ln, rd.seg_kernel)
     rows = _bind_rows(rd, j0, prio)
     alloc = c.alloc - torch.where(rows[:, None, None], delta[None, :, :], 0)
     sum_full = _int_sum(t.job_req[jobs], 0)
@@ -1375,7 +1379,9 @@ def _ev_fill_apply(rd, c, q, widx_q, j_q, kq, pc, j0):
     if applied == 0:
         return c, 0
     jobs = j_q[:applied]
-    delta = dist.segment_to_nodes(req_fit[:applied].to(c.alloc.dtype), home[:applied], ln)
+    delta = dist.segment_to_nodes(
+        req_fit[:applied].to(c.alloc.dtype), home[:applied], ln, rd.seg_kernel
+    )
     alloc = c.alloc - torch.where(rows_eff[:, None, None], delta[None], 0)
     sum_full = _int_sum(t.job_req[jobs], 0)
     job_evicted = c.job_evicted.clone()
@@ -1562,7 +1568,7 @@ def _merged_fill_step(rd, c, heads, heads_h, has_head, qkeys, eligible, valid, m
     viol = take & ~(tok_ok_g & round_ok_g & float_ok_g)
     first_viol = torch.where(torch.any(viol), torch.argmax(viol.to(torch.int8)), QW)
     final_take = take & (flat_idx < first_viol)
-    k_q = segment_sum(final_take.to(torch.int32), qidx, Q)
+    k_q = segment_sum(final_take.to(torch.int32), qidx, Q, rd.seg_kernel)
 
     # Each queue places in turn, against what the earlier queues took.
     k_h, ev_h = torch.stack([k_q.to(torch.int64), kind_ev.to(torch.int64)]).tolist()
@@ -1604,16 +1610,18 @@ def _apply_evictions(rd, c: Carry, evict_mask):
         contrib = torch.where(
             (evict_mask & in_rows)[:, None], t.job_req_fit, 0
         ).to(alloc.dtype)
-        rows.append(alloc[r] + dist.segment_to_nodes(contrib, c.job_node, ln))
+        rows.append(alloc[r] + dist.segment_to_nodes(contrib, c.job_node, ln, rd.seg_kernel))
     alloc = torch.stack([alloc[0]] + rows) if rows else alloc
 
     # Requests are whole device units: their int64 sums, converted, are
     # the float64 sums exactly.
     qseg = torch.clamp(t.job_queue, 0, rd.Q - 1).to(torch.int64)
     sub = torch.where(evict_mask[:, None], t.job_req, 0).to(torch.int64)
-    qsub = _f(segment_sum(sub, qseg, rd.Q))
+    qsub = _f(segment_sum(sub, qseg, rd.Q, rd.seg_kernel))
     pc_seg = qseg * rd.C + t.job_pc.to(torch.int64)
-    qpc_sub = _f(segment_sum(sub, pc_seg, rd.Q * rd.C)).reshape(c.qpc_alloc.shape)
+    qpc_sub = _f(segment_sum(sub, pc_seg, rd.Q * rd.C, rd.seg_kernel)).reshape(
+        c.qpc_alloc.shape
+    )
     floating_sub = torch.sum(
         torch.where(evict_mask[:, None] & t.floating_mask[None, :], req_f, 0.0),
         dim=0,
@@ -1728,7 +1736,7 @@ def _gang_complete_mask(rd, c: Carry, evict_mask):
     bound = (c.job_node >= 0) & ~c.job_evicted
     slot_sel = slot_has_evicted & (t.slot_count > 1)
     sel_flat = (slot_sel[:, None] & member_mask).reshape(-1).to(torch.int32)
-    hits = segment_sum(sel_flat, safe.reshape(-1), rd.J)
+    hits = segment_sum(sel_flat, safe.reshape(-1), rd.J, rd.seg_kernel)
     return evict_mask | ((hits > 0) & bound)
 
 
@@ -1761,6 +1769,7 @@ def _round_setup(rd):
         ).to(torch.int64),
         qseg,
         Q * C,
+        rd.seg_kernel,
     )).reshape(Q, C, R)
     G = max(1, int(h.num_key_groups))
     c = Carry(

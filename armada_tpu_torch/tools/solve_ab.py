@@ -4,6 +4,7 @@ port within one call (parent, change, change, parent):
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR [--cell flagship_1m] [--repeat 2]
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR --kernels
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR --ring 50
+    python3 armada_tpu_torch/tools/solve_ab.py --root DIR --segment --cell gangs_100k
 
 Imports `armada_tpu_torch` from DIR, a checkout of the repository (this one,
 or another unpacked beside it with `git archive`), and builds its kernels
@@ -20,10 +21,11 @@ include `merged_fill_loops` and `merged_fill_s`), flagship_window
 (flagship_1m through the host-driven driver at the scheduler's default
 hot window of 4,096 slots, compacted; its solves add the driver's
 `profile`: parts' seconds, rewindows, transfer ledger), and
-gangs_100k_2x2 (100,000 queued jobs x 5,000 nodes, every 8th job opening a
-gang, no running jobs) node-sharded over a 2x2 mesh of four shard threads
-on the card, whose gangs select nodes through the winner kernel (its
-loop counts and host seconds are shard 0's, its launches all shards').
+gangs_100k (100,000 queued jobs x 5,000 nodes, every 8th job opening a
+gang, no running jobs) on one device, and gangs_100k_2x2, the same round
+node-sharded over a 2x2 mesh of four shard threads on the card, whose
+gangs select nodes through the winner kernel (its loop counts and host
+seconds are shard 0's, its launches all shards').
 With `--kernels` it first times the tree's kernels on DIR's own
 chip_smoke.py inputs: the two fill-loop kernels at N = 65,536 (B = 512),
 score_nodes also through the round's plan where the tree has one, and
@@ -36,7 +38,11 @@ axis), CALLS calls per case, and prints per n each member's ms per call
 (CUDA events), device ms, the plain version's ms and that of a gather plus
 winner_reduce, and the calls that disagreed with the plain version. Then
 the cells named by `--cell`, none by default with `--kernels` or
-`--ring`. Needs a CUDA card.
+`--ring`. With `--segment` it first times the tree's integer scatter-add
+(`ops.segment.index_add_int`, as the "cuda" path calls it) at the round's shapes: the fill loop's
+per-queue count (K = 20,480 into Q = 10), one node's column of a [3, 8,192,
+4] allocation (the gang bind's add), and 131,072 job rows of 4 lanes into
+8,192 nodes; ms per call from CUDA events. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import time
 CELLS = {
     "round_100k": (100_000, 5000, {}),
     "flagship_1m": (1_000_000, 50_000, {}),
+    "gangs_100k": (100_000, 5000, {"n_running": 0, "gang_every": 8}),
     "gangs_100k_2x2": (100_000, 5000, {"n_running": 0, "gang_every": 8}),
     # Fast fill: at the scheduler's window of 512, and in the bench's own
     # configuration, a window of 2,048.
@@ -77,6 +84,8 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true", help="time the kernels first")
     ap.add_argument("--ring", type=int, default=0, metavar="CALLS",
                     help="drive the ring kernel at n = 2 and 4 on this card first")
+    ap.add_argument("--segment", action="store_true",
+                    help="time the integer scatter-add first")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -106,9 +115,11 @@ def main() -> int:
     build_s = time.time() - t0
     if args.kernels:
         print(json.dumps({"tree": root, "card": smi, "kernels": kernel_times(K)}), flush=True)
+    if args.segment:
+        print(json.dumps({"tree": root, "card": smi, "segment": segment_times()}), flush=True)
     for n in (2, 4) if args.ring else ():
         print(json.dumps({"tree": root, "card": smi, "ring": ring_times(n, args.ring)}), flush=True)
-    for cell in args.cell or ([] if args.kernels or args.ring else sorted(CELLS)):
+    for cell in args.cell or ([] if args.kernels or args.ring or args.segment else sorted(CELLS)):
         n_jobs, n_nodes, kw = CELLS[cell]
         snap = build_round_snapshot(*build_inputs(n_jobs, n_nodes, **kw))
         dev = dataclasses.replace(pad_device_round(prep_device_round(snap)), kernel_path="cuda")
@@ -157,6 +168,38 @@ def ring_times(n, calls) -> dict:
     keys = ("ms", "device_ms", "plain_ms", "gather_reduce_ms")
     return {"n": n, "calls": calls, "mismatches": sum(m["mismatches"] for m in members),
             **{k: [m[k] for m in members] for k in keys}}
+
+
+def segment_times() -> dict:
+    """ms per call of the tree's index_add_int at three of the round's
+    shapes (see the module docstring), on seeded inputs."""
+    import torch
+
+    from armada_tpu_torch.device import resolve_device
+    from armada_tpu_torch.ops.segment import index_add_int
+    from armada_tpu_torch.timing import cuda_ms
+
+    dev = resolve_device()
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, generator=g).to(dev)
+
+    cases = {
+        "queue_counts": (torch.zeros(10, dtype=torch.int32, device=dev), 0,
+                         ints(10, 20480), ints(2, 20480).to(torch.int32)),
+        "bind_column": (ints(1000, 3, 8192, 4).to(torch.int32), 1, ints(8192, 1),
+                        ints(100, 3, 1, 4).to(torch.int32)),
+        "rows_to_nodes": (torch.zeros(8192, 4, dtype=torch.int64, device=dev), 0,
+                          ints(8192, 131072), ints(64, 131072, 4)),
+    }
+    # The "cuda" path's add: a tree whose index_add_int takes `kernel`
+    # runs the segment kernel; an older one has the one path.
+    if "kernel" in inspect.signature(index_add_int).parameters:
+        add = functools.partial(index_add_int, kernel=True)
+    else:
+        add = index_add_int
+    return {name: cuda_ms(lambda c=c: add(*c), 500) for name, c in cases.items()}
 
 
 def kernel_times(K) -> dict:

@@ -8,14 +8,14 @@ pad_device_round -> solve_round -> validate_round), on the card, and holds
 every hand-written CUDA kernel of that path against its plain torch
 version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
-time, so after phase 3 a second process on the same card (`SidePhases`)
-runs phases 10, 12 and 13, which need nothing of the others, while this
-one runs 4 to 7, 9 and 11; phase 8 runs alone once the side process has
-ended (its ring kernel spins across four processes' contexts, and its
-times would count a fifth one's work). Launch counts are per process,
-set to 0 and read within each run as before. The side's lines are
-printed when it ends, then one line of each process's peak reserved
-device memory.
+time, so after phase 3 two more processes on the same card
+(`SidePhases`) run phases 10, 12 and 13, and phases 4, 11 and 14, which
+need nothing of the others, while this one runs 5 to 7 and 9; phase 8
+runs alone once the side processes have ended (its ring kernel spins
+across four processes' contexts, and its times would count another
+one's work). Launch counts are per process, set to 0 and read within
+each run as before. A side's lines are printed when it ends, then one
+line of each process's peak reserved device memory.
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
 2. build: the nvcc build of armada_tpu_torch/csrc/ (one nvcc per source,
@@ -34,7 +34,9 @@ device memory.
    into its allocation (a ragged head); N = 262144, beyond the cluster's
    shared memory (streamed); B = 4096 and 8192 at N = 65536, past the
    survivors' shared-memory budget (sorted in global memory); and
-   score_nodes' masked keys at N = 65536 and on the shards.
+   score_nodes' masked keys at N = 65536 and on the shards. segment_add
+   (the "cuda" path's integer scatter-adds) at SEGMENT_SHAPES, int32 and
+   int64, values at the types' extremes (the sums wrap), half of them 0.
 4. round: 100,000 queued jobs x 5,000 nodes x 10 queues plus 5,000 running
    preemptible jobs in one queue, in the default configuration (batch
    fill window 512, fast fill off), on the "cuda" and the "lax" kernel
@@ -129,10 +131,11 @@ device memory.
 10. market: market_round(128, 8192) (market_scarce: the spot price set,
    jobs preempted) and market_round(2048, 8192) (market_fleet, the market
    round of mixed_fleet_rounds(16384, 65536)), each on one device on
-   "cuda" with no kernel launched (a market round takes no fill, and the
-   kernel path chooses only the fill's kernels), then on a 2x2 mesh of
-   shard threads held to the single device, with 2 x selects x 4 shards
-   winner_reduce launches.
+   "cuda" with only segment_add launched (a market round takes no fill
+   and selects no node on one device), then market_scarce on a
+   2x2 mesh of shard threads held to the single device, with 2 x selects
+   x 4 shards winner_reduce launches (market_fleet's 2x2 run was cut
+   for the time limit).
 11. warm: the warm scheduling cycle as bench.py runs it
    (`workload.WarmCycle`: an IncrementalRound takes last round's leases
    and as many fresh submits, a ResidentRound delta-syncs the padded round
@@ -202,6 +205,26 @@ device memory.
    faulted kernel simulation with a recorder: the rejected round's
    postmortem bundle replays on "cuda" with zero divergences and its
    replayed solve passes the round firewall.
+14. autotune_whatif: autotune and the what-if planner beside the live
+   round (`phase_autotune_whatif`), at service_100k's width in the
+   bench's config with the hot window at 2,048 slots and no floor
+   (compacted at 131,072 rows). autotune_offline, a service's 1 cold
+   and 2 warm cycles recorded, `tune_corpus` over them at the baseline
+   and windows 1,024, 4,096 and 16,384 on "cuda" (every candidate
+   bit-exact and launching
+   both fill kernels and segment_add), the selected entry through a
+   TuningStore and a CheckpointStore. autotune_online, a second service
+   seeded from a reloaded store at window 1,024 (the grid's narrowest,
+   which compacts, kept apart from the timed selection) with an
+   AutotuneController: every recorded round autotuned at that window and
+   compacted, its leases the untuned service's every cycle. whatif_plan, a WhatIfService on the untuned service:
+   a drain plan of one executor, an injected gang of 8, and parity of
+   the committed fixture fork under LOCAL (zero divergences), the
+   rollouts launching both fill kernels; the drain then run live equal
+   to the plan. whatif_isolation, six plans fired at a 1-worker,
+   2-deep planner while three live cycles run: some shed, the rest
+   done, the live leases those of the twin service with no planner,
+   no kernel library built or loaded in a live cycle.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -217,12 +240,13 @@ single-device counts, phase 6's (`launches_fast_fill_flagship`,
 `launches_home_away_2x2`), the driver phase's (`launches_flagship_window`
 and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_flagship_fast_priority_2x2`) and the market runs'
-(`launches_market_single_device`, 0 for every kernel, and
+(`launches_market_single_device`, 0 for every kernel but segment_add, and
 `launches_market_2x2`) and the warm cycles' summed
 (`launches_warm_cycles`, phase 11's measured cycles) and phase 12's
 (`launches_service_100k`, the "cuda" service's five cycles;
 `launches_service_flagship`; `launches_sim_kernel`, the clean kernel
-simulation) and phase 13's summed (`launches_observatory`) beside them;
+simulation), phase 13's summed (`launches_observatory`) and phase 14's
+summed (`launches_autotune_whatif`) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -232,7 +256,8 @@ profiler, and for these two `floor_device_ms`, the launch floor;
 fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's time there)
 and its cluster size, score_nodes' also through the plan,
 `plan_ms` and `plan_device_ms`; fill_take's also at B = 4,096,
-`ms_at_b4096` and the rest), one line of ptxas's registers and shared
+`ms_at_b4096` and the rest; segment_add's at 131,072 job rows of 4
+int64 lanes into 8,192 nodes, and per SEGMENT_SHAPES case in `cases`), one line of ptxas's registers and shared
 memory for fill_take_kernel's two instantiations, the global sort's
 sort_runs_kernel and merge_kernel, and winner_reduce_kernel
 (`nvcc -Xptxas -v`), the card's name and power
@@ -254,8 +279,10 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
-# The kernels a round launches; the ring kernel is driven in phase 8.
-ROUND_KERNELS = ("score_nodes", "fill_take", "winner_reduce")
+# The kernels every "cuda" round with a fill launches, and those of a
+# round on a mesh that selects nodes; the ring kernel is driven in phase 8.
+FILL_KERNELS = ("score_nodes", "fill_take", "segment_add")
+ROUND_KERNELS = FILL_KERNELS + ("winner_reduce",)
 RING_CALLS = 100  # per axis, K and found share
 WINNER_ROWS = (1, 2, 3, 8, 32, 33, 1024)  # P held on the card, at K = 1, 3, 5
 
@@ -527,6 +554,81 @@ def phase_kernels():
     return checks, timing
 
 
+# segment_add's cases as the round calls it (ops/segment.py): name -> (x
+# shape, dim, index length). The fill loop's per-queue count (20,480 taken
+# slots into 16 queues), a gang bind's one node column of a [3, 8,192, 4]
+# allocation, a fill's rows into 8,192 nodes, and the setup's 131,072 job
+# rows of 4 lanes into 8,192 nodes (the eviction sums' shape) and into
+# Q x C = 64 queue classes.
+SEGMENT_SHAPES = {
+    "queue_counts": ((16,), 0, 20480),
+    "bind_column": ((3, 8192, 4), 1, 1),
+    "fill_rows": ((8192, 4), 0, 2048),
+    "rows_to_nodes": ((8192, 4), 0, 131072),
+    "rows_to_classes": ((64, 4), 0, 131072),
+}
+SEGMENT_TIMED = "rows_to_nodes"
+
+
+def segment_case(shape, dim, k, dtype, seed):
+    """Seeded (x, dim, index, values) for segment_add on the card, values
+    at the dtype's extremes, half of them 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    np_dtype = np.int32 if dtype == torch.int32 else np.int64
+    info = np.iinfo(np_dtype)
+    vshape = shape[:dim] + (k,) + shape[dim + 1:]
+    values = rng.integers(info.min, info.max, size=vshape, dtype=np.int64).astype(np_dtype)
+    values[rng.random(vshape) < 0.5] = 0
+    x = rng.integers(info.min, info.max, size=shape, dtype=np.int64).astype(np_dtype)
+    index = rng.integers(0, shape[dim], size=k)
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    return dev(x), dim, dev(index), dev(values)
+
+
+def phase_segment():
+    """segment_add against index_add (its plain version) at SEGMENT_SHAPES,
+    int32 and int64; times, at every shape in int64 (the setup's sums) and
+    int32 (the fill's), the wrapper and the plain version by CUDA events,
+    the kernel by the profiler at SEGMENT_TIMED. The plain version is
+    torch's index_add, the library call, under the deterministic switch
+    that resolve_device turns on: it sorts."""
+    import torch
+
+    from armada_tpu_torch.ops import kernels as kt
+    from armada_tpu_torch.timing import cuda_ms
+
+    checks, cases = [], {}
+    for name, (shape, dim, k) in SEGMENT_SHAPES.items():
+        for dtype in (torch.int32, torch.int64):
+            a = segment_case(shape, dim, k, dtype, len(checks))
+            checks.append(check_equal("segment_add", (kt.segment_add(*a),),
+                                      (kt.segment_add_plain(*a),), case=name, dtype=str(dtype)))
+            x, _, index, values = a
+            # Each input read once, the output written once; one add a value.
+            nbytes = 2 * x.nbytes + index.nbytes + values.nbytes
+            cases[f"{name}_{str(dtype)[6:]}"] = {
+                "ms": cuda_ms(lambda a=a: kt.segment_add(*a), 200),
+                "plain_ms": cuda_ms(lambda a=a: kt.segment_add_plain(*a), 50),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, values.numel() / SCALAR_OPS_PER_S) * 1e3,
+                "shape": {"x": list(shape), "dim": dim, "k": k},
+            }
+            if (name, dtype) == (SEGMENT_TIMED, torch.int64):
+                timed = a
+    tm = dict(cases[f"{SEGMENT_TIMED}_int64"])
+    tm["device_ms"] = device_ms_many({"kernel": lambda: kt.segment_add(*timed)}, 50,
+                                     "segment_add_kernel")["kernel"]
+    tm["library_ms"] = tm["plain_ms"]
+    tm["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    tm["cases"] = cases
+    return checks, tm
+
+
 PROFILE_TRIES = 3
 
 
@@ -778,10 +880,10 @@ def run_round(n_jobs, n_nodes, paths, **inputs_kw):
     return res, outs, dev
 
 
-def solve_paths(dev, paths, readback_rows, res=None, required=("score_nodes", "fill_take")):
+def solve_paths(dev, paths, readback_rows, res=None, required=FILL_KERNELS):
     """One solve of the padded round per kernel path, each admitted by the
-    round firewall, the "cuda" path with the kernels of `required` (both
-    fill kernels by default) launched (the counts set to 0 just before
+    round firewall, the "cuda" path with the kernels of `required` (the
+    fill kernels and the segment kernel by default) launched (the counts set to 0 just before
     each solve and read just after); returns (record, outputs by path)."""
     import dataclasses
 
@@ -1053,7 +1155,7 @@ def drive(dev, label, rows=None, **kw):
     if violation is not None:
         raise AssertionError(f"validate_round rejected {label}: {violation}")
     if dev.kernel_path == "cuda":
-        for name in ("score_nodes", "fill_take"):
+        for name in FILL_KERNELS:
             if rec["launches"][name] <= 0:
                 raise AssertionError(f"{label}: kernel {name} was not launched")
     return rec, out
@@ -1212,7 +1314,7 @@ def phase_policies(dev_flag, flag, dev_fast, fast, dev_100k):
 
     d, out = keep
     rec["flagship_fast_priority_2x2"] = run_sharded(
-        d, out, "flagship_fast under priority", rows, ("score_nodes", "fill_take")
+        d, out, "flagship_fast under priority", rows, FILL_KERNELS
     )
     return rec
 
@@ -1225,12 +1327,12 @@ def phase_market():
       a spot price is set, and jobs are preempted;
     - market_fleet, market_round(2048, 8192), the market round of
       mixed_fleet_rounds(16384, 65536).
-    Each on one device on "cuda", where it launches no kernel of the port
-    (a market round takes no fill: prep sets its window to 0, and the
-    kernel path chooses only the fill's kernels, so "lax" would run the
-    same operations), then on a 2x2 mesh of shard threads held to the
-    single device, with both stages of every select through
-    winner_reduce."""
+    Each on one device on "cuda", where it launches only the segment
+    kernel (a market round takes no fill: prep sets its window to 0, and
+    selects no node on one device); market_scarce then on a 2x2 mesh of shard threads
+    held to the single device, with both stages of every select through
+    winner_reduce. market_fleet's 2x2 run (the same code at 16 times the
+    nodes) was cut for the smoke's time limit."""
     from armada_tpu_torch.parallel.scenarios import market_round
     from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
 
@@ -1242,14 +1344,16 @@ def phase_market():
         rows = int(snap.num_jobs)
         r, outs = solve_paths(dev, ("cuda",), rows,
                               {"nodes": n_nodes, "jobs": n_jobs, "host_prep_s": time.time() - t0},
-                              required=())
-        if dev.batch_window != 0 or any(r["cuda_cold_launches"].values()):
+                              required=("segment_add",))
+        if dev.batch_window != 0 or any(
+                r["cuda_cold_launches"][k] for k in ("score_nodes", "fill_take", "winner_reduce")):
             raise AssertionError(f"{label}: a kernel launched in a market round on one device "
                                  f"({r['cuda_cold_launches']})")
         spot = float(outs["cuda"]["spot_price"])
         r["spot_price"] = None if spot != spot else spot  # NaN: the cutoff was not crossed
         rec[label] = r
-        rec[f"{label}_2x2"] = run_sharded(dev, outs["cuda"], label, rows, ("winner_reduce",))
+        if label == "market_scarce":
+            rec[f"{label}_2x2"] = run_sharded(dev, outs["cuda"], label, rows, ("winner_reduce",))
         del outs, dev
     return rec
 
@@ -1279,7 +1383,7 @@ def _check_warm_cycle(warm, rec, reset_bytes, label):
     drift = warm.resident.check_drift()
     if drift:
         raise AssertionError(f"{label}: the resident round drifted on {drift}")
-    for name in ("score_nodes", "fill_take"):
+    for name in FILL_KERNELS:
         if rec["launches"].get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched")
     rec["prep_pad_s"] = _fresh_equal(warm, label)
@@ -1424,7 +1528,7 @@ def phase_warm():
 
 
 def require_fill_launches(launches, label):
-    for name in ("score_nodes", "fill_take"):
+    for name in FILL_KERNELS:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched")
 
@@ -1681,7 +1785,7 @@ def phase_observatory(tmp):
         label = f"fixture_replay {solver}"
         fixture[solver] = _replay(FIXTURE, (solver,), label, allow_foreign=True)
         fixture[solver]["launches"] = count(
-            label, () if solver == "lax" else ("score_nodes", "fill_take"))
+            label, () if solver == "lax" else FILL_KERNELS)
         if solver == "lax" and any(fixture[solver]["launches"].values()):
             raise AssertionError(f"{label}: the lax path launched a kernel")
     fixture["seconds"] = time.time() - t0
@@ -1719,7 +1823,7 @@ def phase_observatory(tmp):
             _require_warm(st["compiles"], f"recorded_service cycle {i}")
         cycles.append({"leased": len(r["leases"]), "cycle_s": r["cycle_s"],
                        "solve_s": st["solve_s"], "compiles": st["compiles"]})
-    service_launches = count("recorded_service", ("score_nodes", "fill_take"))
+    service_launches = count("recorded_service", FILL_KERNELS)
     recorder.close()
     if recorder.rounds_recorded != OBSERVATORY_CYCLES or len(record_s) != OBSERVATORY_CYCLES:
         raise AssertionError(f"recorded_service: {recorder.rounds_recorded} rounds recorded "
@@ -1732,7 +1836,7 @@ def phase_observatory(tmp):
     K.reset_launches()
     replay = _replay(path, ("LOCAL", "lax"), "recorded_service replay")
     _require_warm(replay["compiles"], "recorded_service replay")
-    replay["launches"] = count("recorded_service replay", ("score_nodes", "fill_take"))
+    replay["launches"] = count("recorded_service replay", FILL_KERNELS)
     rec["recorded_service"] = {
         "cycles": cycles, "launches": service_launches,
         "bundle_bytes": os.path.getsize(path), "bytes_per_round": record_bytes,
@@ -1792,7 +1896,7 @@ def phase_observatory(tmp):
     bundle = failovers[0].get("bundle")
     if not bundle or not os.path.exists(bundle):
         raise AssertionError("postmortem: the rejected round left no bundle")
-    sim_launches = count("postmortem simulation", ("score_nodes", "fill_take"))
+    sim_launches = count("postmortem simulation", FILL_KERNELS)
     (round_,) = load_trace(bundle).rounds
     pm_replay = _replay(bundle, ("cuda",), "postmortem replay")
     dev = round_.device_round()
@@ -1813,30 +1917,332 @@ def phase_observatory(tmp):
     return rec
 
 
-SIDE_PHASES = ("market", "service", "observatory")  # phases 10, 12 and 13
+AUTOTUNE_CYCLES = 3  # 1 cold and 2 warm, in the recorded and the tuned service
+AUTOTUNE_JOBS, AUTOTUNE_NODES = 100_000, 5000  # service_100k's width
+# The corpus's hot window: 10 queues pad to 16, and a window compacts
+# where 2 x 16 x Ws < 131,072 rows, so 2,048 is the widest that does (and
+# the fill window's lookahead of 2,048 the narrowest Ws).
+AUTOTUNE_HOT_WINDOW = 2048
+AUTOTUNE_WINDOWS = (1024, 4096, 16384)  # the offline grid, each with no floor
+# Service B's tuned window, the grid's narrowest, which compacts at this
+# width whatever the offline timing selects.
+ONLINE_WINDOW = 1024
+BURST_PLANS, BURST_CYCLES = 6, 3  # whatif_isolation: plans fired, live cycles meanwhile
+
+
+def phase_autotune_whatif(tmp):
+    """Autotune and the what-if planner beside the live round (phase 14),
+    at service_100k's width: AUTOTUNE_JOBS queued jobs in 10 queues on two
+    executors of AUTOTUNE_NODES / 2 nodes, the bench's config (fast fill,
+    window 2,048) with the hot window at AUTOTUNE_HOT_WINDOW slots and no
+    floor, so that compaction engages at 131,072 rows; the "kernel"
+    backend, whose one rung on the card is local:cuda:
+    - autotune_offline: service A (no controller) records its 1 cold and
+      2 warm cycles with a TraceRecorder, every round compacted;
+      `tune_corpus` re-solves the bundle's rounds on "cuda" at the
+      baseline (the bundle's 2,048) and at windows 1,024, 4,096 and
+      16,384 (the last two fused: they do not engage), no floor, one
+      timed pass each: every candidate bit-exact with the recording and
+      launching both fill kernels and the segment kernel; each timed
+      pass ends in the last solve's decision readback (solve_round's
+      copy of the decisions to the host), a synchronise. The selected
+      entry goes into a TuningStore, through CheckpointStore.save, and
+      back through load;
+    - autotune_online: service B, fed the same events, seeded from a
+      store holding the same entry at ONLINE_WINDOW (kept apart from the
+      timing-dependent selection, so the tuned rounds compact), also
+      through the checkpoint, with an AutotuneController attached and a
+      recorder, 1 cold and 2 warm cycles: every recorded round's solver
+      info says autotuned with that window and its profile compacted,
+      and the leases after every cycle are A's (tuning changes speed,
+      never decisions); the controller's adoptions and its gauges'
+      values;
+    - whatif_plan: a WhatIfService(workers=1) on A: plan_drain of
+      executor-0 (deadline one cycle), a plan injecting a gang of 8 jobs
+      of 4 cpu in a new queue (2 rounds; it starts in the first), and
+      parity_check of the committed fixture
+      fork under LOCAL (zero divergences); the rollouts launch both fill
+      kernels. Then the drain runs on A (and the same drain on B, its
+      twin) for as many cycles as the plan's rollout ran: its outcome
+      (completed, preempted, blocked, landings, rounds to drain) is the
+      plan's, and A's leases are B's every cycle;
+    - whatif_isolation: BURST_PLANS plans fired at once on threads at a
+      1-worker, 2-deep planner over A while A and B run BURST_CYCLES
+      live cycles: some are shed with WhatIfBusyError, the admitted ones
+      finish, A's leases equal B's (no planner) after every cycle, and
+      no A cycle builds or loads a kernel library (the compile bracket
+      is the round thread's; the planner's threads are not in it). The
+      services have no round budget: the planner refuses a budgeted one
+      (ROADMAP C3).
+    Launch counts are set to 0 before each part and read after it."""
+    import dataclasses
+    import threading
+
+    from armada_tpu_torch.autotune import (
+        AutotuneController,
+        TunedParams,
+        TuningStore,
+        default_grid,
+        make_entry,
+        tune_corpus,
+    )
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.services.checkpoint import CheckpointStore
+    from armada_tpu_torch.trace import TraceRecorder, load_trace
+    from armada_tpu_torch.whatif import (
+        WhatIfBusyError,
+        WhatIfService,
+        fork_from_trace,
+        mutations_from_dicts,
+    )
+    from armada_tpu_torch.whatif.planner import parity_check
+    from armada_tpu_torch.workload import ServiceRun, submit_events
+
+    rec, launches = {}, {name: 0 for name in K.KERNELS}
+
+    def count(label):
+        got = dict(K.LAUNCHES)
+        K.reset_launches()
+        for name in launches:
+            launches[name] += got[name]
+        require_fill_launches(got, label)
+        return got
+
+    def live_cycle(run, label):
+        """One live cycle as the planner's rollouts run theirs: the
+        executors tick, the service cycles, the executors tick again."""
+        out = run.cycle()
+        for ex in run.executors:
+            ex.tick(run.now - run.interval)
+        st = out["stats"]
+        if st["failover"] is not None or st["rung"] != "local:cuda":
+            raise AssertionError(f"{label}: rung {st['rung']}, failover {st['failover']}")
+        return out
+
+    t0 = time.time()
+    base_cfg, entries, _ = submit_events(AUTOTUNE_JOBS)
+    cfg = dataclasses.replace(base_cfg, hot_window_slots=AUTOTUNE_HOT_WINDOW,
+                              hot_window_min_slots=0)
+    path = os.path.join(tmp, "autotune.atrace")
+    K.reset_launches()
+    a = ServiceRun(cfg, entries, AUTOTUNE_NODES, kernel_path="cuda")
+    recorder = TraceRecorder(path, source="scheduler", config=a.sched.config)
+    a.sched.attach_trace_recorder(recorder)
+    a_leases = [live_cycle(a, f"service A cycle {i}")["leases"] for i in range(AUTOTUNE_CYCLES)]
+    a.sched.trace_recorder = None
+    recorder.close()
+    corpus = load_trace(path)
+    if len(corpus.rounds) != AUTOTUNE_CYCLES or not all(
+            (r.raw.get("profile") or {}).get("compacted") for r in corpus.rounds):
+        raise AssertionError("autotune_offline: the corpus's rounds are not all compacted")
+    record_launches = count("autotune_offline: the recorded service")
+    t1 = time.time()
+    per_candidate = {}
+
+    def note(line):
+        label = line.split(":")[0]
+        if label in ("baseline",) or label.startswith("w"):
+            per_candidate[label] = count(f"autotune_offline: candidate {label}")
+
+    report = tune_corpus([corpus], default_grid(windows=AUTOTUNE_WINDOWS, min_slots=(0,)),
+                         repeats=1, log=note)
+    if not report["ok"] or not all(r["bit_exact"] for r in report["results"]):
+        raise AssertionError(f"autotune_offline: a candidate diverged {report['results']}")
+    if sorted(per_candidate) != sorted(r["label"] for r in report["results"]):
+        raise AssertionError(f"autotune_offline: candidates {sorted(per_candidate)}")
+    sel = report["selected"]
+    (at_online,) = [r for r in report["results"]
+                    if r["params"]["hot_window_slots"] == ONLINE_WINDOW]
+    online = make_entry(TunedParams(ONLINE_WINDOW), target=sel["target"],
+                        workload=sel["workload"], pool=sel["pool"],
+                        baseline_s=sel["baseline_s"], tuned_s=at_online["wall_s"],
+                        meta={"label": at_online["label"]})
+    ckpt = CheckpointStore(os.path.join(tmp, "ckpt"))
+    stores = {}
+    for name, entry in (("autotune", report["selected"]), ("autotune_online", online)):
+        store = TuningStore()
+        store.put(entry)
+        ckpt.save(name, 0, store.dump())
+        stores[name] = TuningStore()
+        stores[name].load(ckpt.load(name)[1])
+        if stores[name].dump() != store.dump():
+            raise AssertionError(f"autotune_offline: the {name} store did not survive its checkpoint")
+    window = report["selected"]["params"]["hot_window_slots"]
+    rec["autotune_offline"] = {
+        "rounds": report["rounds"], "workload": report["workload"],
+        "results": [{"label": r["label"], "bit_exact": r["bit_exact"], "wall_s": r["wall_s"],
+                     "launches": per_candidate[r["label"]]} for r in report["results"]],
+        "selected": report["selected"]["meta"]["label"], "window": window,
+        "record_launches": record_launches, "tune_s": time.time() - t1,
+        "seconds": time.time() - t0,
+    }
+
+    t0 = time.time()
+    ctl = AutotuneController(dataclasses.replace(cfg, autotune_enabled=True),
+                             store=stores["autotune_online"])
+    b = ServiceRun(cfg, entries, AUTOTUNE_NODES, kernel_path="cuda")
+    del entries
+    b.sched.attach_autotune(ctl)
+    path_b = os.path.join(tmp, "tuned.atrace")
+    b.sched.attach_trace_recorder(TraceRecorder(path_b, source="scheduler", config=b.sched.config))
+    for i, want in enumerate(a_leases):
+        if live_cycle(b, f"service B cycle {i}")["leases"] != want:
+            raise AssertionError(f"autotune_online cycle {i}: the tuned leases differ from A's")
+    b.sched.trace_recorder.close()
+    b.sched.trace_recorder = None
+    tuned = load_trace(path_b).rounds
+    solver = [r.raw["solver"] for r in tuned]
+    if len(solver) != AUTOTUNE_CYCLES or not all(
+            s["autotuned"] and s["window"] == ONLINE_WINDOW for s in solver):
+        raise AssertionError(f"autotune_online: recorded solver info {solver}")
+    if not all((r.raw.get("profile") or {}).get("compacted") for r in tuned):
+        raise AssertionError("autotune_online: a tuned round did not run compacted")
+    params = ctl.params_for("default")
+    rec["autotune_online"] = {
+        "cycles": AUTOTUNE_CYCLES, "window": ONLINE_WINDOW, "compacted": True,
+        "equal_to_untuned": True,
+        "adoptions": [{k: v for k, v in x.items() if k != "ts"} for x in ctl.adoptions],
+        "gauges": {"scheduler_autotune_window_slots": params.hot_window_slots,
+                   "scheduler_autotune_chunk_loops": params.chunk_loops,
+                   "scheduler_autotune_store_entries": len(ctl.store)},
+        "launches": count("autotune_online"), "seconds": time.time() - t0,
+    }
+
+    t0 = time.time()
+    wi = WhatIfService(a.sched, workers=1)
+    a.sched.attach_whatif(wi)
+    remaining = {jid: run.finishes_at - a.now
+                 for ex in a.executors for jid, run in ex.active.items()}
+    K.reset_launches()
+    drain = wi.plan_drain("executor-0", deadline_s=a.interval, rounds=3,
+                          runtime_for=lambda jid: remaining.get(jid, 1e9))
+    drain_launches = count("whatif_plan: the drain plan's rollout")
+    gang = wi.plan(mutations_from_dicts([{"kind": "inject_gang", "queue": "whatif",
+                                          "gang_cardinality": 8, "cpu": "4",
+                                          "memory": "8Gi"}]), rounds=2)
+    gang_launches = count("whatif_plan: the inject-gang rollout")
+    parity = parity_check(fork_from_trace(FIXTURE, 0, allow_foreign=True), "LOCAL")
+    parity_launches = count("whatif_plan: the parity check")
+    if not parity["ok"]:
+        raise AssertionError(f"whatif_plan: parity diverged {parity['divergences']}")
+    (injected,) = gang.injected
+    if injected["eta_rounds"] is None:
+        raise AssertionError(f"whatif_plan: the injected gang did not start {injected}")
+    pred = drain.drain
+    if not pred["preempted"]:
+        raise AssertionError(f"whatif_plan: the drain plan preempted nothing {pred}")
+    plans_s = time.time() - t0
+    wi.execute_drain("executor-0", deadline_s=a.interval)
+    b.sched.drains.start("executor-0", deadline_s=b.interval)
+    for i in range(drain.rounds_simulated):
+        got = live_cycle(a, f"drain cycle {i}")["leases"]
+        if got != live_cycle(b, f"twin drain cycle {i}")["leases"]:
+            raise AssertionError(f"whatif_plan: drain cycle {i} leased differently on A and B")
+    actual = wi.drain_status("executor-0")
+    for key in ("completed", "preempted", "blocked", "landings", "rounds_to_drain"):
+        if pred[key] != actual[key]:
+            raise AssertionError(f"whatif_plan: the drain's {key} was {actual[key]}, "
+                                 f"the plan's {pred[key]}")
+    rec["whatif_plan"] = {
+        "drain": {"plan_s": drain.plan_seconds, "rounds_simulated": drain.rounds_simulated,
+                  "displaced": len(drain.displaced),
+                  "landed": sum(d["landed_node"] is not None for d in drain.displaced),
+                  "preempted": len(pred["preempted"]), "landings": len(pred["landings"]),
+                  "rounds_to_drain": pred["rounds_to_drain"], "done": pred["done"],
+                  "equals_execute_drain": True, "launches": drain_launches},
+        "inject_gang": {"plan_s": gang.plan_seconds, "eta_rounds": injected["eta_rounds"],
+                        "nodes": len(injected["nodes"]), "feasible": injected["feasible"],
+                        "launches": gang_launches},
+        "parity": {"ok": parity["ok"], "solve_s": parity["solve_s"],
+                   "num_jobs": parity["num_jobs"], "launches": parity_launches},
+        "plans_s": plans_s, "drain_cycles_launches": count("whatif_plan: the drain cycles"),
+        "seconds": time.time() - t0,
+    }
+
+    t0 = time.time()
+    burst = WhatIfService(a.sched, workers=1, queue_depth=2)
+    a.sched.attach_whatif(burst)
+    plans, shed = [], []
+
+    def fire():
+        try:
+            plans.append(burst.plan(mutations_from_dicts(
+                [{"kind": "inject_gang", "queue": "queue-01", "gang_cardinality": 2,
+                  "cpu": "1"}]), rounds=1))
+        except WhatIfBusyError as e:
+            shed.append(str(e))
+
+    threads = [threading.Thread(target=fire) for _ in range(BURST_PLANS)]
+    for th in threads:
+        th.start()
+    live = []
+    for i in range(BURST_CYCLES):
+        out = live_cycle(a, f"isolation cycle {i}")
+        if out["leases"] != live_cycle(b, f"isolation twin cycle {i}")["leases"]:
+            raise AssertionError(f"whatif_isolation cycle {i}: A's leases are not B's")
+        _require_warm(out["stats"]["compiles"], f"whatif_isolation cycle {i}")
+        live.append({"leased": len(out["leases"]), "cycle_s": out["cycle_s"],
+                     "solve_s": out["stats"]["solve_s"], "compiles": out["stats"]["compiles"]})
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("whatif_isolation: a plan did not finish")
+    if not shed or not plans or burst._pending:
+        raise AssertionError(f"whatif_isolation: {len(plans)} planned, {len(shed)} shed, "
+                             f"{burst._pending} pending")
+    rec["whatif_isolation"] = {
+        "fired": BURST_PLANS, "planned": len(plans), "shed": len(shed),
+        "plan_s": [p.plan_seconds for p in plans], "live_cycles": live,
+        "live_equals_no_planner": True, "launches": count("whatif_isolation"),
+        "seconds": time.time() - t0,
+    }
+    rec["launches"] = launches
+    return rec
+
+
+def _round_100k():
+    """Phase 4: round_100k on "cuda" and "lax", bit-equal."""
+    res, outs, _ = run_round(100_000, 5000, ("cuda", "lax"))
+    assert_same_outputs(outs["cuda"], outs["lax"], "round: the cuda and lax paths")
+    res["cuda_equals_lax"] = True
+    return res
+
+
+def _observatory():
+    with tempfile.TemporaryDirectory(prefix="observatory-") as tmp:
+        return phase_observatory(tmp)
+
+
+def _autotune_whatif():
+    with tempfile.TemporaryDirectory(prefix="autotune-") as tmp:
+        return phase_autotune_whatif(tmp)
+
+
+# The phases that need nothing of the others, in two processes of their
+# own beside the first: phases 10, 12 and 13; phases 4, 11 and 14.
+SIDE_PHASES = {
+    "market": phase_market, "service": phase_service, "observatory": _observatory,
+    "round": _round_100k, "warm": phase_warm, "autotune_whatif": _autotune_whatif,
+}
+SIDES = (("market", "service", "observatory"), ("round", "warm", "autotune_whatif"))
 SIDE_TIMEOUT_S = 1000.0
 
 
-def side_main(out_path) -> int:
-    """Phases 10, 12 and 13 in a process of their own on the card, each
-    printing its phase line; writes their records and this process's
-    peak reserved device memory to `out_path`. They need nothing of the
-    other phases, and every phase is host-bound, so the two processes
-    share the card's idle time."""
+def side_main(out_path, names) -> int:
+    """The phases `names` (of SIDE_PHASES) in a process of their own on
+    the card, each printing its phase line; writes their records and this
+    process's peak reserved device memory to `out_path`. They need
+    nothing of the other phases, and every phase is host-bound, so the
+    processes share the card's idle time."""
     import torch
 
     from armada_tpu_torch.device import resolve_device
 
     resolve_device()
-
-    def observatory():
-        with tempfile.TemporaryDirectory(prefix="observatory-") as tmp:
-            return phase_observatory(tmp)
-
     rec = {}
-    for name, fn in zip(SIDE_PHASES, (phase_market, phase_service, observatory)):
+    for name in names:
         t0 = time.time()
-        rec[name] = fn()
+        rec[name] = SIDE_PHASES[name]()
         emit({"phase": name, **rec[name], "seconds": time.time() - t0})
     rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     with open(out_path, "w") as f:
@@ -1845,16 +2251,18 @@ def side_main(out_path) -> int:
 
 
 class SidePhases:
-    """`side_main` in a child interpreter, started at construction. Its
-    phase lines go to a file under `tmp` and are printed by `finish`, so
-    they never interleave with this process's lines; its log goes to this
-    process's standard error."""
+    """`side_main` of `names` in a child interpreter, started at
+    construction. Its phase lines go to a file under `tmp` and are
+    printed by `finish`, so they never interleave with this process's
+    lines; its log goes to this process's standard error."""
 
-    def __init__(self, tmp):
-        self.out_path = os.path.join(tmp, "side.json")
-        self.log_path = os.path.join(tmp, "side.out")
+    def __init__(self, tmp, names):
+        tag = "-".join(names)
+        self.names = names
+        self.out_path = os.path.join(tmp, f"side-{tag}.json")
+        self.log_path = os.path.join(tmp, f"side-{tag}.out")
         code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
-                f"sys.exit(chip_smoke.side_main({self.out_path!r}))")
+                f"sys.exit(chip_smoke.side_main({self.out_path!r}, {names!r}))")
         with open(self.log_path, "w") as log:
             self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, cwd=HERE)
 
@@ -1866,7 +2274,7 @@ class SidePhases:
             sys.stdout.write(f.read())
         sys.stdout.flush()
         if rc != 0:
-            raise AssertionError(f"the side process (phases {', '.join(SIDE_PHASES)}) "
+            raise AssertionError(f"the side process (phases {', '.join(self.names)}) "
                                  f"exited with code {rc}")
         with open(self.out_path) as f:
             return json.load(f)
@@ -1877,16 +2285,10 @@ class SidePhases:
             self.proc.wait()
 
 
-def main_phases(timing, side):
-    """Phases 4 to 7, 9 and 11 in this process while `side` runs 10, 12
-    and 13, then phase 8 alone; returns their records and the side's."""
-    t0 = time.time()
-    res, outs, dev_100k = run_round(100_000, 5000, ("cuda", "lax"))
-    assert_same_outputs(outs["cuda"], outs["lax"], "round: the cuda and lax paths")
-    res["cuda_equals_lax"] = True
-    del outs, dev_100k
-    emit({"phase": "round", **res, "seconds": time.time() - t0})
-
+def main_phases(timing, sides):
+    """Phases 5 to 7 and 9 in this process while `sides` run 10, 12 and
+    13, and 4, 11 and 14, then phase 8 alone; returns their records and
+    the sides' merged."""
     t0 = time.time()
     flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
@@ -1914,7 +2316,7 @@ def main_phases(timing, side):
     # of pinned returns and the fills), held to its own single-device
     # solve: the same paths at a quarter of the serial loops, which cost
     # most of the phase.
-    fill_kernels = ("score_nodes", "fill_take")
+    fill_kernels = FILL_KERNELS
     quarter, quarter_outs, dev_quarter = quarter
     sharded = {
         "round_25k_single_device": quarter,
@@ -1952,13 +2354,13 @@ def main_phases(timing, side):
     del dev_flag, dev_fast, dev_100k_fast
     emit({"phase": "policies", **policies, "seconds": time.time() - t0})
 
-    t0 = time.time()
-    warm = phase_warm()
-    emit({"phase": "warm", **warm, "seconds": time.time() - t0})
-
     # The ring drive times a kernel that spins across four processes'
-    # contexts on the card, so it runs once the side process has ended.
-    side_rec = side.finish()
+    # contexts on the card, so it runs once the side processes have ended.
+    side_rec = {}
+    for side in sides:
+        rec = side.finish()
+        side_rec[f"peak_reserved_bytes_{'_'.join(side.names)}"] = rec.pop("peak_reserved_bytes")
+        side_rec.update(rec)
 
     t0 = time.time()
     multiproc = phase_multiproc(
@@ -1968,7 +2370,7 @@ def main_phases(timing, side):
     del gang_outs, dev_gangs
     timing["ring_exchange"] = ring_timing(multiproc)
     emit({"phase": "multiproc", **multiproc, "seconds": time.time() - t0})
-    return res, flag, fast, driver, sharded, multiproc, policies, warm, side_rec
+    return flag, fast, driver, sharded, multiproc, policies, side_rec
 
 
 def main() -> int:
@@ -1997,20 +2399,27 @@ def main() -> int:
     t0 = time.time()
     checks, timing = phase_kernels()
     wchecks, timing["winner_reduce"] = phase_winner()
+    schecks, timing["segment_add"] = phase_segment()
+    wchecks += schecks
     floor_ms = floor_device_ms()
     emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
           "floor_device_ms": floor_ms, "seconds": time.time() - t0})
 
     with tempfile.TemporaryDirectory(prefix="smoke-side-") as side_dir:
-        side = SidePhases(side_dir)
+        sides = []
         try:
-            (res, flag, fast, driver, sharded, multiproc, policies, warm,
-             side_rec) = main_phases(timing, side)
+            for names in SIDES:
+                sides.append(SidePhases(side_dir, names))
+            (flag, fast, driver, sharded, multiproc, policies,
+             side_rec) = main_phases(timing, sides)
         finally:
-            side.stop()
-    market, service, observatory = (side_rec[k] for k in SIDE_PHASES)
+            for side in sides:
+                side.stop()
+    res, warm, market, service, observatory, autotune_whatif = (
+        side_rec[k] for k in ("round", "warm", "market", "service", "observatory",
+                              "autotune_whatif"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
-          "side_reserved_bytes": side_rec["peak_reserved_bytes"]})
+          **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
 
     def launch_sum(records, name):
         return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
@@ -2028,6 +2437,8 @@ def main() -> int:
         "fill_take": "armada_tpu/ops/pallas_kernels.py:378 (fill_take)",
         "winner_reduce": "armada_tpu/ops/pallas_kernels.py:439 (_winner_kernel via winner_reduce :463, pallas_call :494)",
         "ring_exchange": "armada_tpu/ops/pallas_kernels.py:521 (ring_winner_exchange, loop :532-563, pallas_call :566)",
+        "segment_add": "armada_tpu/solver/kernel.py:1506 (jax.ops.segment_sum, an XLA scatter-add, "
+                       "not a Pallas kernel; also :1113, :1782, :1791, :1965, solver/dist.py:168, :262)",
     }
     entries = []
     for name in K.KERNELS:
@@ -2060,6 +2471,7 @@ def main() -> int:
             "launches_service_flagship": int(service["service_flagship"]["launches"][name]),
             "launches_sim_kernel": int(service["sim_differential"]["kernel"]["launches"][name]),
             "launches_observatory": int(observatory["launches"][name]),
+            "launches_autotune_whatif": int(autotune_whatif["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],
@@ -2090,6 +2502,7 @@ def main() -> int:
                if name == "fill_take" else {}),
             **({"plan_ms": tm["plan_ms"], "plan_device_ms": tm["plan_device_ms"]}
                if name == "score_nodes" else {}),
+            **({"cases": tm["cases"]} if name == "segment_add" else {}),
         })
     emit({"kernels": entries})
     emit({"ptxas": ptxas})

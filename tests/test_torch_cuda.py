@@ -261,8 +261,8 @@ def test_policy_rounds_on_card_equal_lax_and_cpu(cuda_device):
 @pytest.mark.cuda
 def test_market_round_on_card_equals_lax_cpu_and_mesh(cuda_device):
     """market_round(128, 2048) on the card: "cuda" bit-equal to "lax"
-    (a market round takes no fill, so no kernel of the port launches on
-    one device), equal to the CPU solve, and a 2x2 mesh of shard threads
+    (a market round takes no fill, so on one device only the segment
+    kernel launches, and "lax" launches none), equal to the CPU solve, and a 2x2 mesh of shard threads
     on the card equal to it with every select through winner_reduce."""
     import dataclasses
 
@@ -276,8 +276,11 @@ def test_market_round_on_card_equals_lax_cpu_and_mesh(cuda_device):
     dev = pad_device_round(prep_device_round(market_round(128, 2048)))
     K.reset_launches()
     on_card = solve_round(dev)
-    assert sum(K.LAUNCHES.values()) == 0
+    assert sum(K.LAUNCHES[name] for name in ROUND_KERNELS) == 0
+    assert K.LAUNCHES["segment_add"] > 0
+    K.reset_launches()
     lax = solve_round(dataclasses.replace(dev, kernel_path="lax"))
+    assert sum(K.LAUNCHES.values()) == 0
     for k in lax:
         assert np.array_equal(on_card[k], lax[k], equal_nan=True), k
     _same_round(on_card, solve_round(dev, device="cpu"), "market")
@@ -541,6 +544,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+def test_segment_add_matches_plain_on_card(cuda_device):
+    """segment_add against index_add on the card: int32 and int64, along
+    dim 0 and 1, values at the types' extremes (the sums wrap), many
+    values into few segments, one index, empty index lists; one launch per
+    non-empty call, none for an empty one."""
+    rng = np.random.default_rng(31)
+    cases = (
+        (1, 5, ()), (7, 0, (3,)), (40, 200, (2, 3)), (10, 20480, ()), (8192, 1, (4,)),
+        (8192, 131072, (4,)), (16, 100000, (4,)),
+    )
+    for dtype in (torch.int32, torch.int64):
+        info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+        for n, k, rest in cases:
+            idx = torch.as_tensor(rng.integers(0, n, size=k), device=cuda_device)
+            vals = torch.as_tensor(rng.integers(info.min, info.max, size=(k,) + rest,
+                                                dtype=np.int64), device=cuda_device).to(dtype)
+            vals[rng.random(k) < 0.5] = 0
+            x = torch.as_tensor(rng.integers(info.min, info.max, size=(n,) + rest,
+                                             dtype=np.int64), device=cuda_device).to(dtype)
+            tk.reset_launches()
+            got = tk.segment_add(x, 0, idx, vals)
+            assert tk.LAUNCHES["segment_add"] == (1 if k and x[0].numel() else 0)
+            assert torch.equal(got, tk.segment_add_plain(x, 0, idx, vals)), (dtype, n, k, rest)
+            if rest:
+                xt, vt = x.movedim(0, 1).contiguous(), vals.movedim(0, 1).contiguous()
+                assert torch.equal(tk.segment_add(xt, 1, idx, vt),
+                                   tk.segment_add_plain(xt, 1, idx, vt)), (dtype, n, k, rest)
+    x = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        tk.segment_add(x.float(), 0, idx, torch.ones(3, device=cuda_device))
+    with pytest.raises(TypeError):
+        tk.segment_add(x, 0, idx, torch.ones(3, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        tk.segment_add(x, 0, idx, torch.ones(4, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
 def test_winner_reduce_matches_plain_on_card(cuda_device):
     rng = np.random.default_rng(21)
     for p in (1, 2, 3, 8, 32, 33, 1024):
@@ -648,3 +689,41 @@ def test_multiprocess_round_on_card_equals_cpu(cuda_device, tmp_path):
     for k in want:
         assert np.array_equal(res["outputs"][k], want[k], equal_nan=True), k
     assert res["collectives"] == inproc.last_stats.as_dict()
+
+
+@pytest.mark.cuda
+def test_two_threads_solving_at_once_equal_a_lone_solve(cuda_device):
+    """ROADMAP C2 on the card: two threads solve the same round at once
+    (as a what-if rollout beside the live round does), each on its own
+    stream of the card, and both outputs equal a lone solve's, with the
+    deterministic switch on throughout (ops/segment.py never turns it
+    off)."""
+    import threading
+
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    dev = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(4000, 200, n_running=400, fast_fill=True))))
+    lone = solve_round(dev)
+    outs, errors = [None, None], []
+
+    def solve(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                outs[i] = solve_round(dev)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=solve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors, errors
+    assert torch.are_deterministic_algorithms_enabled()
+    for out in outs:
+        for k in lone:
+            assert np.array_equal(out[k], lone[k], equal_nan=True), k

@@ -8,8 +8,10 @@ few scheduler-service cycles (event log, ingester, job database, submit
 service, fake executor, failover ladder, resident rounds, drift sweep)
 run, a simulation with a fault injected on `local:cuda` fails over to
 LOCAL on the CPU's ladder, a market-pool service runs its post-round
-seams, and a simulation records a flight-recorder bundle (with metrics
-and the SLO tracker attached) that the port replays. prometheus_client
+seams, a simulation records a flight-recorder bundle (with metrics
+and the SLO tracker attached) that the port replays, tunes over and
+keeps in a checkpointed tuning store, and a simulation with the online
+controller and the what-if planner attached plans against its state. prometheus_client
 is blocked too: the metrics stay optional (no registry, an empty
 rendering). The default device is the CUDA card, which raises where
 there is none."""
@@ -180,6 +182,35 @@ _GUARD = textwrap.dedent(
         assert SolverLadderChecker(sim.scheduler).check()[0]
         report = replay_trace(load_trace(path), solvers=("LOCAL", "lax"), device="cpu")
         assert report["ok"] and report["rounds"] > 0, report
+        # Autotune and the what-if planner: the offline tuner over the
+        # bundle into a tuning store through a checkpoint, a simulation
+        # with the online controller and the planner attached, a plan,
+        # a drain plan and a parity check.
+        for name in ("autotune.store", "autotune.controller", "autotune.offline",
+                     "services.checkpoint", "services.submit_check", "tools.autotune",
+                     "whatif.fork", "whatif.mutations", "whatif.planner"):
+            assert "armada_tpu_torch." + name in names
+        from armada_tpu_torch.autotune import TunedParams, TuningStore, tune_corpus
+        from armada_tpu_torch.services.checkpoint import CheckpointStore
+        from armada_tpu_torch.whatif import mutations_from_dicts
+
+        tuned = tune_corpus([load_trace(path)], [TunedParams(2, 0, 1)], repeats=1,
+                            device="cpu")
+        assert tuned["ok"], tuned
+        store = TuningStore()
+        store.put(tuned["selected"])
+        CheckpointStore(os.path.join(tmp, "ckpt")).save("autotune", 0, store.dump())
+        store.load(CheckpointStore(os.path.join(tmp, "ckpt")).load("autotune")[1])
+        sim = Simulator([ClusterSpec("c1", node_templates=(NodeTemplate(count=2, cpu="8"),)),
+                         ClusterSpec("c2", node_templates=(NodeTemplate(count=2, cpu="8"),))],
+                        WorkloadSpec(queues=(QueueSpecSim("q", job_templates=(
+                            JobTemplate(id="t", number=6, cpu="2", memory="1Gi"),)),)),
+                        device="cpu", max_time=40.0, autotune=True, whatif=True)
+        sim.run()
+        plan = sim.whatif.plan(mutations_from_dicts(
+            [{"kind": "inject_gang", "queue": "q", "gang_cardinality": 2, "cpu": "2"}]), rounds=2)
+        assert plan.injected and sim.whatif.plan_drain("c1", rounds=2).drain is not None
+        assert sim.whatif.parity(trace_path=path, allow_foreign=True)["ok"]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu", "yaml",
                                            "prometheus_client"))

@@ -117,7 +117,22 @@ def test_score_nodes_wrapper_takes_plain_version_on_cpu():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tk.LAUNCHES == {"score_nodes": 0, "fill_take": 0, "winner_reduce": 0, "ring_exchange": 0,
-                           "fill_take_global_sort": 0}
+                           "segment_add": 0, "fill_take_global_sort": 0}
+
+
+def test_segment_add_wrapper_takes_plain_version_on_cpu():
+    """segment_add on CPU tensors is its plain version, index_add, with no
+    launch counted, along either dim, int32 and int64."""
+    rng = np.random.default_rng(6)
+    tk.reset_launches()
+    for dtype in (torch.int32, torch.int64):
+        x = torch.as_tensor(rng.integers(-50, 50, size=(3, 9, 4))).to(dtype)
+        idx = torch.as_tensor(rng.integers(0, 9, size=30))
+        vals = torch.as_tensor(rng.integers(-50, 50, size=(3, 30, 4))).to(dtype)
+        got = tk.segment_add(x, 1, idx, vals)
+        assert torch.equal(got, tk.segment_add_plain(x, 1, idx, vals))
+        assert torch.equal(got, x.index_add(1, idx, vals)) and got is not x
+    assert sum(tk.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("case", range(5))

@@ -1,5 +1,5 @@
 """Port copy of the tests/test_metrics_liveness.py cases that need no
-server or what-if planner: every labeled metric family of the port's
+server: every labeled metric family of the port's
 SchedulerMetrics (armada_tpu_torch/services/metrics.py) gets samples
 from a short simulation (dead or never-set families fail loudly),
 serve_metrics binds ephemeral ports, and the info-style gauges follow a
@@ -7,9 +7,10 @@ flip.
 
 The sweep runs the port's simulator on the host oracle, as the JAX
 package's does, and again on the port's kernel on the CPU, whose rounds
-feed the round-observatory families themselves. The families of the
-seams that wait for a later slice (autotune and the what-if planner,
-ROADMAP A1; the front door, A3) are exempt by prefix and must stay
+feed the round-observatory families themselves; an autotune controller
+and a what-if plan against the simulator's scheduler feed the
+`scheduler_autotune_*` and `whatif_*` families. The front door's
+families (ROADMAP A2, a later slice) are exempt by prefix and must stay
 sample-free; the metric family names are the JAX package's
 (`test_metric_families_are_the_reference_families`).
 """
@@ -103,9 +104,9 @@ EXEMPT_LABELED = {
 # liveness-asserted instead by test_frontdoor_families_live_after_short_soak
 # below, which auto-covers families added later.
 FRONTDOOR_PREFIX = "frontdoor_"
-# Autotune and the what-if planner wait for ROADMAP A1: their families
-# are registered (the JAX package's names) and stay silent here.
-WAITING_PREFIXES = (FRONTDOOR_PREFIX, "scheduler_autotune_", "whatif_")
+# The front door waits for ROADMAP A2: its families are registered (the
+# JAX package's names) and stay silent here.
+WAITING_PREFIXES = (FRONTDOOR_PREFIX,)
 
 # UNLABELED families legitimately untouched by this test's sims — each
 # needs a mode the short oracle run does not exercise. Same anti-rot
@@ -249,6 +250,41 @@ def test_every_labeled_family_live_after_short_sim(tmp_path, backend):
             "compacted": True,
         },
     )
+    # The autotune surface (autotune/): drive the controller wiring with
+    # a profile of the shape solve_round emits — an adoption fires the
+    # adjustments counter, the params gauges update on every observation.
+    from armada_tpu_torch.autotune import AutotuneController
+
+    ctl = AutotuneController(
+        SchedulingConfig(
+            hot_window_slots=8, hot_window_min_slots=0,
+            autotune_enabled=True, autotune_hysteresis_rounds=1,
+            autotune_min_window_slots=4, autotune_max_window_slots=64,
+        )
+    )
+    sim.scheduler.attach_autotune(ctl)
+    adopted = ctl.observe_round(
+        "default",
+        {"compacted": True, "rewindows": 8, "gather_s": 0.01,
+         "pass1_s": 0.2},
+        metrics=m,
+    )
+    assert adopted is not None and adopted["direction"] == "grow"
+    # The what-if planner surface (whatif/): one plan against the sim's
+    # scheduler (its rollout on the scheduler's backend and device) puts
+    # samples in whatif_plans_total / whatif_plan_seconds and
+    # whatif_queue_depth.
+    from armada_tpu_torch.whatif import WhatIfService, mutations_from_dicts
+
+    wi = WhatIfService(sim.scheduler, metrics=m)
+    plan = wi.plan(
+        mutations_from_dicts(
+            [{"kind": "inject_gang", "queue": "qa", "gang_cardinality": 2,
+              "cpu": "2"}]
+        ),
+        rounds=2,
+    )
+    assert plan.injected
     # A tiny staged drain on a two-executor harness drives
     # drain_jobs_preempted_total / drain_jobs_completed_total through the
     # real event path.

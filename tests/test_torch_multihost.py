@@ -296,25 +296,25 @@ def test_a_stuck_shard_times_out():
 
 @pytest.mark.parametrize("turns", [True, False])
 def test_turns_keep_other_shards_out_while_the_switch_is_off(monkeypatch, turns):
-    """index_add_int turns torch's process-wide deterministic switch off;
-    a float op that another shard ran meanwhile would be
-    non-deterministic. The group's turns keep every other shard
-    stopped while one is inside it. With turns disabled another shard
-    does see the switch off, which shows the probe would catch it."""
+    """index_add_int never turns torch's process-wide deterministic switch
+    off (ops/segment.py), so no other shard can see it off while one sums
+    integers, with the group's turns or without them: the switch is never
+    called and stays on throughout."""
     from armada_tpu_torch.ops import segment
 
     real = torch.use_deterministic_algorithms
     seen_off, done = threading.Event(), threading.Event()
+    calls = []
 
-    def slow_switch(mode, *, warn_only=False):
+    def counted_switch(mode, *, warn_only=False):
+        calls.append(mode)
         real(mode, warn_only=warn_only)
-        if not mode:
-            seen_off.wait(0.5)  # time for another shard to run, if it can
 
     def fn(shard):
         if shard.index == 0:
             one = torch.ones(1, dtype=torch.int64)
-            segment.index_add_int(torch.zeros(4, dtype=torch.int64), 0, one, one)
+            for _ in range(50):
+                segment.index_add_int(torch.zeros(4, dtype=torch.int64), 0, one, one, True)
             done.set()
         else:
             deadline = time.time() + 2.0
@@ -329,13 +329,14 @@ def test_turns_keep_other_shards_out_while_the_switch_is_off(monkeypatch, turns)
         monkeypatch.setattr(comm.Shard, "_give_turn", lambda self: None)
     before = torch.are_deterministic_algorithms_enabled()
     real(True)
-    monkeypatch.setattr(torch, "use_deterministic_algorithms", slow_switch)
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", counted_switch)
     try:
         _group_run(fn, shape=(1, 2))
         assert torch.are_deterministic_algorithms_enabled()
     finally:
         real(before)
-    assert seen_off.is_set() is not turns
+    assert calls == []
+    assert not seen_off.is_set()
 
 
 def test_a_failing_shard_makes_the_solve_raise(monkeypatch):

@@ -3,8 +3,8 @@
 Inputs are made with numpy from a seed and go through both; the words of
 the bitset tests include ones with the high bit set (negative in the
 port's int32 view of the uint32 words). Also: the integer scatter-add
-leaves torch's deterministic switch as it found it when shard threads
-call it together."""
+leaves torch's deterministic switch on when shard threads call it
+together, and never calls it."""
 
 import threading
 import time
@@ -104,8 +104,9 @@ def test_masked_keys_and_min_match():
 
 
 def test_integer_scatter_add_matches_and_restores_mode():
-    """ops/segment.py: the order-free integer adds equal index_add, refuse
-    floats, and leave the deterministic-algorithms mode as they found it."""
+    """ops/segment.py: the order-free integer adds, through the segment
+    kernel's wrapper and through index_add, equal index_add, refuse floats,
+    and leave the deterministic-algorithms mode as they found it."""
     from armada_tpu_torch.ops.segment import index_add_int, segment_sum
 
     rng = np.random.default_rng(5)
@@ -115,25 +116,30 @@ def test_integer_scatter_add_matches_and_restores_mode():
     before = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        assert torch.equal(segment_sum(vals, idx, 7), want)
-        base = torch.ones(7, 3, dtype=torch.int64)
-        assert torch.equal(index_add_int(base, 0, idx, vals), base.index_add(0, idx, vals.long()))
-        assert torch.are_deterministic_algorithms_enabled()
-        with pytest.raises(TypeError):
-            index_add_int(torch.zeros(7, 3), 0, idx, vals.double())
+        for kernel in (True, False):
+            assert torch.equal(segment_sum(vals, idx, 7, kernel), want)
+            base = torch.ones(7, 3, dtype=torch.int64)
+            assert torch.equal(index_add_int(base, 0, idx, vals, kernel),
+                               base.index_add(0, idx, vals.long()))
+            assert torch.are_deterministic_algorithms_enabled()
+            with pytest.raises(TypeError):
+                index_add_int(torch.zeros(7, 3), 0, idx, vals.double(), kernel)
     finally:
         torch.use_deterministic_algorithms(before)
 
 
 def test_index_add_int_keeps_the_deterministic_switch_across_threads(monkeypatch):
-    """index_add_int turns the process-wide deterministic switch off around
-    its scatter. Threads that flip it unguarded can read another thread's
-    "off" and restore that; the switch must end on, as it started."""
+    """index_add_int never flips the process-wide deterministic switch
+    (a thread that did could leave another thread's float op on torch's
+    atomic path); called from many threads at once, the switch is never
+    called and ends on, as it started."""
     from armada_tpu_torch.ops import segment
 
     real = torch.use_deterministic_algorithms
+    calls = []
 
     def yielding(mode, *, warn_only=False):
+        calls.append(mode)
         real(mode, warn_only=warn_only)
         time.sleep(0)  # let another thread run between the flips
 
@@ -145,7 +151,7 @@ def test_index_add_int_keeps_the_deterministic_switch_across_threads(monkeypatch
 
     def work():
         for _ in range(200):
-            segment.index_add_int(x, 0, one, one)
+            segment.index_add_int(x, 0, one, one, True)
 
     threads = [threading.Thread(target=work) for _ in range(8)]
     try:
@@ -155,5 +161,65 @@ def test_index_add_int_keeps_the_deterministic_switch_across_threads(monkeypatch
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads)
         assert torch.are_deterministic_algorithms_enabled()
+        assert calls == []
     finally:
         real(before)
+
+
+@pytest.mark.parametrize("path", ["kernel", "index_add"])
+def test_segment_add_paths_equal_index_add(path):
+    """ops/segment.py's two paths (the segment kernel's wrapper, which
+    takes its plain version on the CPU, and torch's index_add) equal
+    index_add on int32 and int64, along dim 0 and 1, with values at the
+    types' extremes (the sums wrap as index_add's do), empty index lists
+    and empty segments. tests/test_torch_cuda.py holds the kernel itself
+    to the same cases on the card."""
+    from armada_tpu_torch.ops import segment
+
+    kernel = path == "kernel"
+    rng = np.random.default_rng(7)
+    for trial in range(60):
+        dtype = (torch.int32, torch.int64)[trial % 2]
+        info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+        n, k = int(rng.integers(1, 40)), int(rng.integers(0, 200))
+        rest = tuple(int(r) for r in rng.integers(1, 4, size=int(rng.integers(0, 3))))
+        idx = torch.as_tensor(rng.integers(0, n, size=k))
+        vals = torch.as_tensor(rng.integers(info.min, info.max, size=(k,) + rest, dtype=np.int64)).to(dtype)
+        x = torch.as_tensor(rng.integers(info.min, info.max, size=(n,) + rest, dtype=np.int64)).to(dtype)
+        assert torch.equal(segment.index_add_int(x, 0, idx, vals, kernel), x.index_add(0, idx, vals))
+        if rest:
+            xt, vt = x.movedim(0, 1).contiguous(), vals.movedim(0, 1).contiguous()
+            assert torch.equal(segment.index_add_int(xt, 1, idx, vt, kernel),
+                               xt.index_add(1, idx, vt))
+
+
+def test_no_solve_calls_the_deterministic_switch(monkeypatch):
+    """ROADMAP C2: after resolve_device, no solve calls
+    torch.use_deterministic_algorithms — round_25k's shape with fast fill
+    and with the default fill, and on a 2x2 mesh of shard threads — so a
+    what-if rollout on a worker thread can never leave the live round's
+    float ops on torch's atomic path. Counted by wrapping the switch."""
+    import armada_tpu_torch.device as port_device
+    from armada_tpu_torch.parallel.mesh import pad_nodes
+    from armada_tpu_torch.parallel.multihost import resolve_solver
+    from armada_tpu_torch.snapshot.round import build_round_snapshot
+    from armada_tpu_torch.solver.kernel import solve_round
+    from armada_tpu_torch.solver.kernel_prep import pad_device_round, prep_device_round
+    from armada_tpu_torch.workload import build_inputs
+
+    port_device.resolve_device("cpu")
+    calls = []
+    real = torch.use_deterministic_algorithms
+    monkeypatch.setattr(torch, "use_deterministic_algorithms",
+                        lambda *a, **k: (calls.append(a), real(*a, **k)))
+    fast = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(25_000, 1250, n_running=1250, fast_fill=True))))
+    fast_out = solve_round(fast, device="cpu", window=64, window_min_slots=0)
+    assert fast_out["profile"]["compacted"]
+    small = pad_device_round(prep_device_round(build_round_snapshot(
+        *build_inputs(2000, 100, n_running=200))))
+    solve_round(small, device="cpu")
+    mesh = resolve_solver("2x2", "cuda", devices=["cpu"] * 4)(pad_nodes(fast, 4))
+    assert np.array_equal(np.asarray(mesh["assigned_node"]), solve_round(fast, device="cpu")["assigned_node"])
+    assert calls == []
+    assert torch.are_deterministic_algorithms_enabled()

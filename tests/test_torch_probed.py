@@ -2,7 +2,12 @@
 port test held to the reference until now (ROADMAP C1): reconciliation,
 the simulator, the job database's change log, the pod checks, report
 retention, the short-job penalty, the async runner, and the chaos
-simulation's executor-crash recovery.
+simulation's executor-crash recovery; and the four paths of the device
+round probed by hand before (`PINNED`): floating resources, the
+cross-pool rounds and service, the service's round-budget path (on the
+host oracle, as the reference's cases run it, and on the kernel), and
+the chaos simulation's history (`_chaos_sim` of tests/test_residency.py
+in each snapshot mode, its returned history equal too).
 
 Each case runs side by side: the JAX package's test function as it is,
 and the same function compiled from its source with every `armada_tpu`
@@ -19,16 +24,11 @@ the CPU to the JAX package's oracle.
 """
 
 import importlib
-import re
-import types
 
 import pytest
 import torch_cpu  # noqa: F401
 
-import armada_tpu.services.scheduler as ref_scheduler
-import armada_tpu_torch.device as port_device
-import armada_tpu_torch.services.scheduler as port_scheduler
-from torch_control_plane import leases_view
+from torch_control_plane import run_side_by_side
 
 FILES = (
     "test_reconciliation",
@@ -40,22 +40,6 @@ FILES = (
     "test_runner",
 )
 EXTRA = (("test_chaos", "test_sim_executor_crash_recovers_all_jobs"),)
-
-_PORTED: dict = {}
-
-
-def port_copy(name):
-    """The reference test module `name`, compiled again from its source
-    with `armada_tpu` imports pointed at `armada_tpu_torch`."""
-    if name not in _PORTED:
-        ref = importlib.import_module(name)
-        with open(ref.__file__) as f:
-            src = re.sub(r"\barmada_tpu(?=[. ])", "armada_tpu_torch", f.read())
-        module = types.ModuleType(f"torch_port_{name}")
-        module.__file__ = ref.__file__
-        exec(compile(src, ref.__file__, "exec"), module.__dict__)
-        _PORTED[name] = module
-    return _PORTED[name]
 
 
 def _cases():
@@ -69,18 +53,30 @@ def _cases():
 CASES = _cases()
 
 
-def _recorded(monkeypatch, module):
-    """Record the leases after every cycle of every scheduler service."""
-    history = []
-    cycle = module.SchedulerService.cycle
+FLOATING = ("test_floating_resources",)
+CROSS_POOL = (
+    "test_cross_pool_borrowing",
+    "test_cross_pool_away_bucket_and_eviction",
+    "test_cross_pool_unbound_away_pressure_only",
+    "test_cross_pool_service_end_to_end",
+    "test_cross_pool_no_same_cycle_double_booking",
+)
+BUDGET = (
+    "test_scheduler_truncated_rounds_resume_and_trip_backpressure",
+    "test_scheduler_no_budget_reports_untruncated",
+)
+ON_KERNEL = ((r'backend="oracle"', 'backend="kernel"'),)
 
-    def recorded(self, *a, **k):
-        out = cycle(self, *a, **k)
-        history.append(leases_view(self.jobdb))
-        return out
 
-    monkeypatch.setattr(module.SchedulerService, "cycle", recorded)
-    return history
+def _pinned():
+    ref = importlib.import_module(FLOATING[0])
+    out = [(FLOATING[0], t, ()) for t in sorted(vars(ref)) if t.startswith("test_")]
+    out += [("test_away", t, ()) for t in CROSS_POOL]
+    out += [("test_round_deadline", t, subs) for t in BUDGET for subs in ((), ON_KERNEL)]
+    return out
+
+
+PINNED = _pinned()
 
 
 def test_every_probed_case_is_collected():
@@ -89,12 +85,34 @@ def test_every_probed_case_is_collected():
 
 
 @pytest.mark.parametrize("name, test", CASES, ids=[f"{n}::{t}" for n, t in CASES])
-def test_probed_case_matches_reference(name, test, monkeypatch):
-    ref_history = _recorded(monkeypatch, ref_scheduler)
-    getattr(importlib.import_module(name), test)()
-    monkeypatch.setattr(port_device, "DEFAULT_DEVICE", "cpu")
-    port_history = _recorded(monkeypatch, port_scheduler)
-    getattr(port_copy(name), test)()
-    assert len(port_history) == len(ref_history)
-    for i, (p, r) in enumerate(zip(port_history, ref_history)):
-        assert p == r, f"cycle {i}"
+def test_probed_case_matches_reference(name, test, monkeypatch, tmp_path):
+    run_side_by_side(name, test, monkeypatch, tmp_path)
+
+
+def test_every_pinned_case_is_collected():
+    """The four floating-resource cases, the five cross-pool cases and
+    the two budget cases on the oracle and on the kernel."""
+    assert len(PINNED) == 4 + 5 + 2 * 2
+
+
+@pytest.mark.parametrize(
+    "name, test, subs", PINNED,
+    ids=[f"{n}::{t}{'[kernel]' if s else ''}" for n, t, s in PINNED],
+)
+def test_pinned_case_matches_reference(name, test, subs, monkeypatch, tmp_path):
+    run_side_by_side(name, test, monkeypatch, tmp_path, subs=subs)
+
+
+@pytest.mark.parametrize("mode", ["rebuild", "incremental", "resident"])
+def test_chaos_history_matches_reference(mode, monkeypatch, tmp_path):
+    """The chaos simulation (an executor crash, a network partition, a
+    lease timeout, a cordon window, a staged drain) on the kernel: its
+    history (states, placements, preemptions, finished jobs, cycles) and
+    the leases after every cycle equal the reference's."""
+    ref, port = run_side_by_side(
+        "test_residency", "_chaos_sim", monkeypatch, tmp_path, args=(mode, None),
+        port_subs=((r"from armada_tpu_torch\.observe import round_ledger",
+                    "from armada_tpu_torch.observe.ledger import round_ledger"),),
+    )
+    assert port == ref
+    assert ref["finished"] >= 40

@@ -16,9 +16,9 @@ ids are random). Also here:
 - a reference service carried into the port (`from_reference_events`,
   `from_reference_checkpoint`), after which both go on with equal leases;
 - the seams this slice wires (metrics, the flight recorder, the SLO
-  tracker, SubmitService(slo=), market pools, the optimiser) work, and
-  those that wait for a later slice refuse with NotImplementedError
-  naming their ROADMAP item.
+  tracker, SubmitService(slo=), market pools, the optimiser, autotune and
+  the what-if planner) work, and those that wait for a later slice refuse
+  with NotImplementedError naming their ROADMAP item.
 """
 
 import pytest
@@ -554,16 +554,63 @@ def test_service_run_cuda_path_equals_lax_path():
     assert hist["cuda"] == hist["lax"]
 
 
+def _sim(**kw):
+    from armada_tpu_torch.sim import ClusterSpec, Simulator, WorkloadSpec
+
+    return Simulator([ClusterSpec(name="c")], WorkloadSpec(queues=()),
+                     backend="oracle", **kw)
+
+
 @pytest.mark.parametrize("call", [
-    lambda s: s.attach_autotune(object()),
-    lambda s: s.attach_fork_capture(object()),
-    lambda s: s.attach_whatif(object()),
+    lambda s: PORT.SubmitService(s.config, s.log, frontdoor=object()),
+    lambda s: _sim(data_dir="unused"),
+    lambda s: _sim(frontdoor=2),
 ])
 def test_waiting_seams_refuse(call):
-    """Autotune and the what-if planner wait for ROADMAP A1."""
-    sched = PORT.SchedulerService(config(PORT), PORT.InMemoryEventLog(), backend="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    """The seams whose modules wait for a later slice refuse, naming
+    their ROADMAP item: the file-backed log (A1) and the front door
+    (A2). Autotune and the what-if planner attach (see
+    test_autotune_and_whatif_seams_attach)."""
+    sched = PORT.SchedulerService(config(PORT), PORT.InMemoryEventLog(), backend="oracle")
+    with pytest.raises(NotImplementedError, match="ROADMAP A[12]"):
         call(sched)
+
+
+def test_autotune_and_whatif_seams_attach():
+    """attach_autotune, attach_fork_capture and attach_whatif take the
+    port's controller, capture and planner, and Simulator(autotune=,
+    whatif=) builds and attaches them."""
+    from armada_tpu_torch.autotune import AutotuneController
+    from armada_tpu_torch.whatif import ForkCapture, WhatIfService
+
+    sched = PORT.SchedulerService(config(PORT), PORT.InMemoryEventLog(), device="cpu")
+    ctl, capture = AutotuneController(sched.config, enabled=True), ForkCapture()
+    sched.attach_autotune(ctl)
+    sched.attach_fork_capture(capture)
+    assert sched.autotune is ctl and sched.fork_capture is capture
+    wi = WhatIfService(sched)
+    sched.attach_whatif(wi)
+    assert sched.whatif is wi and sched.fork_capture is wi.capture
+    sim = _sim(autotune=True, whatif=True)
+    assert sim.scheduler.autotune is sim.autotune and sim.autotune.enabled
+    assert sim.scheduler.whatif is sim.whatif
+
+
+def test_whatif_refuses_a_budgeted_service():
+    """A what-if planner beside a round with a budget would slow the
+    round past it and change what it commits (ROADMAP C3): the planner
+    refuses such a service, and takes the same service unbudgeted."""
+    import dataclasses
+
+    from armada_tpu_torch.whatif import WhatIfService
+
+    budgeted = dataclasses.replace(config(PORT), max_scheduling_duration_s=5.0)
+    sched = PORT.SchedulerService(budgeted, PORT.InMemoryEventLog(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP C3"):
+        WhatIfService(sched)
+    assert sched.whatif is None and sched.fork_capture is None
+    sched.config = dataclasses.replace(budgeted, max_scheduling_duration_s=0.0)
+    WhatIfService(sched)
 
 
 def _attach_metrics(sched, tmp_path):
@@ -615,7 +662,7 @@ def test_attached_seams_observe_the_cycles(attach, check, tmp_path):
 def test_market_optimiser_and_slo_config_accepted():
     """A market pool with a bid provider, the optimiser and an SLO
     tracker on the submit service start and cycle on the port; the front
-    door still waits for the server slice (ROADMAP A3)."""
+    door still waits for the server slice (ROADMAP A2)."""
     import dataclasses
 
     from armada_tpu_torch.core.config import OptimiserConfig
@@ -638,7 +685,7 @@ def test_market_optimiser_and_slo_config_accepted():
     assert sched.jobdb.get("job-0000").latest_run is not None
     assert sched.reports.latest_reports()["default"].queues["q"].realised_value > 0
     assert {s["name"]: s["observed"] for s in slo.snapshot()["slos"]}["frontdoor-p99"] == 1
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="A2"):
         PORT.SubmitService(cfg, log, frontdoor=object())
 
 

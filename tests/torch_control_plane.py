@@ -13,6 +13,11 @@ its reference counterpart on the same inputs and holds them equal.
 (`events.model.new_id`), so two services fed the same events compare
 equal. `Package` gathers one package's control-plane classes under the
 same names, so a test case is written once and run against both.
+
+`port_copy` compiles a reference test module again with its
+`armada_tpu` imports pointed at the port, and `run_side_by_side` runs
+one of its cases on both packages, recording the leases after every
+cycle of every scheduler service (`record_cycles`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import dataclasses
 import enum
 import functools
 import importlib
+import inspect
+import re
 import types
 
 
@@ -179,3 +186,95 @@ def twinned(port_fn, ref_fn):
         return got
 
     return call
+
+
+_COPIES: dict = {}
+
+
+def port_copy(name, subs=(), *, port=True):
+    """The reference test module `name`, compiled again from its source
+    with `armada_tpu` imports pointed at `armada_tpu_torch` (with
+    `port=False`, left as they are), then each (pattern, replacement)
+    regex of `subs` applied."""
+    key = (name, tuple(subs), port)
+    if key not in _COPIES:
+        ref = importlib.import_module(name)
+        with open(ref.__file__) as f:
+            src = f.read()
+        if port:
+            src = re.sub(r"\barmada_tpu(?=[. ])", "armada_tpu_torch", src)
+        for pattern, replacement in subs:
+            src, n = re.subn(pattern, replacement, src)
+            assert n, f"{name}: {pattern!r} matches nothing"
+        module = types.ModuleType(f"{'torch_port' if port else 'variant'}_{name}")
+        module.__file__ = ref.__file__
+        exec(compile(src, ref.__file__, "exec"), module.__dict__)
+        _COPIES[key] = module
+    return _COPIES[key]
+
+
+def record_cycles(monkeypatch, module):
+    """Record the leases after every cycle of every SchedulerService of
+    the scheduler module `module`: one history per service, in the order
+    the services first cycle (what-if rollouts run services of their
+    own)."""
+    histories = []
+    cycle = module.SchedulerService.cycle
+
+    def recorded(self, *a, **k):
+        out = cycle(self, *a, **k)
+        history = self.__dict__.get("_recorded_cycles")
+        if history is None:
+            history = self.__dict__["_recorded_cycles"] = []
+            histories.append(history)
+        history.append(leases_view(self.jobdb))
+        return out
+
+    monkeypatch.setattr(module.SchedulerService, "cycle", recorded)
+    return histories
+
+
+def case_marks(name, test):
+    """The pytest marks of the reference case `name`::`test` (slow,
+    skipif), to put on its side-by-side case."""
+    return list(getattr(getattr(importlib.import_module(name), test), "pytestmark", []))
+
+
+def run_side_by_side(name, test, monkeypatch, tmp_path, *, args=(), subs=(), port_subs=(),
+                     first_only=False):
+    """Run the reference case `name`::`test`, then its port copy with the
+    port's default device set to the CPU; each case's own assertions
+    hold on both. `subs` rewrite both sides (a variant of the case, say
+    on another backend), `port_subs` the port's alone (its CLI in place
+    of the reference's script). The leases after every cycle are equal
+    service by service (with `first_only`, the first service's alone: a
+    case whose other services run on threads in an order of their own).
+    A case's `tmp_path` argument is a directory of its own per package;
+    `args` go to both calls (a helper of the module run as a case).
+    Returns both calls' return values (reference, port)."""
+    import armada_tpu.services.scheduler as ref_scheduler
+    import armada_tpu_torch.device as port_device
+    import armada_tpu_torch.services.scheduler as port_scheduler
+
+    def call(fn, label):
+        kwargs = {}
+        for arg in list(inspect.signature(fn).parameters)[len(args):]:
+            assert arg == "tmp_path", f"{name}::{test}: fixture {arg!r}"
+            kwargs[arg] = tmp_path / label
+            kwargs[arg].mkdir()
+        return fn(*args, **kwargs)
+
+    ref_module = port_copy(name, subs, port=False) if subs else importlib.import_module(name)
+    ref_history = record_cycles(monkeypatch, ref_scheduler)
+    ref_out = call(getattr(ref_module, test), "ref")
+    monkeypatch.setattr(port_device, "DEFAULT_DEVICE", "cpu")
+    port_history = record_cycles(monkeypatch, port_scheduler)
+    port_out = call(getattr(port_copy(name, tuple(subs) + tuple(port_subs)), test), "port")
+    if first_only:
+        ref_history, port_history = ref_history[:1], port_history[:1]
+    assert len(port_history) == len(ref_history)
+    for k, (p, r) in enumerate(zip(port_history, ref_history)):
+        assert len(p) == len(r), f"service {k}"
+        for i, (a, b) in enumerate(zip(p, r)):
+            assert a == b, f"service {k}, cycle {i}"
+    return ref_out, port_out
