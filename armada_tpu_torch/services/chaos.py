@@ -20,8 +20,7 @@ Fault kinds:
                    simulator models this by deferring lease pickup)
   lease_timeout    lease RPCs fail with a timeout
   torn_log_write   an event-log append "crashes" mid-record, leaving a
-                   torn tail for recovery to truncate (the file-backed
-                   log that consumes it waits, ROADMAP A1)
+                   torn tail for recovery to truncate
   leader_flap      leadership is lost for the window
 
 Network fault kinds — consumed by the TCP chaos proxy
@@ -202,7 +201,7 @@ class FaultPlan:
 
 class VirtualClock:
     """Mutable clock shared between the simulator and chaos-aware
-    components (ChaosLeader, SolverChaos): the sim advances `now`,
+    components (ChaosLeader, CrashRecoveringLog): the sim advances `now`,
     everyone else reads it."""
 
     def __init__(self, now: float = 0.0):
@@ -453,3 +452,95 @@ class SolverChaos:
             out["assigned_node"] = assigned
             applied.append("solver_wrong_placement")
         return applied
+
+
+class CrashRecoveringLog:
+    """A FileEventLog whose torn-write faults behave like process crashes.
+
+    Wraps a FileEventLog built with a FaultPlan-driven injector and
+    sync_every=1 (so the only record at risk is the one being torn). When
+    an append tears, the wrapper reopens the log — recovery truncates the
+    torn tail — and retries the publish: the at-least-once redelivery a
+    restarted publisher performs. Views keep their reference to the
+    wrapper across "crashes"."""
+
+    def __init__(self, directory: str, plan: FaultPlan | None = None,
+                 clock=None, target: str = "log", **kwargs):
+        self.directory = directory
+        self.plan = plan
+        self.clock = clock if clock is not None else _time.time
+        # Fault target this log answers to ("log" historically; front-door
+        # shard WALs use "shard-<i>" so one plan can tear a single shard).
+        self.target = target
+        self.crashes = 0
+        self._suppress_once = False
+        kwargs["sync_every"] = 1
+        self._kwargs = kwargs
+        self._open()
+
+    def _injector(self, data_len: int) -> int | None:
+        if self.plan is None or self._suppress_once:
+            # The retry immediately after a "crash" must succeed — an
+            # unlimited-count torn_log_write spec would otherwise re-fire
+            # on every retry and publish() would never terminate (the
+            # virtual clock cannot advance inside one publish).
+            self._suppress_once = False
+            return None
+        spec = self.plan.fire("torn_log_write", self.target, self.clock())
+        if spec is None:
+            return None
+        frac = spec.param if 0.0 < spec.param < 1.0 else 0.5
+        return max(0, min(data_len - 1, int(data_len * frac)))
+
+    def _open(self):
+        from ..events.file_log import FileEventLog
+
+        self._inner = FileEventLog(
+            self.directory, fault_injector=self._injector, **self._kwargs
+        )
+
+    def publish(self, sequence) -> int:
+        from ..events.file_log import InjectedFault
+
+        while True:
+            try:
+                return self._inner.publish(sequence)
+            except InjectedFault:
+                self.crashes += 1
+                self._suppress_once = True  # the restarted retry lands
+                self._open()  # recovery truncates the torn tail
+
+    # -- delegation (the EventLog read surface) --
+
+    def read(self, cursor, limit: int = 1000):
+        return self._inner.read(cursor, limit)
+
+    def read_jobset(self, queue, jobset, cursor: int = 0):
+        return self._inner.read_jobset(queue, jobset, cursor)
+
+    @property
+    def end_offset(self) -> int:
+        return self._inner.end_offset
+
+    @property
+    def start_offset(self) -> int:
+        return self._inner.start_offset
+
+    @property
+    def dir(self):
+        return self._inner.dir
+
+    def compact(self, up_to: int) -> int:
+        return self._inner.compact(up_to)
+
+    def watcher(self):
+        return self._inner.watcher()
+
+    def remove_watcher(self, cond):
+        return self._inner.remove_watcher(cond)
+
+    def flush(self):
+        return self._inner.flush()
+
+    def close(self):
+        return self._inner.close()

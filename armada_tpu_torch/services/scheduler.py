@@ -74,6 +74,14 @@ class ExecutorHeartbeat:
     last_seen: float = 0.0
 
 
+def _with_priority(job):
+    """The job's spec at its current priority: the spec itself where the
+    priority is unchanged (the spec is frozen), so a round's inputs of
+    100k jobs are not 100k dataclass copies."""
+    spec = job.spec
+    return spec if spec.priority == job.priority else spec.with_(priority=job.priority)
+
+
 class SchedulerService:
     def __init__(
         self,
@@ -1296,7 +1304,7 @@ class SchedulerService:
             if run_pool == pool or run_pool in borrower_pools:
                 running.append(
                     RunningJob(
-                        job=job.spec.with_(priority=job.priority),
+                        job=_with_priority(job),
                         node_id=node_id,
                         scheduled_at_priority=prio,
                         leased_ts=leased_ts,
@@ -1357,7 +1365,7 @@ class SchedulerService:
             # empty pools = eligible everywhere.
             and (not j.spec.pools or pool in j.spec.pools)
         ]
-        queued = [j.spec.with_(priority=j.priority) for j in queued_jobs]
+        queued = [_with_priority(j) for j in queued_jobs]
         # Retry anti-affinity: nodes where earlier attempts failed
         # (scheduler.go:589-636).
         excluded_nodes = {
@@ -2195,7 +2203,7 @@ class SchedulerService:
                 excluded.pop(jid, None)
             if job.state == JobState.QUEUED:
                 if row is None:
-                    adds.append(job.spec.with_(priority=job.priority))
+                    adds.append(_with_priority(job))
                 else:
                     if inc._is_running[row]:
                         unbinds.append(jid)
@@ -2210,7 +2218,7 @@ class SchedulerService:
                 lease = (jid, run.node_id, run.scheduled_at_priority,
                          run.leased)
                 if row is None:
-                    adds.append(job.spec.with_(priority=job.priority))
+                    adds.append(_with_priority(job))
                     binds.append(lease)
                 elif not inc._is_running[row]:
                     binds.append(lease)

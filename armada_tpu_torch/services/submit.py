@@ -52,10 +52,6 @@ class SubmitService:
     def __init__(self, config: SchedulingConfig, log, scheduler=None,
                  checkpoint=None, store_health=None, frontdoor=None,
                  slo=None):
-        if frontdoor is not None:
-            raise NotImplementedError(
-                "the front door waits for the server slice (ROADMAP A2)"
-            )
         self.config = config
         self.log = log
         self.scheduler = scheduler  # optional: queue updates pushed through
@@ -69,7 +65,7 @@ class SubmitService:
         # -> (healthy, reason); submissions are shed while the store is
         # backed up (the reference rejects work on etcd capacity).
         self.store_health = store_health
-        # Optional front door (frontdoor/, the server slice): job submissions
+        # Optional front door (frontdoor/): job submissions
         # route through per-tenant admission and a jobset-keyed shard WAL
         # (the ack point) instead of publishing straight to the log; the
         # shard ingesters deliver into the log exactly-once. Queue CRUD

@@ -149,21 +149,17 @@ class Simulator:
         # on the scheduler's device) so sim tests exercise planning
         # against live sim state.
         whatif=False,
-        # The JAX package's options whose modules wait for a later slice;
-        # each refuses anything but its default: data_dir (the
-        # file-backed log, ROADMAP A1) and frontdoor (the server slice,
-        # A2).
+        # Durable event log (events/file_log.py): a CrashRecoveringLog
+        # under this directory, torn-write faults of the fault plan
+        # acting as process crashes, and the scheduler's quarantine
+        # directory under it. None = the in-memory log.
         data_dir: str | None = None,
+        # Front door (frontdoor/): an int routes submissions through
+        # that many jobset-keyed ingest shards (pumped before every
+        # cycle on the virtual clock, chaos plan included); a prebuilt
+        # FrontDoor attaches as-is. 0/None = direct publish.
         frontdoor=None,
     ):
-        for name, value, item in (
-            ("data_dir", data_dir, "A1"),
-            ("frontdoor", frontdoor, "A2"),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"Simulator({name}=...) waits for ROADMAP {item}"
-                )
         self.config = config or SchedulingConfig()
         self.rng = np.random.default_rng(seed)
         self.cycle_interval = cycle_interval
@@ -171,7 +167,8 @@ class Simulator:
 
         # Deterministic chaos (services/chaos.py): the plan runs on the
         # sim's VIRTUAL clock, so injected faults land at the same instants
-        # every run of a seed.
+        # every run of a seed. With data_dir the event log is file-backed
+        # and torn-write faults exercise real crash recovery.
         self.fault_plan = fault_plan
         self.chaos_clock = None
         # Fault window boundaries are interesting instants: stepping the
@@ -195,7 +192,16 @@ class Simulator:
             is_leader = ChaosLeader(
                 StandaloneLeader(), fault_plan, clock=self.chaos_clock
             )
-        self.log = InMemoryEventLog()
+        if data_dir is not None:
+            from ..services.chaos import CrashRecoveringLog, VirtualClock
+
+            if self.chaos_clock is None:
+                self.chaos_clock = VirtualClock()
+            self.log = CrashRecoveringLog(
+                data_dir, fault_plan, clock=self.chaos_clock
+            )
+        else:
+            self.log = InMemoryEventLog()
         self.scheduler = SchedulerService(
             self.config, self.log, backend=backend, mesh=mesh,
             snapshot_mode=snapshot_mode, is_leader=is_leader, device=device,
@@ -212,6 +218,29 @@ class Simulator:
                 self.scheduler.attach_solver_chaos(
                     SolverChaos(fault_plan, clock=self.chaos_clock)
                 )
+        if data_dir is not None and not self.scheduler.quarantine_dir:
+            import os as _os
+
+            self.scheduler.quarantine_dir = _os.path.join(
+                data_dir, "quarantine"
+            )
+        self.frontdoor = None
+        if frontdoor:
+            from ..frontdoor import FrontDoor
+            from ..services.chaos import VirtualClock
+
+            if self.chaos_clock is None:
+                self.chaos_clock = VirtualClock()
+            self.frontdoor = (
+                frontdoor
+                if not isinstance(frontdoor, (int, bool))
+                else FrontDoor(
+                    self.log,
+                    num_shards=int(frontdoor) if frontdoor is not True else 2,
+                    fault_plan=fault_plan,
+                    clock=self.chaos_clock,
+                )
+            )
         self.slo = None
         if slo:
             from ..services.slo import SLOTracker
@@ -223,7 +252,8 @@ class Simulator:
             )
             self.scheduler.attach_slo(self.slo)
         self.submit = SubmitService(
-            self.config, self.log, scheduler=self.scheduler, slo=self.slo
+            self.config, self.log, scheduler=self.scheduler,
+            frontdoor=self.frontdoor, slo=self.slo,
         )
         self.span_tracer = None
         if span_path is not None:
@@ -371,6 +401,11 @@ class Simulator:
                 self.submit.submit(queue, jobset, jobs, now=t)
                 sub_idx += 1
 
+            if self.frontdoor is not None:
+                # Drain shard WALs before the round on the same virtual
+                # instant: acked work is visible to the cycle unless a
+                # shard is partitioned/crash-looping in this window.
+                self.frontdoor.pump(now=t)
             for ex in self.executors:
                 ex.tick(t)
             seqs = self.scheduler.cycle(now=t)
@@ -386,7 +421,15 @@ class Simulator:
             states = [j.state for j in txn.all_jobs()]
             finished = sum(1 for s in states if s.terminal)
             all_submitted = sub_idx >= len(self._pending_submissions)
-            if all_submitted and states and finished == len(states):
+            if (
+                all_submitted
+                and states
+                and finished == len(states)
+                and (self.frontdoor is None or self.frontdoor.max_lag() == 0)
+            ):
+                # With a front door, acked-but-undelivered work is still
+                # in a shard WAL (e.g. behind a partition window): the
+                # sim keeps stepping until every ack lands and finishes.
                 break
 
             # Advance virtual time: next interesting instant. Only FUTURE

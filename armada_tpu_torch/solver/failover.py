@@ -47,7 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..device import DEFAULT_DEVICE
+from .. import device as _device
 
 _STATE_CODE = {"closed": 0, "half-open": 1, "open": 2}
 
@@ -79,7 +79,9 @@ def build_ladder(backend: str, mesh, config, *, device) -> tuple:
             rungs.append(Rung("local", "LOCAL"))
         else:
             rungs.append(Rung("local", f"local:{kpath}", kpath))
-        if torch.device(DEFAULT_DEVICE if device is None else device).type == "cuda":
+        # The default device is read at call time, as resolve_device
+        # reads it, not bound when this module is imported.
+        if torch.device(_device.DEFAULT_DEVICE if device is None else device).type == "cuda":
             # The card's ladder ends here: a round that fails on the
             # configured path is rejected and requeued, never re-solved
             # on the plain path or the host.

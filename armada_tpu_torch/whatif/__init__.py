@@ -19,13 +19,16 @@ pool off the round thread (a planner burst adds zero live latency).
 
 This is the port's copy of the JAX package's whatif/ package; its
 shadow solves run on the live scheduler's device (the CUDA card unless
-the service runs on the CPU).
+the service runs on the CPU), and a plan's rollout runs in a worker
+process of its own (`worker.py`), so that its host loop never holds the
+live process's interpreter lock.
 """
 
 from .drain import DrainController, DrainCoordinator
 from .fork import ForkCapture, ForkState, RoundFork, fork_from_scheduler, fork_from_trace
 from .mutations import Mutation, mutation_from_dict, mutations_from_dicts
 from .planner import Plan, WhatIfBusyError, WhatIfService
+from .worker import RolloutWorkerDied
 
 __all__ = [
     "DrainController",
@@ -39,6 +42,7 @@ __all__ = [
     "mutation_from_dict",
     "mutations_from_dicts",
     "Plan",
+    "RolloutWorkerDied",
     "WhatIfBusyError",
     "WhatIfService",
 ]

@@ -17,31 +17,40 @@ A plan is produced by:
 
 Plans run on a bounded worker pool off the round thread; the pending
 backlog is capped and excess requests fail fast with `WhatIfBusyError`
-(RESOURCE_EXHAUSTED on the wire), and a plan never changes what a live
-round decides (the planner-isolation burst of tests/test_torch_whatif.py).
+(RESOURCE_EXHAUSTED on the wire) — a planner burst must add zero
+latency to live rounds, and a plan never changes what a live round
+decides (the planner-isolation burst of tests/test_torch_whatif.py).
 
 This is the port's copy of the JAX package's whatif/planner.py. A
 rollout's SchedulerService and a parity solve run on the live
 scheduler's device (`SchedulerService.device`): the CUDA card by
 default, where LOCAL is the `local:cuda` rung (the hand-written fill
 kernels) and hotwindow:W that rung with window W; the CPU where the
-live service runs there. Rollouts run on worker threads beside the live
-round: nothing in the port flips a process-wide torch setting inside a
-solve (ops/segment.py), so neither perturbs the other's decisions. They
-do share the interpreter lock with it: the live solve's host loop hands
-the lock over at every torch call, and a rollout's Python holds it up to
-the switch interval each time, so a live round with a plan beside it
-takes longer (ROADMAP C3). A service with a round budget
-(`max_scheduling_duration_s` > 0) would then cut its live rounds short
-and commit a prefix, so plans would change what it decides: the planner
-refuses such a service until C3 is fixed.
+live service runs there. Where the JAX package runs a plan on a worker
+thread (its round is one jitted call, which takes the interpreter lock
+once), the port runs each plan's rollout in a worker process
+(`worker.py`): the live solve's host loop hands the lock over at every
+torch call, and a rollout on a thread beside it made a live cycle about
+10x slower on an H100 host. The live process keeps the bounded
+backlog, builds the fork and sends its post-round `ForkState` with the
+mutations as their dicts (`PlanJob`), its job and node specs as keys
+into what the process kept of its last plan (`worker.Shared`); the
+process applies the mutations, runs the `ForkRollout` and diffs it into
+the `Plan` (`rollout_plan`), and sends back the plan with the rollout's
+leases and preemptions. `WhatIfService.plan_stats` records what each
+plan cost the live process. A drain plan's `execute_drain` and parity
+checks stay in the live process.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import pickle
 import threading
 import time as _time
 from collections import deque
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from dataclasses import replace as dc_replace
@@ -52,7 +61,8 @@ from ..core.resources import parse_quantity
 from ..events import EventSequence, InMemoryEventLog, JobRunLeased, JobRunPreempted, SubmitJob
 from ..jobdb import JobState
 from .fork import ForkCapture, ForkState, RoundFork, fork_from_scheduler, fork_from_trace
-from .mutations import Mutation
+from .mutations import Mutation, mutations_from_dicts
+from .worker import RolloutWorkers
 
 
 class WhatIfBusyError(RuntimeError):
@@ -228,6 +238,8 @@ class ForkRollout:
         # horizon: the planner is pessimistic about voluntary completion
         # unless the caller supplies remaining-runtime estimates.
         horizon = max(1e9, self.cycle_interval * 1e6)
+        if isinstance(runtime_for, Mapping):
+            runtime_for = _RemainingRuntimes(dict(runtime_for), horizon)
         self._runtime_for = runtime_for or (lambda job_id: horizon)
         self._seed(now)
         self.scheduler = SchedulerService(
@@ -382,9 +394,333 @@ class ForkRollout:
         }
 
 
+@dataclass(frozen=True)
+class _RemainingRuntimes:
+    """A rollout's `runtime_for` given as a mapping: remaining seconds by
+    job id, `default` (the horizon) for the jobs it does not name."""
+
+    seconds: dict
+    default: float
+
+    def __call__(self, job_id: str) -> float:
+        return self.seconds.get(job_id, self.default)
+
+
+def _check_runtime_for(runtime_for) -> None:
+    """A plan's `runtime_for` crosses to the rollout process: None, a
+    mapping of job id to remaining seconds, or a picklable callable (a
+    module-level function, as the JAX package's planner takes any
+    callable). Anything else is refused here, in the caller, before the
+    plan takes a backlog slot."""
+    if runtime_for is None or isinstance(runtime_for, Mapping):
+        return
+    if not callable(runtime_for):
+        raise TypeError(f"runtime_for must be a mapping or a callable, not {runtime_for!r}")
+    try:
+        pickle.dumps(runtime_for)
+    except Exception as e:
+        raise TypeError(
+            "runtime_for cannot cross to the what-if rollout process: pass a "
+            "mapping of job id to remaining seconds (or a picklable callable, "
+            f"such as a module-level function) instead of {runtime_for!r} ({e})"
+        ) from e
+
+
+@dataclass
+class PlanJob:
+    """One plan's inputs as host data: what the live process sends to a
+    rollout process. `state` is the fork's post-round state, before the
+    mutations (`mutations`, as their dicts), its specs shared with the
+    process (`_shared_state`); `live_fairness` the live round's fairness
+    document for the pool, to diff the rollout's against."""
+
+    state: ForkState
+    mutations: list
+    pool: str
+    backend: str
+    cycle: int | None
+    live_fairness: dict | None
+    solver: object
+    rounds: int
+    cycle_interval: float
+    runtime_for: object
+    kind: str
+    device: object
+
+
+def _running_jobs(jobs, node_ids, priorities, leased_ts, away) -> list:
+    from ..core.types import RunningJob
+
+    return [RunningJob(job=j, node_id=n, scheduled_at_priority=p, leased_ts=t, away=a)
+            for j, n, p, t, a in zip(jobs, node_ids, priorities, leased_ts, away)]
+
+
+class _SharedRunning:
+    """A fork's running jobs as columns, their specs shared with the
+    rollout process; loaded there as the list of RunningJob."""
+
+    def __init__(self, running, share):
+        self.args = (
+            share([r.job for r in running]),
+            [r.node_id for r in running],
+            [r.scheduled_at_priority for r in running],
+            [r.leased_ts for r in running],
+            [r.away for r in running],
+        )
+
+    def __reduce__(self):
+        return _running_jobs, self.args
+
+
+def _shared_state(state: ForkState, share) -> ForkState:
+    """`state` with its node, queued and running jobs' specs passed
+    through `share` (worker.Worker.share): the rollout process loads the
+    same state, and keeps those specs for the next plan."""
+    return dc_replace(state, nodes=share(state.nodes), queued=share(state.queued),
+                      running=_SharedRunning(state.running, share))
+
+
+def rollout_plan(job: PlanJob) -> dict:
+    """Apply the mutations to the fork, run its rollout and diff it into
+    a `Plan`. Runs in a rollout process (worker.py); returns the plan's
+    dict (`plan_seconds` this function's), the rollout's leases (job id
+    to cycle, node and executor) and preemptions (job id to cycle and
+    reason), the process's id and the hand-written kernels' launches of
+    the rollout."""
+    from ..ops import kernels
+
+    before = dict(kernels.LAUNCHES)
+    t0 = _time.monotonic()
+    state = job.state
+    baseline_running = {r.job.id: r.node_id for r in state.running}
+    baseline = {
+        "running": len(state.running),
+        "queued": len(state.queued),
+        "nodes": len(state.nodes),
+        "cycle": job.cycle,
+    }
+    for m in mutations_from_dicts(job.mutations):
+        m.apply(state)
+    feasibility = _injection_feasibility(state)
+    rounds = job.rounds
+    if state.drain_executors:
+        # The horizon must COVER every drain's deadline (else the
+        # dry-run predicts "nothing happens" about a deadline it
+        # never reached), plus the requested rounds for requeue
+        # landings. Bounded: the early-stop predicate ends the
+        # rollout as soon as the drain completes and everything
+        # displaced has landed.
+        default_deadline = float(getattr(state.config, "drain_deadline_s", 0.0))
+        worst = max(
+            default_deadline if dl is None else float(dl)
+            for _, dl in state.drain_executors
+        )
+        rounds += min(int(math.ceil(worst / job.cycle_interval)) + 1, 1000)
+    rollout = ForkRollout(
+        state,
+        solver=job.solver,
+        backend=job.backend,
+        cycle_interval=job.cycle_interval,
+        runtime_for=job.runtime_for,
+        device=job.device,
+    )
+
+    injected = set(state.injected_job_ids)
+
+    def goals_met(r: ForkRollout) -> bool:
+        if any(d.state != "done" for d in r.drains):
+            return False
+        if injected and not all(j in r.leases for j in injected):
+            return False
+        displaced_pending = [
+            jid
+            for jid in r.preempts
+            if jid in baseline_running and jid not in r.leases
+        ]
+        return not displaced_pending
+
+    rollout.run(rounds, stop_when=goals_met)
+
+    displaced = []
+    surviving_nodes = {n.id for n in state.nodes}
+    for jid, from_node in sorted(baseline_running.items()):
+        pre = rollout.preempts.get(jid)
+        lease = rollout.leases.get(jid)
+        moved = pre is not None or (
+            lease is not None and lease[1] != from_node
+        )
+        if not moved and from_node in surviving_nodes:
+            continue
+        displaced.append(
+            {
+                "job_id": jid,
+                "from_node": from_node,
+                "reason": pre[1] if pre else "node removed from fork",
+                "landed_node": lease[1] if lease else None,
+                "rounds_to_land": lease[0] if lease else None,
+            }
+        )
+    injected_out = _injected_outcomes(state, rollout, feasibility)
+    drain_doc = None
+    if rollout.drains:
+        # One drain per plan today; report the first controller.
+        drain_doc = rollout.drains[0].outcome().to_dict()
+    plan = Plan(
+        kind=job.kind,
+        pool=job.pool,
+        solver=rollout.solver_label,
+        rounds_simulated=rollout.cycles,
+        cycle_interval=rollout.cycle_interval,
+        mutations=list(job.mutations),
+        baseline=baseline,
+        displaced=displaced,
+        injected=injected_out,
+        headroom=rollout.headroom(),
+        drain=drain_doc,
+        fairness_delta=_fairness_delta(job.live_fairness, job.pool, rollout),
+        plan_seconds=round(_time.monotonic() - t0, 4),
+    )
+    launches = {k: n - before.get(k, 0) for k, n in kernels.LAUNCHES.items()}
+    return {"plan": plan.to_dict(), "leases": rollout.leases, "preempts": rollout.preempts,
+            "pid": os.getpid(), "launches": launches}
+
+
+def _fairness_delta(base_doc, pool: str, rollout: ForkRollout) -> dict:
+    """Which queues pay: the live round's fairness ledger (the
+    scheduler's tracker) vs the rollout's settled ledger (the
+    rollout scheduler runs the same fairness observatory). Either
+    side missing (no round yet / idle rollout) reports {}."""
+    roll_tracker = getattr(rollout.scheduler, "fairness", None)
+    plan_doc = roll_tracker.latest(pool) if roll_tracker else None
+    if not base_doc or not plan_doc:
+        return {}
+
+    def rows(doc):
+        return {
+            str(r["queue"]): r
+            for r in (doc.get("ledger") or {}).get("queues", ())
+        }
+
+    base_rows, plan_rows = rows(base_doc), rows(plan_doc)
+    queues = {}
+    for name in sorted(base_rows.keys() | plan_rows.keys()):
+        b = base_rows.get(name, {})
+        p = plan_rows.get(name, {})
+        b_del = float(b.get("delivered_share", 0.0))
+        p_del = float(p.get("delivered_share", 0.0))
+        queues[name] = {
+            "baseline_delivered": b_del,
+            "planned_delivered": p_del,
+            "delta_delivered": p_del - b_del,
+            "baseline_regret": float(b.get("regret", 0.0)),
+            "planned_regret": float(p.get("regret", 0.0)),
+        }
+    payers = sorted(
+        (n for n, d in queues.items() if d["delta_delivered"] < -1e-9),
+        key=lambda n: queues[n]["delta_delivered"],
+    )
+    return {
+        "baseline_jain": float(
+            (base_doc.get("ledger") or {}).get("jain", 1.0)
+        ),
+        "planned_jain": float(
+            (plan_doc.get("ledger") or {}).get("jain", 1.0)
+        ),
+        "queues": queues,
+        "payers": payers,
+    }
+
+
+def _injection_feasibility(state: ForkState) -> dict:
+    """Static could-this-EVER-fit verdicts for injected jobs, through
+    the SAME snapshot-build helper the SubmitChecker uses
+    (services/submit_check.static_check) — checker and planner
+    feasibility semantics cannot drift."""
+    if not state.injected_job_ids:
+        return {}
+    from ..services.submit_check import static_check
+
+    by_jobset: dict[str, list] = {}
+    for spec in state.queued:
+        if spec.id in set(state.injected_job_ids):
+            by_jobset.setdefault(spec.jobset, []).append(spec)
+    by_executor: dict[str, list] = {}
+    for node in state.nodes:
+        ex = state.executor_of(node)
+        if ex in state.cordoned_executors:
+            continue
+        by_executor.setdefault(ex, []).append(node)
+    verdicts = {}
+    for jobset, jobs in by_jobset.items():
+        reasons = []
+        ok = False
+        for name, nodes in sorted(by_executor.items()):
+            result = static_check(state.config, state.pool, nodes, jobs)
+            if result.schedulable:
+                ok = True
+                break
+            reasons.append(f"{name}: {result.reason}")
+        verdicts[jobset] = (ok, "" if ok else "; ".join(reasons))
+    return verdicts
+
+
+def _injected_outcomes(state: ForkState, rollout: ForkRollout, feasibility: dict) -> list:
+    out = []
+    # Group injected jobs by their synthetic jobset (one per
+    # inject_gang mutation).
+    by_set: dict[str, list] = {}
+    for spec in state.queued:
+        if spec.id in set(state.injected_job_ids):
+            by_set.setdefault(spec.jobset, []).append(spec)
+    for jobset, specs in sorted(by_set.items()):
+        ids = [s.id for s in specs]
+        leases = [rollout.leases.get(j) for j in ids]
+        placed = all(le is not None for le in leases)
+        eta = max(le[0] for le in leases) if placed else None
+        nodes = sorted({le[1] for le in leases if le is not None})
+        feasible, reason = feasibility.get(jobset, (True, ""))
+        if placed:
+            reason = ""
+        elif not feasible:
+            reason = f"never schedulable: {reason}"
+        else:
+            reason = _unplaced_reason(rollout, ids) or (
+                "no capacity within the horizon"
+            )
+        gang = specs[0].gang
+        out.append(
+            {
+                "name": gang.id if gang is not None else jobset,
+                "queue": specs[0].queue,
+                "jobs": len(specs),
+                "gang_cardinality": gang.cardinality if gang else 0,
+                "eta_rounds": eta,
+                "nodes": nodes,
+                "feasible": bool(feasible),
+                "reason": reason,
+            }
+        )
+    return out
+
+
+def _unplaced_reason(rollout: ForkRollout, ids: list) -> str:
+    report = rollout.scheduler.reports.latest_reports().get(
+        rollout.state.pool
+    )
+    if report is None:
+        return ""
+    for jid in ids:
+        reason = report.job_reasons.get(jid)
+        if reason:
+            return reason
+    return ""
+
+
 class WhatIfService:
     """The what-if planner's service face: bounded worker pool, plan
-    history, drain start/status pass-through, parity checks."""
+    history, drain start/status pass-through, parity checks. Rollouts
+    run in worker processes (`worker.py`), one per worker, started at
+    the first plan; `close()` stops them."""
 
     def __init__(
         self,
@@ -398,12 +734,6 @@ class WhatIfService:
         keep_recent: int = 32,
     ):
         cfg = scheduler.config
-        if cfg.max_scheduling_duration_s > 0:
-            raise NotImplementedError(
-                "what-if plans beside a budgeted round (max_scheduling_duration_s "
-                f"= {cfg.max_scheduling_duration_s}) slow it past its budget, so they "
-                "would change what it decides: ROADMAP C3"
-            )
         self.scheduler = scheduler
         # Rollout cycles model the LIVE cycle cadence: rounds-to-drain
         # and ETA-in-rounds are honest only when the shadow clock ticks
@@ -426,11 +756,26 @@ class WhatIfService:
         self._pool = ThreadPoolExecutor(
             max_workers=n_workers, thread_name_prefix="whatif"
         )
+        self.rollouts = RolloutWorkers()
         self._pending = 0
         self._lock = threading.Lock()
         self.capture = ForkCapture()
         scheduler.attach_fork_capture(self.capture)
         self.recent: deque = deque(maxlen=keep_recent)
+        # Per plan, what it cost the live process, in seconds: building
+        # the fork (`fork_s`), its post-round state (`prep_s`), the job
+        # with its specs shared (`share_s`), pickling it (`send_s`),
+        # reading the plan back (`recv_s`), and their sum (`live_s`);
+        # the plan's wall time (`plan_s`), its fork's jobs and the specs
+        # pickled for it (`sent`), the rollout process, the kernel
+        # launches of its rollout there, and the rollout's leases and
+        # preemptions (`leases`, `preempts`: see rollout_plan).
+        self.plan_stats: deque = deque(maxlen=keep_recent)
+
+    def close(self) -> None:
+        """Stop the rollout processes and the worker threads."""
+        self.rollouts.close()
+        self._pool.shutdown(wait=True)
 
     # -- bounded submission --------------------------------------------
 
@@ -503,21 +848,31 @@ class WhatIfService:
         cycle_interval: float | None = None,
         kind: str = "whatif",
     ) -> Plan:
+        """The plan of `mutations` on a fork of the live round. Its
+        rollout runs in a rollout process, so `runtime_for` (the
+        remaining seconds of each job the rollout runs) is None, a
+        mapping of job id to seconds, or a picklable callable."""
+        _check_runtime_for(runtime_for)
+        dicts = [m.to_dict() for m in mutations]
+
         # The fork build runs INSIDE the bounded worker too: before any
         # round is captured, fork_from_scheduler walks the whole jobdb —
         # a burst must be shed before that work, not after.
-        return self._run_bounded(
-            kind,
-            lambda: self._plan_on_fork(
-                self.ensure_fork(pool),
-                mutations,
+        def run():
+            t0 = _time.perf_counter()
+            fork = self.ensure_fork(pool)
+            return self._plan_on_fork(
+                fork,
+                dicts,
                 solver=solver,
                 rounds=rounds,
                 runtime_for=runtime_for,
                 cycle_interval=cycle_interval,
                 kind=kind,
-            ),
-        )
+                fork_s=_time.perf_counter() - t0,
+            )
+
+        return self._run_bounded(kind, run)
 
     def plan_drain(
         self,
@@ -545,249 +900,57 @@ class WhatIfService:
     def _plan_on_fork(
         self,
         fork: RoundFork,
-        mutations: list[Mutation],
+        mutations: list,
         *,
         solver=None,
         rounds: int | None = None,
         runtime_for=None,
         cycle_interval: float | None = None,
         kind: str = "whatif",
+        fork_s: float = 0.0,
     ) -> Plan:
-        t0 = _time.monotonic()
-        rounds = int(rounds if rounds is not None else self.default_rounds)
-        state = fork.post_round_state()
-        baseline_running = {r.job.id: r.node_id for r in state.running}
-        baseline = {
-            "running": len(state.running),
-            "queued": len(state.queued),
-            "nodes": len(state.nodes),
-            "cycle": fork.cycle,
-        }
-        for m in mutations:
-            m.apply(state)
-        feasibility = self._injection_feasibility(state)
-        interval = float(
-            cycle_interval
-            if cycle_interval is not None
-            else self.cycle_interval
-        )
-        if state.drain_executors:
-            # The horizon must COVER every drain's deadline (else the
-            # dry-run predicts "nothing happens" about a deadline it
-            # never reached), plus the requested rounds for requeue
-            # landings. Bounded: the early-stop predicate ends the
-            # rollout as soon as the drain completes and everything
-            # displaced has landed.
-            import math
-
-            default_deadline = float(
-                getattr(state.config, "drain_deadline_s", 0.0)
-            )
-            worst = max(
-                default_deadline if dl is None else float(dl)
-                for _, dl in state.drain_executors
-            )
-            rounds += min(int(math.ceil(worst / interval)) + 1, 1000)
-        rollout = ForkRollout(
-            state,
-            solver=solver,
-            backend=fork.backend,
-            cycle_interval=interval,
-            runtime_for=runtime_for,
-            device=self.scheduler.device,
-        )
-
-        injected = set(state.injected_job_ids)
-
-        def goals_met(r: ForkRollout) -> bool:
-            if any(d.state != "done" for d in r.drains):
-                return False
-            if injected and not all(j in r.leases for j in injected):
-                return False
-            displaced_pending = [
-                jid
-                for jid in r.preempts
-                if jid in baseline_running and jid not in r.leases
-            ]
-            return not displaced_pending
-
-        rollout.run(rounds, stop_when=goals_met)
-
-        displaced = []
-        surviving_nodes = {n.id for n in state.nodes}
-        for jid, from_node in sorted(baseline_running.items()):
-            pre = rollout.preempts.get(jid)
-            lease = rollout.leases.get(jid)
-            moved = pre is not None or (
-                lease is not None and lease[1] != from_node
-            )
-            if not moved and from_node in surviving_nodes:
-                continue
-            displaced.append(
-                {
-                    "job_id": jid,
-                    "from_node": from_node,
-                    "reason": pre[1] if pre else "node removed from fork",
-                    "landed_node": lease[1] if lease else None,
-                    "rounds_to_land": lease[0] if lease else None,
-                }
-            )
-        injected_out = self._injected_outcomes(state, rollout, feasibility)
-        drain_doc = None
-        if rollout.drains:
-            # One drain per plan today; report the first controller.
-            drain_doc = rollout.drains[0].outcome().to_dict()
-        fairness_delta = self._fairness_delta(fork, rollout)
-        plan = Plan(
-            kind=kind,
-            pool=fork.pool,
-            solver=rollout.solver_label,
-            rounds_simulated=rollout.cycles,
-            cycle_interval=rollout.cycle_interval,
-            mutations=[m.to_dict() for m in mutations],
-            baseline=baseline,
-            displaced=displaced,
-            injected=injected_out,
-            headroom=rollout.headroom(),
-            drain=drain_doc,
-            fairness_delta=fairness_delta,
-            plan_seconds=round(_time.monotonic() - t0, 4),
-        )
-        self.recent.appendleft(plan.to_dict())
-        return plan
-
-    def _fairness_delta(self, fork: RoundFork, rollout: ForkRollout) -> dict:
-        """Which queues pay: the live round's fairness ledger (the
-        scheduler's tracker) vs the rollout's settled ledger (the
-        rollout scheduler runs the same fairness observatory). Either
-        side missing (no round yet / idle rollout) reports {}."""
-        base_doc = None
+        """Send the plan of `mutations` (their dicts) on `fork` to a
+        rollout process and wait for it."""
+        t0 = _time.perf_counter()
         tracker = getattr(self.scheduler, "fairness", None)
-        if tracker is not None:
-            base_doc = tracker.latest(fork.pool)
-        roll_tracker = getattr(rollout.scheduler, "fairness", None)
-        plan_doc = roll_tracker.latest(fork.pool) if roll_tracker else None
-        if not base_doc or not plan_doc:
-            return {}
-
-        def rows(doc):
-            return {
-                str(r["queue"]): r
-                for r in (doc.get("ledger") or {}).get("queues", ())
-            }
-
-        base_rows, plan_rows = rows(base_doc), rows(plan_doc)
-        queues = {}
-        for name in sorted(base_rows.keys() | plan_rows.keys()):
-            b = base_rows.get(name, {})
-            p = plan_rows.get(name, {})
-            b_del = float(b.get("delivered_share", 0.0))
-            p_del = float(p.get("delivered_share", 0.0))
-            queues[name] = {
-                "baseline_delivered": b_del,
-                "planned_delivered": p_del,
-                "delta_delivered": p_del - b_del,
-                "baseline_regret": float(b.get("regret", 0.0)),
-                "planned_regret": float(p.get("regret", 0.0)),
-            }
-        payers = sorted(
-            (n for n, d in queues.items() if d["delta_delivered"] < -1e-9),
-            key=lambda n: queues[n]["delta_delivered"],
-        )
-        return {
-            "baseline_jain": float(
-                (base_doc.get("ledger") or {}).get("jain", 1.0)
-            ),
-            "planned_jain": float(
-                (plan_doc.get("ledger") or {}).get("jain", 1.0)
-            ),
-            "queues": queues,
-            "payers": payers,
-        }
-
-    def _injection_feasibility(self, state: ForkState) -> dict:
-        """Static could-this-EVER-fit verdicts for injected jobs, through
-        the SAME snapshot-build helper the SubmitChecker uses
-        (services/submit_check.static_check) — checker and planner
-        feasibility semantics cannot drift."""
-        if not state.injected_job_ids:
-            return {}
-        from ..services.submit_check import static_check
-
-        by_jobset: dict[str, list] = {}
-        for spec in state.queued:
-            if spec.id in set(state.injected_job_ids):
-                by_jobset.setdefault(spec.jobset, []).append(spec)
-        by_executor: dict[str, list] = {}
-        for node in state.nodes:
-            ex = state.executor_of(node)
-            if ex in state.cordoned_executors:
-                continue
-            by_executor.setdefault(ex, []).append(node)
-        verdicts = {}
-        for jobset, jobs in by_jobset.items():
-            reasons = []
-            ok = False
-            for name, nodes in sorted(by_executor.items()):
-                result = static_check(state.config, state.pool, nodes, jobs)
-                if result.schedulable:
-                    ok = True
-                    break
-                reasons.append(f"{name}: {result.reason}")
-            verdicts[jobset] = (ok, "" if ok else "; ".join(reasons))
-        return verdicts
-
-    def _injected_outcomes(
-        self, state: ForkState, rollout: ForkRollout, feasibility: dict
-    ) -> list:
-        out = []
-        # Group injected jobs by their synthetic jobset (one per
-        # inject_gang mutation).
-        by_set: dict[str, list] = {}
-        for spec in state.queued:
-            if spec.id in set(state.injected_job_ids):
-                by_set.setdefault(spec.jobset, []).append(spec)
-        for jobset, specs in sorted(by_set.items()):
-            ids = [s.id for s in specs]
-            leases = [rollout.leases.get(j) for j in ids]
-            placed = all(le is not None for le in leases)
-            eta = max(le[0] for le in leases) if placed else None
-            nodes = sorted({le[1] for le in leases if le is not None})
-            feasible, reason = feasibility.get(jobset, (True, ""))
-            if placed:
-                reason = ""
-            elif not feasible:
-                reason = f"never schedulable: {reason}"
-            else:
-                reason = self._unplaced_reason(rollout, ids) or (
-                    "no capacity within the horizon"
-                )
-            gang = specs[0].gang
-            out.append(
-                {
-                    "name": gang.id if gang is not None else jobset,
-                    "queue": specs[0].queue,
-                    "jobs": len(specs),
-                    "gang_cardinality": gang.cardinality if gang else 0,
-                    "eta_rounds": eta,
-                    "nodes": nodes,
-                    "feasible": bool(feasible),
-                    "reason": reason,
-                }
+        state = fork.post_round_state()
+        t1 = _time.perf_counter()
+        with self.rollouts.worker() as w:
+            job = PlanJob(
+                state=_shared_state(state, w.share),
+                mutations=list(mutations),
+                pool=fork.pool,
+                backend=fork.backend,
+                cycle=fork.cycle,
+                live_fairness=tracker.latest(fork.pool) if tracker is not None else None,
+                solver=solver,
+                rounds=int(rounds if rounds is not None else self.default_rounds),
+                cycle_interval=float(
+                    cycle_interval if cycle_interval is not None else self.cycle_interval
+                ),
+                runtime_for=runtime_for,
+                kind=kind,
+                device=self.scheduler.device,
             )
-        return out
-
-    def _unplaced_reason(self, rollout: ForkRollout, ids: list) -> str:
-        report = rollout.scheduler.reports.latest_reports().get(
-            rollout.state.pool
-        )
-        if report is None:
-            return ""
-        for jid in ids:
-            reason = report.job_reasons.get(jid)
-            if reason:
-                return reason
-        return ""
+            sent = w.table.pending_fresh()
+            t2 = _time.perf_counter()
+            payload = w.dumps(rollout_plan, job)
+            t3 = _time.perf_counter()
+            del job
+            out = w.call(payload)
+        t4 = _time.perf_counter()
+        plan = Plan(**out["plan"])
+        plan.plan_seconds = round(t4 - t0, 4)
+        self.recent.appendleft(plan.to_dict())
+        t5 = _time.perf_counter()
+        self.plan_stats.append({
+            "kind": kind, "fork_s": fork_s, "prep_s": t1 - t0, "share_s": t2 - t1,
+            "send_s": t3 - t2, "recv_s": t5 - t4, "live_s": fork_s + (t3 - t0) + (t5 - t4),
+            "plan_s": plan.plan_seconds, "jobs": len(state.running) + len(state.queued),
+            "sent": sent, "pid": out["pid"], "launches": out["launches"],
+            "leases": out["leases"], "preempts": out["preempts"],
+        })
+        return plan
 
     # -- drain execution (live control plane) ---------------------------
 

@@ -372,31 +372,74 @@ def submit_events(n_jobs, n_queues=N_QUEUES, fast_fill=True, fill_window=2048):
     return cfg, log.read(0, log.end_offset), submit_s
 
 
+def front_door_events(n_jobs, num_shards, n_queues=N_QUEUES, fast_fill=True, fill_window=2048):
+    """(config, log, stats): `submit_events`'s jobs and queues submitted
+    through a SubmitService with a FrontDoor of `num_shards` jobset-keyed
+    ingest shards in front of a fresh event log, one submit per queue,
+    then pumped until every shard has delivered. stats: the submit
+    seconds (admission and the shards' WAL acks), the pump seconds, the
+    pumps, and the highest `max_lag` seen (acked sequences not yet
+    delivered, on the busiest shard)."""
+    from .events import InMemoryEventLog
+    from .frontdoor import FrontDoor
+    from .services.submit import SubmitService
+
+    cfg, _, _, queues, _, queued = build_inputs(
+        n_jobs, 1, n_running=0, n_queues=n_queues, fast_fill=fast_fill, fill_window=fill_window)
+    log = InMemoryEventLog()
+    fd = FrontDoor(log, num_shards=num_shards)
+    submit = SubmitService(cfg, log, frontdoor=fd)
+    for q in queues:
+        submit.create_queue(q)
+    by_queue: dict[str, list] = {}
+    for job in queued:
+        by_queue.setdefault(job.queue, []).append(job)
+    t0 = time.perf_counter()
+    for name, jobs in by_queue.items():
+        submit.submit(name, "bench", jobs, now=0.0)
+    submit_s = time.perf_counter() - t0
+    max_lag, pumps = fd.max_lag(), 0
+    t0 = time.perf_counter()
+    while fd.max_lag():
+        fd.pump(now=0.0)
+        pumps += 1
+    pump_s = time.perf_counter() - t0
+    fd.close()
+    return cfg, log, {"submit_s": submit_s, "pump_s": pump_s, "pumps": pumps, "max_lag": max_lag}
+
+
 class ServiceRun:
     """A scheduler service (kernel backend, `snapshot_mode="auto"`) fed a
     copy of `entries`, on `device` (the card unless the caller asks for
     the CPU), with its solve kernel path set to `kernel_path`, and
     `n_executors` fake executors reporting `n_nodes` nodes of 32 cpu /
     256Gi between them, in one pool; jobs run for `runtime` seconds.
-    `ingest_s` is the service's first sync of the log (the service is
-    built over an empty log, then `entries` are published into it). `cycle()` ticks
+    The service is built over `log` (a fresh in-memory log by default;
+    a log may already hold jobs, as a front door delivers them), then
+    `entries` are published into it (`publish_s`) and `ingest_s` is the
+    service's first sync of the log. `cycle()` ticks
     the executors, runs one scheduling cycle at the virtual time `now`
     and advances it by `interval`; it returns the cycle's leases (job,
     executor, node), preemptions, wall seconds and the service's
-    `last_cycle_stats`."""
+    `last_cycle_stats`. `restart(log)` replaces the service by a new one
+    over `log`, as a restarted process rebuilds it from a durable log."""
 
     def __init__(self, cfg, entries, n_nodes, *, kernel_path="cuda", device=None, n_executors=2,
-                 runtime=3600.0, interval=10.0):
+                 runtime=3600.0, interval=10.0, log=None):
         import dataclasses
 
         from .events import InMemoryEventLog
         from .services.fake_executor import FakeExecutor, make_nodes
         from .services.scheduler import SchedulerService
 
-        log = InMemoryEventLog()
-        self.sched = SchedulerService(dataclasses.replace(cfg, solve_kernel_path=kernel_path), log,
-                                      backend="kernel", device=device)
-        log.publish_many(e.sequence for e in entries)
+        log = InMemoryEventLog() if log is None else log
+        self.cfg = dataclasses.replace(cfg, solve_kernel_path=kernel_path)
+        self.device = device
+        self.sched = SchedulerService(self.cfg, log, backend="kernel", device=device)
+        t0 = time.perf_counter()
+        for e in entries:
+            log.publish(e.sequence)
+        self.publish_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.sched.ingester.sync()
         self.ingest_s = time.perf_counter() - t0
@@ -409,6 +452,21 @@ class ServiceRun:
         ]
         self.now = 0.0
         self.interval = interval
+
+    def restart(self, log) -> float:
+        """A new scheduler service over `log` (the same config, backend
+        and device), its job database rebuilt from the log's history;
+        the executors, which outlive the scheduler, report to it from
+        now on. Returns the rebuild's seconds (the service's build and
+        its first sync of the log)."""
+        from .services.scheduler import SchedulerService
+
+        t0 = time.perf_counter()
+        self.sched = SchedulerService(self.cfg, log, backend="kernel", device=self.device)
+        self.sched.ingester.sync()
+        for ex in self.executors:
+            ex.log, ex.scheduler = log, self.sched
+        return time.perf_counter() - t0
 
     def cycle(self) -> dict:
         from .events import JobRunLeased, JobRunPreempted

@@ -9,8 +9,8 @@ every hand-written CUDA kernel of that path against its plain torch
 version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
 time, so after phase 3 two more processes on the same card
-(`SidePhases`) run phases 10, 12 and 13, and phases 4, 11 and 14, which
-need nothing of the others, while this one runs 5 to 7 and 9; phase 8
+(`SidePhases`) run phases 10, 12 and 13, and phases 4, 11, 14 and 15,
+which need nothing of the others, while this one runs 5 to 7 and 9; phase 8
 runs alone once the side processes have ended (its ring kernel spins
 across four processes' contexts, and its times would count another
 one's work). Launch counts are per process, set to 0 and read within
@@ -225,6 +225,26 @@ line of each process's peak reserved device memory.
    2-deep planner while three live cycles run: some shed, the rest
    done, the live leases those of the twin service with no planner,
    no kernel library built or loaded in a live cycle.
+15. persistence: the file-backed event log, the soak tools, the front
+   door and the what-if planner's rollout processes on the card
+   (`phase_persistence`), every service at service_100k's width in the
+   bench's config with a 5 s round budget (Armada's
+   maxSchedulingDuration) and held to an uninterrupted in-memory twin's
+   leases cycle by cycle. file_log_service, over a FileEventLog: 3
+   cycles, a restart (a new log on the directory, a new service whose
+   job database is rebuilt from it), 2 more. soak, chaos_soak's
+   run_plan(0, "kernel", 24) (torn tails on the real file log) and
+   run_solver_plan(0, 24), each twice: equal digests, every job
+   finished, every solver fault contained. frontdoor_service, the jobs
+   through a 3-shard front door, pumped, then 2 cycles. whatif_isolation,
+   a budgeted service with a 2-worker planner: 2 waves of 2 inject-gang
+   plans of 100k-job rollouts in rollout processes on the card while it
+   and the twin cycle in step, its leases the twin's every cycle, no
+   round cut by its budget, the median live cycle beside the rollouts
+   at most 1.5x the median alone, the second wave's plans sending under
+   a tenth of the fork's specs (the processes hold them); each live
+   cycle's seconds alone and beside the rollouts, the slowest against
+   the budget, and what each plan cost the live process.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -245,8 +265,9 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 (`launches_warm_cycles`, phase 11's measured cycles) and phase 12's
 (`launches_service_100k`, the "cuda" service's five cycles;
 `launches_service_flagship`; `launches_sim_kernel`, the clean kernel
-simulation), phase 13's summed (`launches_observatory`) and phase 14's
-summed (`launches_autotune_whatif`) beside them;
+simulation), phase 13's summed (`launches_observatory`), phase 14's
+summed (`launches_autotune_whatif`, its rollouts' counted in their
+process) and phase 15's (`launches_persistence`, likewise) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -1533,6 +1554,31 @@ def require_fill_launches(launches, label):
             raise AssertionError(f"{label}: kernel {name} was not launched")
 
 
+def take_launches(totals, label, extra=()):
+    """This process's launches since the last take (the counts are set to
+    0 after), plus `extra`, the launch counts of what-if rollouts, made in
+    their processes and sent back with the plans; added into `totals`.
+    Every fill kernel must have launched."""
+    from armada_tpu_torch.ops import kernels as K
+
+    got = dict(K.LAUNCHES)
+    K.reset_launches()
+    for more in extra:
+        for name, n in more.items():
+            got[name] = got.get(name, 0) + n
+    for name in totals:
+        totals[name] += got[name]
+    require_fill_launches(got, label)
+    return got
+
+
+def plan_costs(stats):
+    """A planner's `plan_stats` without the launches (counted apart) and
+    the rollouts' leases and preemptions."""
+    return [{k: v for k, v in s.items() if k not in ("launches", "leases", "preempts")}
+            for s in stats]
+
+
 SERVICE_WARM_CYCLES = 4  # service_100k: warm cycles after the cold one, each service
 FLAGSHIP_SERVICE_WARM_CYCLES = 1  # service_flagship (cut from 3 for the time limit)
 
@@ -1961,8 +2007,9 @@ def phase_autotune_whatif(tmp):
       executor-0 (deadline one cycle), a plan injecting a gang of 8 jobs
       of 4 cpu in a new queue (2 rounds; it starts in the first), and
       parity_check of the committed fixture
-      fork under LOCAL (zero divergences); the rollouts launch both fill
-      kernels. Then the drain runs on A (and the same drain on B, its
+      fork under LOCAL (zero divergences); the rollouts, in the
+      planner's rollout process, launch both fill kernels there. Then
+      the drain runs on A (and the same drain on B, its
       twin) for as many cycles as the plan's rollout ran: its outcome
       (completed, preempted, blocked, landings, rounds to drain) is the
       plan's, and A's leases are B's every cycle;
@@ -1970,11 +2017,11 @@ def phase_autotune_whatif(tmp):
       1-worker, 2-deep planner over A while A and B run BURST_CYCLES
       live cycles: some are shed with WhatIfBusyError, the admitted ones
       finish, A's leases equal B's (no planner) after every cycle, and
-      no A cycle builds or loads a kernel library (the compile bracket
-      is the round thread's; the planner's threads are not in it). The
-      services have no round budget: the planner refuses a budgeted one
-      (ROADMAP C3).
-    Launch counts are set to 0 before each part and read after it."""
+      no A cycle builds or loads a kernel library (the rollouts run in
+      the planner's rollout process). Phase 15 holds a budgeted service
+      beside plans.
+    Launch counts are set to 0 before each part and read after it; the
+    rollouts' are counted in their process and returned with the plans."""
     import dataclasses
     import threading
 
@@ -2000,13 +2047,9 @@ def phase_autotune_whatif(tmp):
 
     rec, launches = {}, {name: 0 for name in K.KERNELS}
 
-    def count(label):
-        got = dict(K.LAUNCHES)
-        K.reset_launches()
-        for name in launches:
-            launches[name] += got[name]
-        require_fill_launches(got, label)
-        return got
+    def rollout_launches(wi, n):
+        """The launch counts of the planner's last `n` rollouts."""
+        return [s["launches"] for s in list(wi.plan_stats)[-n:]]
 
     def live_cycle(run, label):
         """One live cycle as the planner's rollouts run theirs: the
@@ -2035,14 +2078,15 @@ def phase_autotune_whatif(tmp):
     if len(corpus.rounds) != AUTOTUNE_CYCLES or not all(
             (r.raw.get("profile") or {}).get("compacted") for r in corpus.rounds):
         raise AssertionError("autotune_offline: the corpus's rounds are not all compacted")
-    record_launches = count("autotune_offline: the recorded service")
+    record_launches = take_launches(launches, "autotune_offline: the recorded service")
     t1 = time.time()
     per_candidate = {}
 
     def note(line):
         label = line.split(":")[0]
         if label in ("baseline",) or label.startswith("w"):
-            per_candidate[label] = count(f"autotune_offline: candidate {label}")
+            per_candidate[label] = take_launches(launches,
+                                                 f"autotune_offline: candidate {label}")
 
     report = tune_corpus([corpus], default_grid(windows=AUTOTUNE_WINDOWS, min_slots=(0,)),
                          repeats=1, log=note)
@@ -2105,7 +2149,7 @@ def phase_autotune_whatif(tmp):
         "gauges": {"scheduler_autotune_window_slots": params.hot_window_slots,
                    "scheduler_autotune_chunk_loops": params.chunk_loops,
                    "scheduler_autotune_store_entries": len(ctl.store)},
-        "launches": count("autotune_online"), "seconds": time.time() - t0,
+        "launches": take_launches(launches, "autotune_online"), "seconds": time.time() - t0,
     }
 
     t0 = time.time()
@@ -2114,15 +2158,16 @@ def phase_autotune_whatif(tmp):
     remaining = {jid: run.finishes_at - a.now
                  for ex in a.executors for jid, run in ex.active.items()}
     K.reset_launches()
-    drain = wi.plan_drain("executor-0", deadline_s=a.interval, rounds=3,
-                          runtime_for=lambda jid: remaining.get(jid, 1e9))
-    drain_launches = count("whatif_plan: the drain plan's rollout")
+    drain = wi.plan_drain("executor-0", deadline_s=a.interval, rounds=3, runtime_for=remaining)
+    drain_launches = take_launches(launches, "whatif_plan: the drain plan's rollout",
+                                   rollout_launches(wi, 1))
     gang = wi.plan(mutations_from_dicts([{"kind": "inject_gang", "queue": "whatif",
                                           "gang_cardinality": 8, "cpu": "4",
                                           "memory": "8Gi"}]), rounds=2)
-    gang_launches = count("whatif_plan: the inject-gang rollout")
+    gang_launches = take_launches(launches, "whatif_plan: the inject-gang rollout",
+                                  rollout_launches(wi, 1))
     parity = parity_check(fork_from_trace(FIXTURE, 0, allow_foreign=True), "LOCAL")
-    parity_launches = count("whatif_plan: the parity check")
+    parity_launches = take_launches(launches, "whatif_plan: the parity check")
     if not parity["ok"]:
         raise AssertionError(f"whatif_plan: parity diverged {parity['divergences']}")
     (injected,) = gang.injected
@@ -2155,7 +2200,8 @@ def phase_autotune_whatif(tmp):
                         "launches": gang_launches},
         "parity": {"ok": parity["ok"], "solve_s": parity["solve_s"],
                    "num_jobs": parity["num_jobs"], "launches": parity_launches},
-        "plans_s": plans_s, "drain_cycles_launches": count("whatif_plan: the drain cycles"),
+        "plans_s": plans_s,
+        "drain_cycles_launches": take_launches(launches, "whatif_plan: the drain cycles"),
         "seconds": time.time() - t0,
     }
 
@@ -2193,7 +2239,253 @@ def phase_autotune_whatif(tmp):
     rec["whatif_isolation"] = {
         "fired": BURST_PLANS, "planned": len(plans), "shed": len(shed),
         "plan_s": [p.plan_seconds for p in plans], "live_cycles": live,
-        "live_equals_no_planner": True, "launches": count("whatif_isolation"),
+        "live_equals_no_planner": True,
+        "launches": take_launches(launches, "whatif_isolation",
+                                  rollout_launches(burst, len(plans))),
+        "plan_stats": plan_costs(burst.plan_stats),
+        "seconds": time.time() - t0,
+    }
+    wi.close()
+    burst.close()
+    rec["launches"] = launches
+    return rec
+
+
+PERSIST_JOBS, PERSIST_NODES = 100_000, 5000  # service_100k's width
+PERSIST_BUDGET_S = 5.0  # every phase 15 service's round budget, Armada's maxSchedulingDuration
+PERSIST_CYCLES, RESTART_CYCLES = 3, 2  # file_log_service: before and after its restart
+FRONTDOOR_SHARDS, FRONTDOOR_CYCLES = 3, 2
+SOAK_SEED, SOAK_JOBS = 0, 24  # run_plan and run_solver_plan, each run twice
+ISOLATION_PLANS = 2  # whatif_isolation: 100k-job rollouts at once, one rollout process each
+ISOLATION_WAVES = 2  # the second on rollout processes that hold the fork's specs
+ISOLATION_MIN_CYCLES = 3  # live cycles beside each wave's rollouts, at least
+ISOLATION_MAX_RATIO = 1.5  # median live cycle beside the rollouts over the median alone
+
+
+def phase_persistence(tmp, n_jobs=PERSIST_JOBS, n_nodes=PERSIST_NODES, device=None):
+    """Persistence, the front door and the what-if planner's rollout
+    processes on the card (phase 15). Every service runs service_100k's
+    width (n_jobs queued jobs in 10 queues, two executors of n_nodes / 2
+    nodes, the bench's config: fast fill, window 2,048) with a round
+    budget of PERSIST_BUDGET_S, on the kernel backend, whose one rung on
+    the card is local:cuda (score_nodes, fill_take and segment_add). A
+    twin service over an in-memory log runs PERSIST_CYCLES +
+    RESTART_CYCLES cycles uninterrupted; the others are held to its
+    leases cycle by cycle:
+    - file_log_service: the same service over a FileEventLog in `tmp`,
+      PERSIST_CYCLES cycles, then a restart (the log closed and a new one
+      opened on the directory, a new SchedulerService whose job database
+      is rebuilt from it) and RESTART_CYCLES more. Prints the bytes on
+      disk, the publish microseconds a job, the recovery seconds and the
+      cycles' seconds after the restart;
+    - soak: `tools.chaos_soak.run_plan(SOAK_SEED, "kernel", SOAK_JOBS)`
+      (crashes, hangs, lease faults, leader flaps, partitions, torn
+      tails on the real file log) and `run_solver_plan(SOAK_SEED,
+      SOAK_JOBS)` (every solver fault contained, every rejection's
+      bundle replaying DIVERGED), each run twice: equal digests, every
+      job finished;
+    - frontdoor_service: the same jobs submitted through a
+      SubmitService with a FrontDoor of FRONTDOOR_SHARDS shards, pumped
+      until delivered, then FRONTDOOR_CYCLES cycles: the leases of direct
+      publish. Prints the submit and pump seconds and the highest
+      max_lag;
+    - whatif_isolation: a planner (WhatIfService, ISOLATION_PLANS
+      workers) on a fresh service, whose cycles are first held to the
+      twin's alone, then ISOLATION_WAVES waves of ISOLATION_PLANS
+      inject-gang plans fired at once on threads: their rollouts (each a
+      100k-job service seeded from the fork) run in rollout processes on
+      the card while the service and the twin go on cycling in step (at
+      least ISOLATION_MIN_CYCLES a wave), its leases the twin's after
+      every cycle, no kernel built in a live cycle, no round truncated by
+      its budget, the median live cycle beside the rollouts at most
+      ISOLATION_MAX_RATIO times the median alone. The second wave runs
+      on the processes of the first, which hold the fork's specs: each
+      of its plans must send under a tenth of them. Prints each live
+      cycle's seconds (and its solve's) alone and beside the rollouts,
+      their medians and ratio, the slowest cycle beside them against the
+      budget, and what each plan cost the live process (`plan_stats`).
+    Launch counts are set to 0 before each part and read after it; the
+    rollouts' are counted in their processes and returned with the
+    plans."""
+    import dataclasses
+    import statistics
+    import threading
+
+    from armada_tpu_torch.events import FileEventLog
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.tools.chaos_soak import run_plan, run_solver_plan
+    from armada_tpu_torch.whatif import WhatIfService, mutations_from_dicts
+    from armada_tpu_torch.workload import ServiceRun, front_door_events, submit_events
+
+    rec, launches = {}, {name: 0 for name in K.KERNELS}
+
+    def cycle(run, label):
+        out = run.cycle()
+        st = out["stats"]
+        if st["failover"] is not None or st["rung"] != "local:cuda":
+            raise AssertionError(f"{label}: rung {st['rung']}, failover {st['failover']}")
+        if st.get("truncated"):
+            raise AssertionError(f"{label}: the round was cut by its {PERSIST_BUDGET_S} s budget")
+        return out
+
+    def held(got, want, label):
+        if got["leases"] != want["leases"] or got["preempted"] != want["preempted"]:
+            raise AssertionError(f"{label}: the leases are not the twin's")
+
+    t0 = time.time()
+    base, entries, submit_s = submit_events(n_jobs)
+    cfg = dataclasses.replace(base, max_scheduling_duration_s=PERSIST_BUDGET_S)
+    K.reset_launches()
+    twin = ServiceRun(cfg, entries, n_nodes, device=device)
+    want = [cycle(twin, f"twin cycle {i}") for i in range(PERSIST_CYCLES + RESTART_CYCLES)]
+    rec["twin"] = {"submit_us_per_job": submit_s / n_jobs * 1e6,
+                   "cycle_s": [w["cycle_s"] for w in want],
+                   "leased": [len(w["leases"]) for w in want],
+                   "launches": take_launches(launches, "persistence: the twin"),
+                   "seconds": time.time() - t0}
+
+    t0 = time.time()
+    path = os.path.join(tmp, "log")
+    log = FileEventLog(path)
+    f = ServiceRun(cfg, entries, n_nodes, device=device, log=log)
+    got = [cycle(f, f"file_log_service cycle {i}") for i in range(PERSIST_CYCLES)]
+    log.close()
+    on_disk = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+    t1 = time.perf_counter()
+    log = FileEventLog(path)
+    open_s = time.perf_counter() - t1
+    rebuild_s = f.restart(log)
+    if len(f.sched.jobdb) != n_jobs:
+        raise AssertionError(f"file_log_service: the restarted job database holds "
+                             f"{len(f.sched.jobdb)} jobs")
+    got += [cycle(f, f"file_log_service cycle {PERSIST_CYCLES + i} (restarted)")
+            for i in range(RESTART_CYCLES)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        held(g, w, f"file_log_service cycle {i}")
+    log.close()
+    rec["file_log_service"] = {
+        "records": log.end_offset, "bytes_on_disk": on_disk,
+        "publish_us_per_job": f.publish_s / n_jobs * 1e6, "ingest_s": f.ingest_s,
+        "recovery_s": open_s + rebuild_s, "log_open_s": open_s, "rebuild_s": rebuild_s,
+        "cycle_s": [g["cycle_s"] for g in got[:PERSIST_CYCLES]],
+        "cycle_s_after_restart": [g["cycle_s"] for g in got[PERSIST_CYCLES:]],
+        "equals_in_memory_twin": True,
+        "launches": take_launches(launches, "file_log_service"), "seconds": time.time() - t0,
+    }
+    del f, got
+
+    t0 = time.time()
+    plans = [run_plan(SOAK_SEED, "kernel", SOAK_JOBS, device=device) for _ in range(2)]
+    solver = [run_solver_plan(SOAK_SEED, SOAK_JOBS, replay=i == 0, device=device)
+              for i in range(2)]
+    for name, (a, b) in (("run_plan", plans), ("run_solver_plan", solver)):
+        if a["digest"] != b["digest"] or a["finished"] != a["total"]:
+            raise AssertionError(f"soak: {name} digests {a['digest'][:12]} {b['digest'][:12]}, "
+                                 f"{a['finished']} of {a['total']} finished")
+    if not plans[0]["log_crashes"]:
+        raise AssertionError("soak: no torn write crashed the file log")
+    rec["soak"] = {
+        "run_plan": {k: plans[0][k] for k in ("finished", "total", "cycles", "faults_fired",
+                                               "log_crashes", "anti_entropy")},
+        "run_solver_plan": {"finished": solver[0]["finished"], "cycles": solver[0]["cycles"],
+                            "injected": solver[0]["injected"],
+                            "rejections": len(solver[0]["rejections"]),
+                            "bundles_replayed": solver[0]["bundles_replayed"],
+                            "failover_causes": sorted({x["cause"] for x in solver[0]["failovers"]})},
+        "deterministic": True,
+        "launches": take_launches(launches, "soak"), "seconds": time.time() - t0,
+    }
+
+    t0 = time.time()
+    _, fd_log, fd = front_door_events(n_jobs, FRONTDOOR_SHARDS)
+    d = ServiceRun(cfg, (), n_nodes, device=device, log=fd_log)
+    for i in range(FRONTDOOR_CYCLES):
+        held(cycle(d, f"frontdoor_service cycle {i}"), want[i], f"frontdoor_service cycle {i}")
+    rec["frontdoor_service"] = {
+        "shards": FRONTDOOR_SHARDS, "submit_us_per_job": fd["submit_s"] / n_jobs * 1e6,
+        "pump_s": fd["pump_s"], "pumps": fd["pumps"], "max_lag": fd["max_lag"],
+        "ingest_s": d.ingest_s, "cycles": FRONTDOOR_CYCLES, "equals_direct_publish": True,
+        "launches": take_launches(launches, "frontdoor_service"), "seconds": time.time() - t0,
+    }
+    del d, fd_log
+
+    t0 = time.time()
+    w = ServiceRun(cfg, entries, n_nodes, device=device)
+    del entries
+    wi = WhatIfService(w.sched, workers=ISOLATION_PLANS, queue_depth=ISOLATION_PLANS)
+    w.sched.attach_whatif(wi)
+    alone = []
+    for i, want_i in enumerate(want):
+        out = cycle(w, f"whatif_isolation cycle {i}")
+        held(out, want_i, f"whatif_isolation cycle {i}")
+        if i:
+            alone.append(out["cycle_s"])
+    plans, errors, beside = [], [], []
+
+    def fire():
+        try:
+            plans.append(wi.plan(mutations_from_dicts([{
+                "kind": "inject_gang", "queue": "whatif", "gang_cardinality": 8, "cpu": "4",
+                "memory": "8Gi"}]), rounds=2))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    for wave in range(ISOLATION_WAVES):
+        threads = [threading.Thread(target=fire) for _ in range(ISOLATION_PLANS)]
+        for th in threads:
+            th.start()
+        first = len(beside)
+        while any(th.is_alive() for th in threads) or len(beside) - first < ISOLATION_MIN_CYCLES:
+            i = len(want) + len(beside)
+            in_flight = sum(th.is_alive() for th in threads)
+            out = cycle(w, f"whatif_isolation cycle {i}")
+            held(out, cycle(twin, f"twin cycle {i}"), f"whatif_isolation cycle {i}")
+            _require_warm(out["stats"]["compiles"], f"whatif_isolation cycle {i}")
+            beside.append({"wave": wave, "cycle_s": out["cycle_s"],
+                           "solve_s": out["stats"]["solve_s"], "leased": len(out["leases"]),
+                           "plans_in_flight": in_flight})
+        for th in threads:
+            th.join()
+    if errors or len(plans) != ISOLATION_PLANS * ISOLATION_WAVES:
+        raise AssertionError(f"whatif_isolation: {len(plans)} plans, errors {errors!r}")
+    if any(p.injected[0]["eta_rounds"] is None for p in plans):
+        raise AssertionError("whatif_isolation: an injected gang did not start")
+    stats = list(wi.plan_stats)
+    if len({s["pid"] for s in stats} | {os.getpid()}) != ISOLATION_PLANS + 1:
+        raise AssertionError(f"whatif_isolation: rollouts ran in {[s['pid'] for s in stats]}")
+    for s in stats:
+        require_fill_launches(s["launches"], "whatif_isolation: a rollout")
+    for s in stats[ISOLATION_PLANS:]:
+        if s["sent"] * 10 > s["jobs"]:
+            raise AssertionError(f"whatif_isolation: a plan on a rollout process that held "
+                                 f"the fork's specs sent {s['sent']} of {s['jobs']}")
+    wi.close()
+    during = [b for b in beside if b["plans_in_flight"]]
+    n = ISOLATION_PLANS
+    slowest = max(during, key=lambda b: b["cycle_s"])
+    ratio = (statistics.median(b["cycle_s"] for b in during) / statistics.median(alone))
+    if ratio > ISOLATION_MAX_RATIO:
+        raise AssertionError(f"whatif_isolation: the median live cycle beside the rollouts is "
+                             f"{ratio:.2f}x the median alone (at most {ISOLATION_MAX_RATIO}x)")
+    rec["whatif_isolation"] = {
+        "budget_s": PERSIST_BUDGET_S, "plans": ISOLATION_PLANS, "workers": ISOLATION_PLANS,
+        "waves": ISOLATION_WAVES, "alone_cycle_s": alone, "beside": beside,
+        "median_alone_s": statistics.median(alone),
+        "median_beside_s": statistics.median(b["cycle_s"] for b in during),
+        "median_beside_s_by_wave": [
+            statistics.median(b["cycle_s"] for b in during if b["wave"] == k)
+            for k in range(ISOLATION_WAVES)],
+        "max_beside_s": slowest["cycle_s"],
+        "slowest_beside": {"cycle_s": slowest["cycle_s"], "solve_s": slowest["solve_s"],
+                           "wave": slowest["wave"], "budget_s": PERSIST_BUDGET_S},
+        "ratio": ratio, "max_ratio": ISOLATION_MAX_RATIO,
+        "plan_s": [p.plan_seconds for p in plans],
+        "live_s_by_wave": [[s["live_s"] for s in stats[k * n:(k + 1) * n]]
+                           for k in range(ISOLATION_WAVES)],
+        "plan_stats": plan_costs(stats),
+        "rollout_launches": [s["launches"] for s in stats],
+        "live_equals_twin": True,
+        "launches": take_launches(launches, "whatif_isolation", [s["launches"] for s in stats]),
         "seconds": time.time() - t0,
     }
     rec["launches"] = launches
@@ -2218,13 +2510,20 @@ def _autotune_whatif():
         return phase_autotune_whatif(tmp)
 
 
+def _persistence():
+    with tempfile.TemporaryDirectory(prefix="persistence-") as tmp:
+        return phase_persistence(tmp)
+
+
 # The phases that need nothing of the others, in two processes of their
-# own beside the first: phases 10, 12 and 13; phases 4, 11 and 14.
+# own beside the first: phases 10, 12 and 13; phases 4, 11, 14 and 15.
 SIDE_PHASES = {
     "market": phase_market, "service": phase_service, "observatory": _observatory,
     "round": _round_100k, "warm": phase_warm, "autotune_whatif": _autotune_whatif,
+    "persistence": _persistence,
 }
-SIDES = (("market", "service", "observatory"), ("round", "warm", "autotune_whatif"))
+SIDES = (("market", "service", "observatory"),
+         ("round", "warm", "autotune_whatif", "persistence"))
 SIDE_TIMEOUT_S = 1000.0
 
 
@@ -2287,8 +2586,8 @@ class SidePhases:
 
 def main_phases(timing, sides):
     """Phases 5 to 7 and 9 in this process while `sides` run 10, 12 and
-    13, and 4, 11 and 14, then phase 8 alone; returns their records and
-    the sides' merged."""
+    13, and 4, 11, 14 and 15, then phase 8 alone; returns their records
+    and the sides' merged."""
     t0 = time.time()
     flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
@@ -2415,9 +2714,9 @@ def main() -> int:
         finally:
             for side in sides:
                 side.stop()
-    res, warm, market, service, observatory, autotune_whatif = (
+    res, warm, market, service, observatory, autotune_whatif, persistence = (
         side_rec[k] for k in ("round", "warm", "market", "service", "observatory",
-                              "autotune_whatif"))
+                              "autotune_whatif", "persistence"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
           **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
 
@@ -2472,6 +2771,7 @@ def main() -> int:
             "launches_sim_kernel": int(service["sim_differential"]["kernel"]["launches"][name]),
             "launches_observatory": int(observatory["launches"][name]),
             "launches_autotune_whatif": int(autotune_whatif["launches"][name]),
+            "launches_persistence": int(persistence["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

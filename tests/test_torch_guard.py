@@ -11,10 +11,16 @@ LOCAL on the CPU's ladder, a market-pool service runs its post-round
 seams, a simulation records a flight-recorder bundle (with metrics
 and the SLO tracker attached) that the port replays, tunes over and
 keeps in a checkpointed tuning store, and a simulation with the online
-controller and the what-if planner attached plans against its state. prometheus_client
-is blocked too: the metrics stay optional (no registry, an empty
-rendering). The default device is the CUDA card, which raises where
-there is none."""
+controller and the what-if planner attached plans against its state
+(its rollouts in a spawned rollout process), a budgeted service takes a
+planner, a service over the file-backed log restarts from its directory,
+a simulation runs over a crash-recovering log behind a front door, both
+soak tools run a plan, and the file lease and the HS256 authenticators
+decide. prometheus_client is blocked too: the metrics stay optional (no
+registry, an empty rendering); so are grpc and cryptography, which the
+card's machine lacks (auth.py imports cryptography only where an RS256
+token is made or checked). The default device is the CUDA card, which
+raises where there is none."""
 
 import os
 import subprocess
@@ -31,10 +37,13 @@ _GUARD = textwrap.dedent(
     """
     import importlib, importlib.util, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "armada_tpu", "yaml", "prometheus_client", "grpc",
+               "cryptography")
+
     class Block:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "armada_tpu", "yaml", "prometheus_client"):
+            if top in BLOCKED:
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -211,9 +220,63 @@ _GUARD = textwrap.dedent(
             [{"kind": "inject_gang", "queue": "q", "gang_cardinality": 2, "cpu": "2"}]), rounds=2)
         assert plan.injected and sim.whatif.plan_drain("c1", rounds=2).drain is not None
         assert sim.whatif.parity(trace_path=path, allow_foreign=True)["ok"]
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "armada_tpu", "yaml",
-                                           "prometheus_client"))
+        assert sim.whatif.rollouts.pids() and [x["kind"] for x in sim.whatif.plan_stats] == [
+            "whatif", "drain"]
+        sim.whatif.close()
+        # Persistence and the front door: a budgeted service with a
+        # planner, a service over the file-backed log and its restart,
+        # a simulation over a crash-recovering log behind two ingest
+        # shards with torn writes, both soak tools, the lease and auth.
+        for name in ("events.file_log", "services.leader", "services.auth", "frontdoor.admission",
+                     "frontdoor.partition", "tools.chaos_soak", "tools.frontdoor_soak",
+                     "whatif.worker"):
+            assert "armada_tpu_torch." + name in names
+        import dataclasses
+        from armada_tpu_torch.events import FileEventLog
+        from armada_tpu_torch.whatif import WhatIfService
+
+        budgeted = dataclasses.replace(cfg, max_scheduling_duration_s=5.0)
+        wi = WhatIfService(SchedulerService(budgeted, InMemoryEventLog(), device="cpu"))
+        wi.close()
+        log = FileEventLog(os.path.join(tmp, "log"))
+        sched = SchedulerService(cfg, log, device="cpu")
+        submit = SubmitService(cfg, log, scheduler=sched)
+        ex = FakeExecutor("c", log, sched, nodes=make_nodes("c", count=2, cpu="8"),
+                          runtime_for=lambda job_id: 100.0)
+        submit.create_queue(QueueSpec("q"))
+        submit.submit("q", "s", [JobSpec(id=f"f{i}", queue="", requests={"cpu": "2"})
+                                 for i in range(6)], now=0.0)
+        ex.tick(0.0)
+        sched.cycle(now=0.0)
+        log.close()
+        restarted = SchedulerService(cfg, FileEventLog(os.path.join(tmp, "log")), device="cpu")
+        restarted.ingester.sync()
+        assert sum(j.latest_run is not None
+                   for j in restarted.jobdb.read_txn().all_jobs()) == 6
+        sim = Simulator([ClusterSpec("c1", node_templates=(NodeTemplate(count=2, cpu="8"),))],
+                        WorkloadSpec(queues=(QueueSpecSim("q", job_templates=(
+                            JobTemplate(id="t", number=6, cpu="2", memory="1Gi"),)),)),
+                        device="cpu", max_time=600.0, data_dir=os.path.join(tmp, "sim"),
+                        frontdoor=2, fault_plan=FaultPlan([FaultSpec(
+                            "torn_log_write", "*", start=0.0, count=2, param=0.5)]))
+        assert sim.run().finished_jobs == 6 and sim.log.crashes > 0
+        from armada_tpu_torch.tools.chaos_soak import run_plan
+        from armada_tpu_torch.tools.frontdoor_soak import DEFAULTS, run_soak
+
+        soak = run_plan(1, "kernel", 8, device="cpu")
+        assert soak["finished"] == soak["total"]
+        doc = run_soak(0, dict(DEFAULTS, jobs=200, tenants=8, shards=2), device="cpu")
+        assert doc["lost"] == 0 and doc["duplicates"] == 0, doc
+        from armada_tpu_torch.services import auth
+        from armada_tpu_torch.services.leader import FileLeaseLeader
+
+        leader = FileLeaseLeader(os.path.join(tmp, "lease"))
+        assert leader() and leader.validate(leader.get_token())
+        principal = auth.TokenAuth("s").authenticate(
+            {"authorization": "Bearer " + auth.make_token("s", "bob", groups=["ops"])})
+        auth.Authorizer(permission_groups={auth.SUBMIT_ANY_JOBS: ["ops"]}).authorize_global(
+            principal, auth.SUBMIT_ANY_JOBS)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("GUARD_OK", len(names))
     """

@@ -561,19 +561,54 @@ def _sim(**kw):
                      backend="oracle", **kw)
 
 
-@pytest.mark.parametrize("call", [
-    lambda s: PORT.SubmitService(s.config, s.log, frontdoor=object()),
-    lambda s: _sim(data_dir="unused"),
-    lambda s: _sim(frontdoor=2),
-])
-def test_waiting_seams_refuse(call):
-    """The seams whose modules wait for a later slice refuse, naming
-    their ROADMAP item: the file-backed log (A1) and the front door
-    (A2). Autotune and the what-if planner attach (see
-    test_autotune_and_whatif_seams_attach)."""
-    sched = PORT.SchedulerService(config(PORT), PORT.InMemoryEventLog(), backend="oracle")
-    with pytest.raises(NotImplementedError, match="ROADMAP A[12]"):
-        call(sched)
+def _submit_through_front_door(tmp_path):
+    """SubmitService(frontdoor=): the jobs are acked into the shards'
+    WALs, reach the main log when the front door is pumped, and lease."""
+    from armada_tpu_torch.frontdoor import FrontDoor
+
+    log = PORT.InMemoryEventLog()
+    sched = PORT.SchedulerService(config(PORT), log, backend="oracle")
+    fd = FrontDoor(log, num_shards=2)
+    submit = PORT.SubmitService(sched.config, log, scheduler=sched, frontdoor=fd)
+    submit.create_queue(PORT.QueueSpec("q"))
+    for k, jobset in enumerate(("a", "b", "c")):
+        submit.submit("q", jobset, [job(PORT, 2 * k + i, jobset=jobset) for i in range(2)],
+                      now=0.0)
+    before = sum(1 for e in log.read(0, log.end_offset) if e.sequence.jobset in "abc")
+    acked = fd.max_lag()
+    fd.drain(now=0.0)
+    ex = PORT.FakeExecutor("e", log, sched, nodes=PORT.make_nodes("e", count=2, cpu="8"),
+                           runtime_for=lambda job_id: 100.0)
+    ex.tick(0.0)
+    sched.cycle(now=0.0)
+    leased = [j for j in sched.jobdb.read_txn().all_jobs() if j.latest_run is not None]
+    return before == 0 and acked > 0 and fd.max_lag() == 0 and len(leased) == 6
+
+
+def _sim_data_dir(tmp_path):
+    """Simulator(data_dir=): the event log is a CrashRecoveringLog over
+    the directory, with the quarantine directory under it."""
+    from armada_tpu_torch.services.chaos import CrashRecoveringLog
+
+    sim = _sim(data_dir=str(tmp_path))
+    return (isinstance(sim.log, CrashRecoveringLog) and sim.log.dir == str(tmp_path)
+            and sim.scheduler.quarantine_dir == str(tmp_path / "quarantine"))
+
+
+def _sim_front_door(tmp_path):
+    """Simulator(frontdoor=2): two ingest shards on the sim's virtual
+    clock, in front of the submit service."""
+    sim = _sim(frontdoor=2)
+    return (sim.frontdoor.num_shards == 2 and sim.submit.frontdoor is sim.frontdoor
+            and sim.frontdoor.clock is sim.chaos_clock)
+
+
+@pytest.mark.parametrize("build", [_submit_through_front_door, _sim_data_dir, _sim_front_door])
+def test_persistence_and_front_door_seams(build, tmp_path):
+    """The seams that refused before the file-backed log and the front
+    door were ported (ROADMAP A1, and the front door of A2) now build
+    them."""
+    assert build(tmp_path)
 
 
 def test_autotune_and_whatif_seams_attach():
@@ -594,23 +629,6 @@ def test_autotune_and_whatif_seams_attach():
     sim = _sim(autotune=True, whatif=True)
     assert sim.scheduler.autotune is sim.autotune and sim.autotune.enabled
     assert sim.scheduler.whatif is sim.whatif
-
-
-def test_whatif_refuses_a_budgeted_service():
-    """A what-if planner beside a round with a budget would slow the
-    round past it and change what it commits (ROADMAP C3): the planner
-    refuses such a service, and takes the same service unbudgeted."""
-    import dataclasses
-
-    from armada_tpu_torch.whatif import WhatIfService
-
-    budgeted = dataclasses.replace(config(PORT), max_scheduling_duration_s=5.0)
-    sched = PORT.SchedulerService(budgeted, PORT.InMemoryEventLog(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP C3"):
-        WhatIfService(sched)
-    assert sched.whatif is None and sched.fork_capture is None
-    sched.config = dataclasses.replace(budgeted, max_scheduling_duration_s=0.0)
-    WhatIfService(sched)
 
 
 def _attach_metrics(sched, tmp_path):
@@ -661,8 +679,9 @@ def test_attached_seams_observe_the_cycles(attach, check, tmp_path):
 
 def test_market_optimiser_and_slo_config_accepted():
     """A market pool with a bid provider, the optimiser and an SLO
-    tracker on the submit service start and cycle on the port; the front
-    door still waits for the server slice (ROADMAP A2)."""
+    tracker on the submit service start and cycle on the port, and a
+    submit through a front door is observed by the same tracker (the
+    front door refused until it was ported)."""
     import dataclasses
 
     from armada_tpu_torch.core.config import OptimiserConfig
@@ -685,8 +704,13 @@ def test_market_optimiser_and_slo_config_accepted():
     assert sched.jobdb.get("job-0000").latest_run is not None
     assert sched.reports.latest_reports()["default"].queues["q"].realised_value > 0
     assert {s["name"]: s["observed"] for s in slo.snapshot()["slos"]}["frontdoor-p99"] == 1
-    with pytest.raises(NotImplementedError, match="A2"):
-        PORT.SubmitService(cfg, log, frontdoor=object())
+    from armada_tpu_torch.frontdoor import FrontDoor
+
+    fd = FrontDoor(log, num_shards=2)
+    PORT.SubmitService(cfg, log, scheduler=sched, slo=slo, frontdoor=fd).submit(
+        "q", "s2", [job(PORT, 1)], now=2.0)
+    assert fd.max_lag() == 1 and sched.jobdb.get("job-0001") is None
+    assert {s["name"]: s["observed"] for s in slo.snapshot()["slos"]}["frontdoor-p99"] == 2
 
 
 def test_kernel_service_needs_its_device():

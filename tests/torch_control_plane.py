@@ -215,14 +215,22 @@ def port_copy(name, subs=(), *, port=True):
 
 def record_cycles(monkeypatch, module):
     """Record the leases after every cycle of every SchedulerService of
-    the scheduler module `module`: one history per service, in the order
-    the services first cycle (what-if rollouts run services of their
-    own)."""
+    the scheduler module `module` that cycles in this process's own
+    threads: one history per service, in the order the services first
+    cycle. What-if rollouts are left out: the JAX package runs them on
+    its planner's threads (named "whatif"), the port in rollout
+    processes of its own, where nothing here can record their cycles;
+    tests/test_torch_whatif.py compares their plans and the leases and
+    preemptions each rollout sends back."""
+    import threading
+
     histories = []
     cycle = module.SchedulerService.cycle
 
     def recorded(self, *a, **k):
         out = cycle(self, *a, **k)
+        if threading.current_thread().name.startswith("whatif"):
+            return out
         history = self.__dict__.get("_recorded_cycles")
         if history is None:
             history = self.__dict__["_recorded_cycles"] = []
