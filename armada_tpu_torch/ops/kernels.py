@@ -34,9 +34,17 @@ One carries the round's integer scatter-adds on the "cuda" path
 (ops/segment.py):
 
 - `segment_add` (csrc/segment_add.cu): `x.index_add(dim, index, values)`
-  for int32 and int64 tensors by atomic adds, exact in any order, so it
-  needs none of torch's deterministic switch. Replaces the reference's
-  integer `jax.ops.segment_sum` calls, which XLA lowers to a scatter.
+  (`segment_add`) and the same sum into zeros (`segment_sum`) for int32
+  and int64 tensors, exact in any order, so it needs none of torch's
+  deterministic switch. Replaces the reference's integer
+  `jax.ops.segment_sum` calls, which XLA lowers to a scatter. One launch a
+  sum into an output allocated with `torch.empty`, by one of three
+  strategies that `segment_plan` picks on the host from the shapes: rows
+  (a thread a row, warp-aggregated atomics), shared (each CTA sums into
+  its own copy in shared memory, then adds it to the output) and gather
+  (a few rows added onto x, each output element written once). Rows and
+  shared add into an output the C function fills first on the stream (a
+  memset, or a copy of x), as the plan says.
 
 Each wrapper takes the plain version for CPU tensors (the tests) and, for
 CUDA tensors, launches the kernel or raises; nothing falls back. Each
@@ -223,8 +231,8 @@ _SIGNATURES = {
         "armada_ring_free": [ctypes.c_int, ctypes.c_void_p],
     },
     "segment_add": {
-        "armada_segment_add": [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_longlong] * 4
-        + [ctypes.c_void_p],
+        "armada_segment_add": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
 }
 _RESTYPES = {"armada_ring_bytes": ctypes.c_longlong}
@@ -842,6 +850,92 @@ def winner_reduce_rows(rows, pick=False):
 # Integer scatter-add (the round's segment sums)
 # ---------------------------------------------------------------------------
 
+# csrc/segment_add.cu's strategies, in the order of its Strategy enum.
+SEGMENT_STRATEGIES = ("rows", "shared", "gather")
+_SEGMENT_CODE = {s: i for i, s in enumerate(SEGMENT_STRATEGIES)}
+SEGMENT_GATHER_MAX_K = 16  # rows a gather adds
+SEGMENT_GATHER_MAX_VALUES = 4096  # the contributions a gather holds in shared memory
+SEGMENT_SMEM_BYTES = 184 * 1024  # a privatised CTA's copy: 227 KB less the warps' stages
+SEGMENT_CTA_VALUES = 4096  # values a privatised CTA (1,024 threads) takes
+SEGMENT_PRIVATE_RATIO = 4  # privatise when the values are this many times the entries flushed
+SEGMENT_PRIVATE_MIN_VALUES = 2**16  # and past this many values (below it rows are faster)
+SEGMENT_ROW_THREADS = 256  # csrc/segment_add.cu kRowThreads and kGatherThreads
+SEGMENT_BLOCKS_PER_SM = 8  # the rows and gather grids' cap, per SM
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """How csrc/segment_add.cu computes one sum: the strategy, its grid of
+    CTAs, and 64-bit index arithmetic (`wide`)."""
+
+    strategy: str
+    grid: int
+    wide: bool
+
+    @property
+    def init(self) -> bool:
+        """Whether the C function fills the output (a memset, or a copy of
+        x) before the kernel: rows and shared add into it with atomics, a
+        gather writes every element."""
+        return self.strategy != "gather"
+
+
+def segment_strategies(outer, n, k, inner, elem_bytes) -> tuple:
+    """The strategies that can compute a sum of [outer, k, inner] values
+    into [outer, n, inner]: rows always; shared when the output fits one
+    CTA's copy; gather for at most SEGMENT_GATHER_MAX_K rows whose values
+    fit its shared memory."""
+    ok = ["rows"]
+    if outer * n * inner * elem_bytes <= SEGMENT_SMEM_BYTES:
+        ok.append("shared")
+    if k <= SEGMENT_GATHER_MAX_K and outer * k * inner <= SEGMENT_GATHER_MAX_VALUES:
+        ok.append("gather")
+    return tuple(ok)
+
+
+@functools.lru_cache(maxsize=4096)
+def segment_plan(outer, n, k, inner, elem_bytes, sms=H100_SMS, strategy=None) -> SegmentPlan:
+    """The plan of csrc/segment_add.cu for a sum of [outer, k, inner]
+    values into [outer, n, inner] of `elem_bytes`-byte integers on a card
+    of `sms` SMs; `strategy` forces one that segment_strategies accepts.
+
+    The choice: gather for a few rows (a bind's column add); shared for a
+    sum of at least SEGMENT_PRIVATE_MIN_VALUES values that are
+    SEGMENT_PRIVATE_RATIO times the entries its CTAs (one a
+    SEGMENT_CTA_VALUES values) flush (the setup's class and queue sums,
+    every row into one segment); else rows (job rows into nodes, a fill's
+    rows, queue and group counts), where a flush would cost about as many
+    adds as it saves, or a few CTAs would leave the card idle. The
+    thresholds are the card's measurements (PERF.md §6)."""
+    entries, values, rows = outer * n * inner, outer * k * inner, outer * k
+    accepted = segment_strategies(outer, n, k, inner, elem_bytes)
+    ctas = max(1, -(-values // SEGMENT_CTA_VALUES))
+    if strategy is None:
+        if "gather" in accepted:
+            strategy = "gather"
+        elif "shared" in accepted and values >= max(SEGMENT_PRIVATE_MIN_VALUES,
+                                                    SEGMENT_PRIVATE_RATIO * entries * ctas):
+            strategy = "shared"
+        else:
+            strategy = "rows"
+    elif strategy not in accepted:
+        raise ValueError(f"segment_plan: {strategy} does not take [{outer}, {k}, {inner}] into "
+                         f"[{outer}, {n}, {inner}] of {elem_bytes} bytes (accepted: {accepted})")
+    wide = max(entries, values) >= 2**31
+    cap = sms * SEGMENT_BLOCKS_PER_SM
+    if strategy == "rows":
+        return SegmentPlan("rows", min(max(1, -(-rows // SEGMENT_ROW_THREADS)), cap), wide)
+    if strategy == "gather":
+        per_block = SEGMENT_ROW_THREADS * (16 // elem_bytes)
+        return SegmentPlan("gather", min(max(1, -(-entries // per_block)), cap), wide)
+    return SegmentPlan("shared", ctas, wide)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def segment_add_plain(x, dim, index, values):
     """Plain torch version of the segment kernel: `x.index_add(dim, index,
@@ -849,12 +943,48 @@ def segment_add_plain(x, dim, index, values):
     return x.index_add(dim, index, values)
 
 
-def segment_add(x, dim, index, values):
+def segment_sum_plain(values, segments, n):
+    """Plain torch version of the segment kernel into zeros: the rows of
+    `values` [K, ...] summed into `n` segments by `segments` [K]."""
+    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device)
+    return out.index_add(0, segments, values)
+
+
+def _segment_launch(out, x, index, values, outer, n, k, inner, plan):
+    """One sum on the card into `out` (uninitialised), onto x or into
+    zeros (x None). The round calls this every loop: its host checks stay
+    cheap."""
+    device = out.device
+    if out.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_add: int32 or int64 only, not {out.dtype}")
+    if index.dim() != 1:
+        index = index.reshape(k)
+    index, values = index.contiguous(), values.contiguous()
+    _check("segment_add.index", index, torch.int64, 1, device)
+    _check("segment_add.values", values, out.dtype, values.dim(), device)
+    eb = out.element_size()
+    if plan is None:
+        plan = segment_plan(outer, n, k, inner, eb, _sm_count(device.index))
+    elif plan.strategy not in segment_strategies(outer, n, k, inner, eb):
+        raise ValueError(f"segment_add: {plan.strategy} does not take this sum")
+    rc = _fn("segment_add")(
+        _ptr(out), _ptr(x), _ptr(index), _ptr(values), eb, outer, n, k, inner,
+        _SEGMENT_CODE[plan.strategy], plan.grid, int(plan.init or not (outer and k and inner)),
+        int(plan.wide), _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"segment_add: CUDA launch failed (cudaError {rc}) for {plan}")
+    if outer and k and inner:
+        count_launch("segment_add")
+    return out
+
+
+def segment_add(x, dim, index, values, plan=None):
     """`x.index_add(dim, index, values)` for int32 or int64 `x`, as a new
     tensor: `values` has x's dtype and x's shape with `index.numel()` at
-    `dim`, `index` holds positions in [0, x.shape[dim]). By the kernel on a
-    CUDA tensor (an index outside that range adds nothing there, where
-    index_add raises)."""
+    `dim`, `index` int64 positions in [0, x.shape[dim]). By the kernel on a
+    CUDA tensor, one launch by `plan` (default: `segment_plan`'s; an index
+    outside that range adds nothing there, where index_add raises)."""
     if x.device.type == "cpu":
         return segment_add_plain(x, dim, index, values)
     device = x.device
@@ -862,26 +992,40 @@ def segment_add(x, dim, index, values):
         raise ValueError(f"segment_add: unsupported device {device}")
     if x.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"segment_add: int32 or int64 only, not {x.dtype}")
-    # The round calls this every loop: its host checks stay cheap.
     shape = x.shape
     dim = dim % len(shape)
     k = index.numel()
     want = shape[:dim] + (k,) + shape[dim + 1:]
     if values.shape != want:
         raise ValueError(f"segment_add: values {tuple(values.shape)}, expected {tuple(want)}")
-    if index.dim() != 1:
-        index = index.reshape(k)
-    index, values = index.contiguous(), values.contiguous()
-    _check("segment_add.index", index, torch.int64, 1, device)
-    _check("segment_add.values", values, x.dtype, len(shape), device)
-    out = x.contiguous().clone()
+    if values.dtype != x.dtype:
+        raise TypeError(f"segment_add: values {values.dtype}, expected {x.dtype}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
     outer, inner = math.prod(shape[:dim]), math.prod(shape[dim + 1:])
-    if outer and k and inner:
-        _launch(
-            "segment_add", _ptr(out), _ptr(index), _ptr(values), x.element_size(),
-            outer, shape[dim], k, inner, _stream(device),
-        )
-    return out
+    return _segment_launch(out, x, index, values, outer, shape[dim], k, inner, plan)
+
+
+def segment_sum(values, segments, n, plan=None):
+    """The rows of int32 or int64 `values` [K, ...] summed into `n`
+    segments by int64 `segments` [K] (one outside [0, n) adds nothing on
+    the card), a new tensor. By the kernel on a CUDA tensor, one launch by
+    `plan` (default: `segment_plan`'s) into an output it never zeroes
+    apart from the plan's memset."""
+    if values.device.type == "cpu":
+        return segment_sum_plain(values, segments, n)
+    device = values.device
+    if device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {device}")
+    if values.dim() < 1 or segments.numel() != values.shape[0]:
+        raise ValueError(f"segment_sum: {segments.numel()} segments for values {tuple(values.shape)}")
+    rest = tuple(values.shape[1:])
+    out = torch.empty((n,) + rest, dtype=values.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    return _segment_launch(out, None, segments, values, 1, n, values.shape[0], math.prod(rest), plan)
 
 
 # ---------------------------------------------------------------------------

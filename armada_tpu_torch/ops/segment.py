@@ -1,9 +1,10 @@
 """Scatter-adds of integer values, exact and deterministic.
 
 An integer sum is the same in any order. On the "cuda" kernel path these
-adds run the hand-written `segment_add` kernel (ops/kernels.py), integer
-atomic adds that never read torch's process-wide deterministic switch;
-on the CPU the same wrapper takes its plain version, torch's
+adds run the hand-written `segment_add` kernel (ops/kernels.py), one
+launch a sum into an output allocated with `torch.empty` (no zero fill
+and no clone), which never reads torch's process-wide deterministic
+switch; on the CPU the same wrappers take their plain versions, torch's
 `index_add`. The "lax" path, the plain version the round is held to,
 calls `index_add` itself: torch's CUDA `index_add` then sorts, since
 `device.resolve_device` turns the switch on for the float sums. Nothing
@@ -24,12 +25,16 @@ import torch
 from . import kernels as K
 
 
+def _ints(x, what):
+    if x.dtype.is_floating_point or x.dtype == torch.bool:
+        raise TypeError(f"{what}: integer tensors only, not {x.dtype}")
+
+
 def index_add_int(x, dim, index, values, kernel):
     """`x.index_add(dim, index, values)` for integer tensors, as a new
     tensor: by the segment kernel when `kernel` (the "cuda" path), else by
     torch's `index_add`."""
-    if x.dtype.is_floating_point or x.dtype == torch.bool:
-        raise TypeError(f"index_add_int: integer tensors only, not {x.dtype}")
+    _ints(x, "index_add_int")
     if index.dtype != torch.int64:
         index = index.to(torch.int64)
     if values.dtype != x.dtype:
@@ -41,8 +46,14 @@ def index_add_int(x, dim, index, values, kernel):
 
 def segment_sum(values, segments, n, kernel):
     """Sum the rows of integer `values` [K, ...] into `n` segments by
-    `segments` [K] (each in [0, n))."""
+    `segments` [K] (each in [0, n)): by the segment kernel when `kernel`,
+    else by torch's `index_add` onto zeros."""
+    _ints(values, "segment_sum")
+    if segments.dtype != torch.int64:
+        segments = segments.to(torch.int64)
+    if kernel:
+        return K.segment_sum(values, segments, n)
     out = torch.zeros(
         (n,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device
     )
-    return index_add_int(out, 0, segments, values, kernel)
+    return out.index_add(0, segments, values)

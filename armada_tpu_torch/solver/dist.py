@@ -45,6 +45,19 @@ def _fill_sort(keys, mask, B, path="lax", nbits=None):
     return lexsort(mk)[:B], mk
 
 
+def _add_row_at(alloc, row, n, delta, kernel):
+    """alloc[row, n] += delta ([R]) for a local node index n (0-d) in
+    [0, N): one add on the allocation viewed as [P * N, R] at row * N + n,
+    with no copy of the allocation or of its row (on the "cuda" path the
+    segment kernel's gather writes each element once)."""
+    p, ln, r = alloc.shape
+    index = n.reshape(1).to(torch.int64)
+    if row:
+        index = index + row * ln
+    flat = index_add_int(alloc.reshape(p * ln, r), 0, index, delta.reshape(1, r), kernel)
+    return flat.reshape(p, ln, r)
+
+
 def at(x, i):
     """x[i] for a 0-d index tensor, without reading the index back to
     the host (indexing with a 0-d tensor would synchronise)."""
@@ -159,10 +172,9 @@ class LocalDist:
         return index_add_int(alloc, 1, n.reshape(1), delta.unsqueeze(1), kernel)
 
     def add_row_at(self, alloc, row, n, delta, kernel):
-        """alloc[row, n] += delta ([R]) at a global node index (0-d)."""
-        out = alloc.clone()
-        out[row] = index_add_int(out[row], 0, n.reshape(1), delta.unsqueeze(0), kernel)
-        return out
+        """alloc[row, n] += delta ([R]) at a global node index (0-d) in
+        [0, N), as add_col does."""
+        return _add_row_at(alloc, row, n, delta, kernel)
 
     def segment_to_nodes(self, contrib, nodes, ln, kernel):
         """Sum [J, ...] contributions into their (global) nodes -> local
@@ -288,9 +300,7 @@ class ShardDist:
     def add_row_at(self, alloc, row, n, delta, kernel):
         local, ok = self._owned(n, alloc.shape[1])
         delta = torch.where(ok, delta, torch.zeros_like(delta))
-        out = alloc.clone()
-        out[row] = index_add_int(out[row], 0, local.reshape(1), delta.unsqueeze(0), kernel)
-        return out
+        return _add_row_at(alloc, row, local, delta, kernel)
 
     def segment_to_nodes(self, contrib, nodes, ln, kernel):
         local, ok = self._owned(nodes, ln)

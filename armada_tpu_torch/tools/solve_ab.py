@@ -5,6 +5,7 @@ port within one call (parent, change, change, parent):
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR --kernels
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR --ring 50
     python3 armada_tpu_torch/tools/solve_ab.py --root DIR --segment --cell gangs_100k
+    python3 armada_tpu_torch/tools/solve_ab.py --root DIR --cell round_100k_fast --census
 
 Imports `armada_tpu_torch` from DIR, a checkout of the repository (this one,
 or another unpacked beside it with `git archive`), and builds its kernels
@@ -38,11 +39,18 @@ axis), CALLS calls per case, and prints per n each member's ms per call
 (CUDA events), device ms, the plain version's ms and that of a gather plus
 winner_reduce, and the calls that disagreed with the plain version. Then
 the cells named by `--cell`, none by default with `--kernels` or
-`--ring`. With `--segment` it first times the tree's integer scatter-add
-(`ops.segment.index_add_int`, as the "cuda" path calls it) at the round's shapes: the fill loop's
-per-queue count (K = 20,480 into Q = 10), one node's column of a [3, 8,192,
-4] allocation (the gang bind's add), and 131,072 job rows of 4 lanes into
-8,192 nodes; ms per call from CUDA events. Needs a CUDA card.
+`--ring`. With `--segment` it first times the tree's integer scatter-add as the "cuda"
+path calls it (`ops.segment.segment_sum`, or `index_add_int` for an add
+onto an allocation) at SEGMENT_CASES, chip_smoke.py's cases, in int32
+and int64: per case the ms per call (CUDA events), the device ms per
+call (torch.profiler, every kernel, memset and copy of the call summed)
+and the segment kernel's own (`kernel_device_ms`);
+on a tree whose `ops.kernels` has `segment_plan`, also under each
+strategy that accepts the case. With `--census`, each one-device cell
+is solved once more with the tree's segment wrappers recorded: per call
+shape the calls, the share of nonzero values and how ordered the index
+is, and each accepted strategy timed on that shape's first inputs.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import argparse
 import functools
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,6 +79,83 @@ CELLS = {
     # 524,288 slots), against flagship_1m, the same round fused.
     "flagship_window": (1_000_000, 50_000, {}),
 }
+# The round's integer sums (chip_smoke.py's segment cases): name -> (x
+# shape, dim, index length, "sum" into zeros or "add" onto x, index
+# order). The fill loop's per-queue count (20,480 taken slots into 16
+# queues), random and sorted by queue as the merged fill passes them; a
+# gang bind's one node column of a [3, 8,192, 4] allocation; a fill's
+# rows into 8,192 nodes; the setup's 131,072 job rows of 4 lanes into
+# 8,192 nodes (the eviction sums' shape) and into Q x C = 64 queue
+# classes, random and sorted by class as the round passes `qseg`; every
+# row into one segment; and the flagship's 1,048,576 rows into 65,536
+# nodes.
+SEGMENT_CASES = {
+    "queue_counts": ((16,), 0, 20480, "sum", "random"),
+    "queue_counts_sorted": ((16,), 0, 20480, "sum", "sorted"),
+    "bind_column": ((3, 8192, 4), 1, 1, "add", "random"),
+    "fill_rows": ((8192, 4), 0, 2048, "sum", "random"),
+    "rows_to_nodes": ((8192, 4), 0, 131072, "sum", "random"),
+    "rows_to_classes": ((64, 4), 0, 131072, "sum", "random"),
+    "rows_to_classes_sorted": ((64, 4), 0, 131072, "sum", "sorted"),
+    "rows_to_one": ((1, 4), 0, 131072, "sum", "sorted"),
+    "flagship_rows_to_nodes": ((65536, 4), 0, 1048576, "sum", "random"),
+}
+
+
+def segment_inputs(name, dtype, seed, device="cuda"):
+    """Seeded (x, dim, index, values) of SEGMENT_CASES[name] on `device`:
+    values at the dtype's extremes (the sums wrap), half of them 0; x
+    likewise (a "sum" case adds into zeros, and x is its shape's zeros)."""
+    import numpy as np
+    import torch
+
+    shape, dim, k, form, order = SEGMENT_CASES[name]
+    rng = np.random.default_rng(seed)
+    np_dtype = np.int32 if dtype == torch.int32 else np.int64
+    info = np.iinfo(np_dtype)
+    vshape = shape[:dim] + (k,) + shape[dim + 1:]
+    values = rng.integers(info.min, info.max, size=vshape, dtype=np.int64).astype(np_dtype)
+    values[rng.random(vshape) < 0.5] = 0
+    if form == "sum":
+        x = np.zeros(shape, np_dtype)
+    else:
+        x = rng.integers(info.min, info.max, size=shape, dtype=np.int64).astype(np_dtype)
+    index = rng.integers(0, shape[dim], size=k)
+    if order == "sorted":
+        index = np.sort(index)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return dev(x), dim, dev(index), dev(values)
+
+
+def segment_call(name, fn_add, fn_sum, a, **kw):
+    """The case's call as the round makes it: fn_sum(values, index, n) for
+    a "sum" case, fn_add(x, dim, index, values) for an "add"."""
+    x, dim, index, values = a
+    if SEGMENT_CASES[name][3] == "sum":
+        return lambda: fn_sum(values, index, x.shape[0], **kw)
+    return lambda: fn_add(x, dim, index, values, **kw)
+
+
+def device_total_ms(fn, iters, match=None):
+    """Mean device milliseconds per call of fn(): every CUDA event the
+    profiler sees (kernels, memsets, copies), or those whose name holds
+    `match`, summed over `iters` calls; None when it saw none."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and (match is None or match in e.name)]
+    return sum(us) / iters / 1e3 if us else None
+
+
 # solve_round's keywords per cell: the host-driven driver's.
 DRIVER = {"flagship_window": {"window": 4096}}
 SHARDED = {"gangs_100k_2x2": "2x2"}
@@ -86,6 +172,8 @@ def main() -> int:
                     help="drive the ring kernel at n = 2 and 4 on this card first")
     ap.add_argument("--segment", action="store_true",
                     help="time the integer scatter-add first")
+    ap.add_argument("--census", action="store_true",
+                    help="after a one-device cell's solves, one more with the segment sums recorded")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -151,7 +239,72 @@ def main() -> int:
                            "launches": dict(K.LAUNCHES)})
         print(json.dumps({"tree": root, "cell": cell, "card": smi, "build_s": build_s,
                           "solves": solves}), flush=True)
+        if args.census and cell not in SHARDED and hasattr(K, "segment_plan"):
+            census = segment_census(K, lambda: solve(readback_rows=snap.num_jobs,
+                                                     **DRIVER.get(cell, {})))
+            print(json.dumps({"tree": root, "cell": cell, "card": smi, "census": census}), flush=True)
     return 0
+
+
+def segment_census(K, solve) -> dict:
+    """One solve() with the tree's segment wrappers wrapped: per call shape
+    (outer, n, k, inner, bytes) the calls, the share of nonzero values, and
+    the shares of index entries not below and equal to their predecessor;
+    then, on that shape's first call's inputs, the strategy segment_plan
+    picks and each accepted strategy's ms and device ms a call."""
+    import torch
+
+    from armada_tpu_torch.timing import cuda_ms
+
+    seen, wrapped = {}, (K.segment_add, K.segment_sum)
+
+    def record(shape, index, values, call):
+        if shape not in seen:
+            seen[shape] = {"calls": 0, "values": 0, "nonzero": 0, "pairs": 0, "ordered": 0,
+                           "repeats": 0, "call": call}
+        rec = seen[shape]
+        d = index[1:] - index[:-1]
+        rec["calls"] += 1
+        rec["values"] += values.numel()
+        rec["nonzero"] += int(torch.count_nonzero(values))
+        rec["pairs"] += d.numel()
+        rec["ordered"] += int((d >= 0).sum())
+        rec["repeats"] += int((d == 0).sum())
+
+    def segment_add(x, dim, index, values, plan=None):
+        dim = dim % x.dim()
+        shape = (math.prod(x.shape[:dim]), x.shape[dim], index.numel(),
+                 math.prod(x.shape[dim + 1:]), x.element_size())
+        a = (x.clone(), dim, index.clone(), values.clone()) if shape not in seen else None
+        record(shape, index.reshape(-1), values, lambda p, a=a: wrapped[0](*a, plan=p))
+        return wrapped[0](x, dim, index, values, plan=plan)
+
+    def segment_sum(values, segments, n, plan=None):
+        shape = (1, n, segments.numel(), math.prod(values.shape[1:]), values.element_size())
+        a = (values.clone(), segments.clone(), n) if shape not in seen else None
+        record(shape, segments.reshape(-1), values, lambda p, a=a: wrapped[1](*a, plan=p))
+        return wrapped[1](values, segments, n, plan=plan)
+
+    K.segment_add, K.segment_sum = segment_add, segment_sum
+    try:
+        solve()
+        torch.cuda.synchronize()
+    finally:
+        K.segment_add, K.segment_sum = wrapped
+    out = {}
+    for shape, rec in seen.items():
+        call = rec.pop("call")
+        rec["nonzero_share"] = rec["nonzero"] / max(1, rec["values"])
+        rec["ordered_share"] = rec["ordered"] / max(1, rec["pairs"])
+        rec["repeat_share"] = rec["repeats"] / max(1, rec["pairs"])
+        rec["strategy"] = K.segment_plan(*shape).strategy
+        rec["by"] = {}
+        for strategy in K.segment_strategies(*shape):
+            plan = K.segment_plan(*shape, strategy=strategy)
+            fn = functools.partial(call, plan)
+            rec["by"][strategy] = {"ms": cuda_ms(fn, 200), "device_ms": device_total_ms(fn, 50)}
+        out[str(list(shape))] = rec
+    return out
 
 
 def ring_times(n, calls) -> dict:
@@ -171,35 +324,47 @@ def ring_times(n, calls) -> dict:
 
 
 def segment_times() -> dict:
-    """ms per call of the tree's index_add_int at three of the round's
-    shapes (see the module docstring), on seeded inputs."""
+    """The tree's integer sums at SEGMENT_CASES in int32 and int64 (see
+    the module docstring): {case_dtype: {ms, device_ms, [strategy, by]}}."""
     import torch
 
     from armada_tpu_torch.device import resolve_device
-    from armada_tpu_torch.ops.segment import index_add_int
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.ops.segment import index_add_int, segment_sum
     from armada_tpu_torch.timing import cuda_ms
 
-    dev = resolve_device()
-    g = torch.Generator(device="cpu").manual_seed(0)
-
-    def ints(high, *shape):
-        return torch.randint(0, high, shape, generator=g).to(dev)
-
-    cases = {
-        "queue_counts": (torch.zeros(10, dtype=torch.int32, device=dev), 0,
-                         ints(10, 20480), ints(2, 20480).to(torch.int32)),
-        "bind_column": (ints(1000, 3, 8192, 4).to(torch.int32), 1, ints(8192, 1),
-                        ints(100, 3, 1, 4).to(torch.int32)),
-        "rows_to_nodes": (torch.zeros(8192, 4, dtype=torch.int64, device=dev), 0,
-                          ints(8192, 131072), ints(64, 131072, 4)),
-    }
-    # The "cuda" path's add: a tree whose index_add_int takes `kernel`
-    # runs the segment kernel; an older one has the one path.
-    if "kernel" in inspect.signature(index_add_int).parameters:
-        add = functools.partial(index_add_int, kernel=True)
-    else:
-        add = index_add_int
-    return {name: cuda_ms(lambda c=c: add(*c), 500) for name, c in cases.items()}
+    resolve_device()
+    add = functools.partial(index_add_int, kernel=True)
+    add_sum = functools.partial(segment_sum, kernel=True)
+    out = {}
+    for i, name in enumerate(SEGMENT_CASES):
+        for dtype in (torch.int32, torch.int64):
+            a = segment_inputs(name, dtype, i)
+            call = segment_call(name, add, add_sum, a)
+            rec = {"ms": cuda_ms(call, 500), "device_ms": device_total_ms(call, 100),
+                   "kernel_device_ms": device_total_ms(call, 100, "segment_")}
+            if hasattr(K, "segment_plan"):
+                x, dim, index, values = a
+                shape = (math.prod(x.shape[:dim]), x.shape[dim], index.numel(),
+                         math.prod(x.shape[dim + 1:]), x.element_size())
+                rec["strategy"] = K.segment_plan(*shape).strategy
+                rec["by"] = {}
+                for strategy in K.segment_strategies(*shape):
+                    plans = {strategy: K.segment_plan(*shape, strategy=strategy)}
+                    if strategy == "shared":
+                        # Also at four times and a quarter of the values a
+                        # CTA takes (SEGMENT_CTA_VALUES).
+                        for cta in (K.SEGMENT_CTA_VALUES // 4, K.SEGMENT_CTA_VALUES * 4):
+                            plans[f"shared@{cta}"] = K.SegmentPlan(
+                                "shared", -(-values.numel() // cta), plans[strategy].wide)
+                    for label, plan in plans.items():
+                        fn = segment_call(name, K.segment_add, K.segment_sum, a, plan=plan)
+                        rec["by"][label] = {"grid": plan.grid,
+                                            "ms": cuda_ms(fn, 500),
+                                            "device_ms": device_total_ms(fn, 100),
+                                            "kernel_device_ms": device_total_ms(fn, 100, "segment_")}
+            out[f"{name}_{str(dtype)[6:]}"] = rec
+    return out
 
 
 def kernel_times(K) -> dict:

@@ -35,8 +35,16 @@ line of each process's peak reserved device memory.
    shared memory (streamed); B = 4096 and 8192 at N = 65536, past the
    survivors' shared-memory budget (sorted in global memory); and
    score_nodes' masked keys at N = 65536 and on the shards. segment_add
-   (the "cuda" path's integer scatter-adds) at SEGMENT_SHAPES, int32 and
-   int64, values at the types' extremes (the sums wrap), half of them 0.
+   (the "cuda" path's integer scatter-adds) at SEGMENT_CASES
+   (tools/solve_ab.py: the round's sums, the class and queue sums with
+   sorted indices, every row into one segment, the flagship's rows into
+   its nodes), int32 and int64, values at the types' extremes (the sums
+   wrap), half of them 0, under every strategy of `segment_plan` that
+   accepts the case, into zeros or onto x as the round calls it and onto
+   a seeded x; a profiler check of one call per case (one segment kernel,
+   plus the plan's memset or copy; no clone, no zero fill); torch's
+   index_add without the deterministic switch timed in a child process
+   (`chip_smoke.py --segment-library`, run after the build).
 4. round: 100,000 queued jobs x 5,000 nodes x 10 queues plus 5,000 running
    preemptible jobs in one queue, in the default configuration (batch
    fill window 512, fast fill off), on the "cuda" and the "lax" kernel
@@ -256,7 +264,7 @@ one-element torch add on the device, the launch floor.
 Then one {"kernels": [...]} line (`launches` from the sharded gangs_100k,
 the run where the round's three kernels must launch, and for the ring
 kernel from phase 8's ring drive; the other sharded runs', the
-single-device counts, phase 6's (`launches_fast_fill_flagship`,
+single-device counts, phase 6's (`launches_fast_fill_flagship`, `launches_round_100k_fast`,
 `launches_home_away_2x2`), the driver phase's (`launches_flagship_window`
 and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_flagship_fast_priority_2x2`) and the market runs'
@@ -278,9 +286,14 @@ fill_take's also at N = 8192 (`ms_at_8192`, with torch.sort's time there)
 and its cluster size, score_nodes' also through the plan,
 `plan_ms` and `plan_device_ms`; fill_take's also at B = 4,096,
 `ms_at_b4096` and the rest; segment_add's at 131,072 job rows of 4
-int64 lanes into 8,192 nodes, and per SEGMENT_SHAPES case in `cases`), one line of ptxas's registers and shared
-memory for fill_take_kernel's two instantiations, the global sort's
-sort_runs_kernel and merge_kernel, and winner_reduce_kernel
+int64 lanes into 8,192 nodes (`device_ms` a whole call, the plan's memset
+included, and `bound_share` against it; the kernel's own launch
+`kernel_device_ms`), and per SEGMENT_CASES case in `cases`:
+the strategy, ms, device ms a call, bound, plain and library ms, each
+accepted strategy's times in `by`), one line of ptxas's registers and
+shared memory for fill_take_kernel's two instantiations, the global
+sort's sort_runs_kernel and merge_kernel, winner_reduce_kernel and the
+segment kernels (the most of their instantiations)
 (`nvcc -Xptxas -v`), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure exits non-zero before the last line.
 Needs one CUDA card; exits non-zero without one.
@@ -575,76 +588,175 @@ def phase_kernels():
     return checks, timing
 
 
-# segment_add's cases as the round calls it (ops/segment.py): name -> (x
-# shape, dim, index length). The fill loop's per-queue count (20,480 taken
-# slots into 16 queues), a gang bind's one node column of a [3, 8,192, 4]
-# allocation, a fill's rows into 8,192 nodes, and the setup's 131,072 job
-# rows of 4 lanes into 8,192 nodes (the eviction sums' shape) and into
-# Q x C = 64 queue classes.
-SEGMENT_SHAPES = {
-    "queue_counts": ((16,), 0, 20480),
-    "bind_column": ((3, 8192, 4), 1, 1),
-    "fill_rows": ((8192, 4), 0, 2048),
-    "rows_to_nodes": ((8192, 4), 0, 131072),
-    "rows_to_classes": ((64, 4), 0, 131072),
-}
+# segment_add's cases are SEGMENT_CASES (armada_tpu_torch/tools/solve_ab.py,
+# which times the same cases on two trees): the round's integer sums, the
+# contention cases (class and queue sums with sorted indices, every row
+# into one segment) and the flagship's rows into its nodes.
 SEGMENT_TIMED = "rows_to_nodes"
+# Host ops that would mean a copy or a zero fill on the kernel path.
+SEGMENT_FORBIDDEN = ("aten::clone", "aten::zeros", "aten::zero_", "aten::fill_", "aten::copy_")
 
 
-def segment_case(shape, dim, k, dtype, seed):
-    """Seeded (x, dim, index, values) for segment_add on the card, values
-    at the dtype's extremes, half of them 0."""
-    import numpy as np
+def segment_library():
+    """`chip_smoke.py --segment-library`, a child process: torch's
+    index_add at every segment case, in a process that never turns on the
+    deterministic switch, so that it takes torch's atomic path (the same
+    integer function, in one call: a case that sums into zeros adds onto a
+    zero tensor). Prints {"segment_library_ms": {case_dtype: ms}}."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    np_dtype = np.int32 if dtype == torch.int32 else np.int64
-    info = np.iinfo(np_dtype)
-    vshape = shape[:dim] + (k,) + shape[dim + 1:]
-    values = rng.integers(info.min, info.max, size=vshape, dtype=np.int64).astype(np_dtype)
-    values[rng.random(vshape) < 0.5] = 0
-    x = rng.integers(info.min, info.max, size=shape, dtype=np.int64).astype(np_dtype)
-    index = rng.integers(0, shape[dim], size=k)
+    from armada_tpu_torch.timing import cuda_ms
+    from armada_tpu_torch.tools.solve_ab import SEGMENT_CASES, segment_inputs
 
-    def dev(a):
-        return torch.as_tensor(a, device="cuda")
+    if not torch.cuda.is_available():
+        print("chip_smoke --segment-library: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    out = {}
+    for i, name in enumerate(SEGMENT_CASES):
+        for dtype in (torch.int32, torch.int64):
+            x, dim, index, values = segment_inputs(name, dtype, i)
+            out[f"{name}_{str(dtype)[6:]}"] = cuda_ms(lambda: x.index_add(dim, index, values), 200)
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("the library timing ran under the deterministic switch")
+    emit({"segment_library_ms": out})
+    return 0
 
-    return dev(x), dim, dev(index), dev(values)
+
+def segment_library_start():
+    """Start the library timing in a child process."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--segment-library"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
 
 
-def phase_segment():
-    """segment_add against index_add (its plain version) at SEGMENT_SHAPES,
-    int32 and int64; times, at every shape in int64 (the setup's sums) and
-    int32 (the fill's), the wrapper and the plain version by CUDA events,
-    the kernel by the profiler at SEGMENT_TIMED. The plain version is
-    torch's index_add, the library call, under the deterministic switch
-    that resolve_device turns on: it sorts."""
+def segment_library_finish(proc):
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"segment library timing failed ({proc.returncode}):\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])["segment_library_ms"]
+
+
+def segment_profile(fn, plan):
+    """One call of fn() under torch.profiler: the device operations it ran
+    and the host ops it called. Holds it to one segment kernel, plus the
+    plan's memset or copy when it has one, and no clone or zero fill."""
+    import torch
+
+    act = torch.profiler.ProfilerActivity
+    for _ in range(PROFILE_TRIES):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+        kernels = [d for d in device if "segment_" in d]
+        if kernels:  # the profiler saw the session's device events
+            break
+    else:
+        raise AssertionError(f"the profiler saw no segment kernel in {PROFILE_TRIES} sessions")
+    others = [d for d in device if "segment_" not in d]
+    forbidden = sorted({h for h in host if h in SEGMENT_FORBIDDEN})
+    if len(kernels) != 1 or len(others) != int(plan.init) or forbidden:
+        raise AssertionError(f"segment sum by {plan}: device ops {device}, host ops {forbidden}")
+    return {"kernels": len(kernels), "memsets": sum("Memset" in d for d in others),
+            "copies": sum("Memcpy" in d for d in others)}
+
+
+def segment_device_ms(fn, iters):
+    """solve_ab.device_total_ms (every device op of a call), measured again
+    when the profiler dropped the session's events, up to PROFILE_TRIES
+    sessions."""
+    from armada_tpu_torch.tools.solve_ab import device_total_ms
+
+    for _ in range(PROFILE_TRIES):
+        ms = device_total_ms(fn, iters)
+        if ms is not None:
+            return ms
+    raise AssertionError(f"the profiler saw no device op in {PROFILE_TRIES} sessions")
+
+
+def phase_segment(library_ms):
+    """segment_add and segment_sum against index_add (their plain
+    versions) at every SEGMENT_CASES case, int32 and int64, under the
+    strategy segment_plan picks and under each other strategy that accepts
+    the case, each as the round calls it (into zeros or onto x) and onto a
+    seeded x. Per case: the plan, a profiler check of one call (one
+    segment kernel, plus the plan's memset or copy, no clone or zero
+    fill), and the times of the picked and of every accepted strategy:
+    `ms` per call (CUDA events), `device_ms` per call (every device op of
+    the call, torch.profiler), the plain version's ms (index_add under
+    the deterministic switch that resolve_device turns on: it sorts) and
+    library_ms (index_add in a child process without the switch). The
+    kernel's own device ms per launch at SEGMENT_TIMED, int64
+    (`kernel_device_ms`)."""
+    import math
+
+    import numpy as np
     import torch
 
     from armada_tpu_torch.ops import kernels as kt
     from armada_tpu_torch.timing import cuda_ms
+    from armada_tpu_torch.tools.solve_ab import SEGMENT_CASES, segment_call, segment_inputs
 
     checks, cases = [], {}
-    for name, (shape, dim, k) in SEGMENT_SHAPES.items():
+    for i, (name, (shape, dim, k, form, order)) in enumerate(SEGMENT_CASES.items()):
         for dtype in (torch.int32, torch.int64):
-            a = segment_case(shape, dim, k, dtype, len(checks))
-            checks.append(check_equal("segment_add", (kt.segment_add(*a),),
-                                      (kt.segment_add_plain(*a),), case=name, dtype=str(dtype)))
+            a = segment_inputs(name, dtype, i)
             x, _, index, values = a
-            # Each input read once, the output written once; one add a value.
-            nbytes = 2 * x.nbytes + index.nbytes + values.nbytes
-            cases[f"{name}_{str(dtype)[6:]}"] = {
-                "ms": cuda_ms(lambda a=a: kt.segment_add(*a), 200),
-                "plain_ms": cuda_ms(lambda a=a: kt.segment_add_plain(*a), 50),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, values.numel() / SCALAR_OPS_PER_S) * 1e3,
-                "shape": {"x": list(shape), "dim": dim, "k": k},
+            dims = (math.prod(shape[:dim]), shape[dim], k, math.prod(shape[dim + 1:]), x.element_size())
+            rng = np.random.default_rng(1000 + i)
+            info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+            x_rand = torch.as_tensor(rng.integers(info.min, info.max, size=shape, dtype=np.int64),
+                                     device="cuda").to(dtype)
+            want_add = kt.segment_add_plain(x_rand, dim, index, values)
+            want = (kt.segment_sum_plain(values, index, shape[0]) if form == "sum"
+                    else kt.segment_add_plain(x, dim, index, values))
+            picked = kt.segment_plan(*dims)
+            by = {}
+            for strategy in kt.segment_strategies(*dims):
+                plan = kt.segment_plan(*dims, strategy=strategy)
+                call = segment_call(name, kt.segment_add, kt.segment_sum, a, plan=plan)
+                case = dict(case=name, dtype=str(dtype), strategy=strategy)
+                checks.append(check_equal("segment_add", (call(),), (want,), **case))
+                checks.append(check_equal("segment_add", (kt.segment_add(x_rand, dim, index, values, plan=plan),),
+                                          (want_add,), onto="seeded x", **case))
+                by[strategy] = {"grid": plan.grid, "init": plan.init,
+                                "ms": cuda_ms(call, 200), "device_ms": segment_device_ms(call, 50)}
+            call = segment_call(name, kt.segment_add, kt.segment_sum, a)
+            plain = segment_call(name, kt.segment_add_plain, kt.segment_sum_plain, a)
+            # Each input read once, the output written once (x read too for
+            # an add onto x, not for a sum into zeros); one add a value.
+            nbytes = x.nbytes * (1 if form == "sum" else 2) + index.nbytes + values.nbytes
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, values.numel() / SCALAR_OPS_PER_S) * 1e3
+            key = f"{name}_{str(dtype)[6:]}"
+            cases[key] = {
+                "strategy": picked.strategy, "grid": picked.grid, "init": picked.init,
+                "wide": picked.wide,
+                "ms": cuda_ms(call, 200),
+                "device_ms": by[picked.strategy]["device_ms"],
+                "plain_ms": cuda_ms(plain, 50),
+                "library_ms": library_ms[key],
+                "bound_ms": bound_ms,
+                "profile": segment_profile(call, picked),
+                "by": by,
+                "shape": {"x": list(shape), "dim": dim, "k": k, "form": form, "index": order},
             }
+            c = cases[key]
+            c["bound_share"] = bound_ms / c["device_ms"] if c["device_ms"] else None
             if (name, dtype) == (SEGMENT_TIMED, torch.int64):
-                timed = a
+                timed = call
     tm = dict(cases[f"{SEGMENT_TIMED}_int64"])
-    tm["device_ms"] = device_ms_many({"kernel": lambda: kt.segment_add(*timed)}, 50,
-                                     "segment_add_kernel")["kernel"]
-    tm["library_ms"] = tm["plain_ms"]
+    tm.pop("by")
+    # device_ms is the whole sum as the round pays for it (the plan's
+    # memset included), which bound_share reads; the kernel's own launch
+    # beside it.
+    tm["kernel_device_ms"] = device_ms_many({"kernel": timed}, 50, "segment_")["kernel"]
     tm["max_abs_err"] = max(c["max_abs_err"] for c in checks)
     tm["cases"] = cases
     return checks, tm
@@ -670,7 +782,7 @@ def device_ms_many(fns, iters, kernel):
     )
 
 
-PTXAS_SOURCES = ("fill_take", "winner_reduce")
+PTXAS_SOURCES = ("fill_take", "winner_reduce", "segment_add")
 
 
 def ptxas_start():
@@ -713,7 +825,10 @@ def ptxas_finish(job):
         if m:
             name = m.group(1)
             width = re.search(r"winner_reduce_kernelILi(\d+)E", name)
-            if width:
+            family = re.search(r"(segment_(?:rows|shared|gather)_kernel)", name)
+            if family:  # the most of any instantiation, per kernel
+                entry = family.group(1)
+            elif width:
                 entry = f"winner_reduce_kernel<{width.group(1)}>"
             elif "fill_take_kernel" in name:
                 entry = "fill_take_kernel<resident>" if "ILb1E" in name else "fill_take_kernel<streamed>"
@@ -724,11 +839,14 @@ def ptxas_finish(job):
         if m and entry:
             smem = re.search(r"(\d+) bytes smem", line)
             stack = re.search(r"(\d+) bytes cumulative stack", line)
-            out[entry] = {
+            rec = {
                 "registers": int(m.group(1)),
                 "static_smem_bytes": int(smem.group(1)) if smem else 0,
                 "stack_bytes": int(stack.group(1)) if stack else 0,
             }
+            if entry in out:
+                rec = {f: max(out[entry][f], v) for f, v in rec.items()}
+            out[entry] = rec
             if entry.startswith("fill_take"):
                 out[entry]["dynamic_smem_bytes_max"] = kt.fill_take_config(131072, kt.FILL_TAKE_MAX).smem_bytes
             entry = None
@@ -2694,11 +2812,14 @@ def main() -> int:
     libs = K.build_all()
     emit({"phase": "build", "libraries": libs, "seconds": time.time() - t0})
     ptxas = ptxas_finish(ptxas)
+    # The library timing runs once the build is done, with the host quiet
+    # as it is for the port's own times.
+    library_ms = segment_library_finish(segment_library_start())
 
     t0 = time.time()
     checks, timing = phase_kernels()
     wchecks, timing["winner_reduce"] = phase_winner()
-    schecks, timing["segment_add"] = phase_segment()
+    schecks, timing["segment_add"] = phase_segment(library_ms)
     wchecks += schecks
     floor_ms = floor_device_ms()
     emit({"phase": "kernels", "checks": checks + wchecks, "timing": timing,
@@ -2750,6 +2871,7 @@ def main() -> int:
             "launches": int(launches[name]),
             "launches_sharded_round_25k": int(sharded["round_25k"]["launches"][name]),
             "launches_fast_fill_flagship": int(fast["flagship_fast"]["cuda_cold_launches"][name]),
+            "launches_round_100k_fast": int(fast["round_100k_fast"]["cuda_cold_launches"][name]),
             "launches_home_away_2x2": int(fast["home_away_2x2"]["launches"][name]),
             "launches_sharded_flagship_fast": int(sharded["flagship_fast"]["launches"][name]),
             "launches_flagship_window": int(driver["flagship_window"]["launches"][name]),
@@ -2802,7 +2924,8 @@ def main() -> int:
                if name == "fill_take" else {}),
             **({"plan_ms": tm["plan_ms"], "plan_device_ms": tm["plan_device_ms"]}
                if name == "score_nodes" else {}),
-            **({"cases": tm["cases"]} if name == "segment_add" else {}),
+            **({"kernel_device_ms": tm["kernel_device_ms"], "bound_share": tm["bound_share"],
+                "cases": tm["cases"]} if name == "segment_add" else {}),
         })
     emit({"kernels": entries})
     emit({"ptxas": ptxas})
@@ -2813,4 +2936,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(segment_library() if sys.argv[1:] == ["--segment-library"] else main())

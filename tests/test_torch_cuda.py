@@ -545,32 +545,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_segment_add_matches_plain_on_card(cuda_device):
-    """segment_add against index_add on the card: int32 and int64, along
-    dim 0 and 1, values at the types' extremes (the sums wrap), many
-    values into few segments, one index, empty index lists; one launch per
-    non-empty call, none for an empty one."""
+    """segment_add and segment_sum against index_add on the card under
+    every strategy segment_plan accepts (forced through its plan) and the
+    one it picks: int32 and int64, along dim 0 and 1, values at the types'
+    extremes (the sums wrap), many values into few segments, sorted
+    indices, one index, empty index lists, indices out of range (they add
+    nothing); one launch per non-empty call, none for an empty one."""
     rng = np.random.default_rng(31)
     cases = (
         (1, 5, ()), (7, 0, (3,)), (40, 200, (2, 3)), (10, 20480, ()), (8192, 1, (4,)),
-        (8192, 131072, (4,)), (16, 100000, (4,)),
+        (8192, 131072, (4,)), (16, 100000, (4,)), (64, 131072, (4,)), (8192, 2048, (4,)),
+        (3, 70000, (5,)),
     )
+
+    def plans(outer, n, k, inner, eb):
+        forced = [tk.segment_plan(outer, n, k, inner, eb, strategy=s)
+                  for s in tk.segment_strategies(outer, n, k, inner, eb)]
+        return [None] + forced
+
     for dtype in (torch.int32, torch.int64):
         info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+        eb = 4 if dtype == torch.int32 else 8
         for n, k, rest in cases:
-            idx = torch.as_tensor(rng.integers(0, n, size=k), device=cuda_device)
+            idx_np = rng.integers(0, n, size=k)
+            if n in (16, 64):
+                idx_np = np.sort(idx_np)  # the round's class and queue sums
+            idx = torch.as_tensor(idx_np, device=cuda_device)
             vals = torch.as_tensor(rng.integers(info.min, info.max, size=(k,) + rest,
                                                 dtype=np.int64), device=cuda_device).to(dtype)
             vals[rng.random(k) < 0.5] = 0
             x = torch.as_tensor(rng.integers(info.min, info.max, size=(n,) + rest,
                                              dtype=np.int64), device=cuda_device).to(dtype)
-            tk.reset_launches()
-            got = tk.segment_add(x, 0, idx, vals)
-            assert tk.LAUNCHES["segment_add"] == (1 if k and x[0].numel() else 0)
-            assert torch.equal(got, tk.segment_add_plain(x, 0, idx, vals)), (dtype, n, k, rest)
+            inner = int(np.prod(rest, dtype=np.int64))
+            want_add = tk.segment_add_plain(x, 0, idx, vals)
+            want_sum = tk.segment_sum_plain(vals, idx, n)
+            for plan in plans(1, n, k, inner, eb):
+                tk.reset_launches()
+                got = tk.segment_add(x, 0, idx, vals, plan=plan)
+                assert tk.LAUNCHES["segment_add"] == (1 if k and inner else 0)
+                assert torch.equal(got, want_add), (dtype, n, k, rest, plan)
+                tk.reset_launches()
+                got = tk.segment_sum(vals, idx, n, plan=plan)
+                assert tk.LAUNCHES["segment_add"] == (1 if k and inner else 0)
+                assert torch.equal(got, want_sum), (dtype, n, k, rest, plan)
             if rest:
                 xt, vt = x.movedim(0, 1).contiguous(), vals.movedim(0, 1).contiguous()
-                assert torch.equal(tk.segment_add(xt, 1, idx, vt),
-                                   tk.segment_add_plain(xt, 1, idx, vt)), (dtype, n, k, rest)
+                want = tk.segment_add_plain(xt, 1, idx, vt)
+                for plan in plans(rest[0], n, k, inner // rest[0], eb):
+                    assert torch.equal(tk.segment_add(xt, 1, idx, vt, plan=plan), want), (
+                        dtype, n, k, rest, plan)
+            if k:
+                # Out-of-range indices add nothing (index_add would raise).
+                bad = idx.clone()
+                bad[::3] = -1
+                bad[1::3] = n
+                keep = (bad >= 0) & (bad < n)
+                masked = torch.where(keep.reshape((k,) + (1,) * len(rest)), vals, 0)
+                want = tk.segment_sum_plain(masked, torch.clamp(bad, 0, n - 1), n)
+                for plan in plans(1, n, k, inner, eb):
+                    assert torch.equal(tk.segment_sum(vals, bad, n, plan=plan), want), (
+                        dtype, n, k, rest, plan)
     x = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     idx = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError):
@@ -579,6 +613,14 @@ def test_segment_add_matches_plain_on_card(cuda_device):
         tk.segment_add(x, 0, idx, torch.ones(3, dtype=torch.int64, device=cuda_device))
     with pytest.raises(ValueError):
         tk.segment_add(x, 0, idx, torch.ones(4, dtype=torch.int32, device=cuda_device))
+    ones = torch.ones(3, dtype=torch.int32, device=cuda_device)
+    # A strategy that does not take the sum, and plans the C entry refuses
+    # (an empty grid), raise.
+    with pytest.raises(ValueError):
+        tk.segment_sum(ones, idx, 2**20, plan=tk.SegmentPlan("shared", 1, False))
+    for strategy in tk.SEGMENT_STRATEGIES:
+        with pytest.raises(RuntimeError):
+            tk.segment_sum(ones, idx, 8, plan=tk.SegmentPlan(strategy, 0, False))
 
 
 @pytest.mark.cuda
