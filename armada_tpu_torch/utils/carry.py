@@ -7,7 +7,11 @@ enum members, and the tuples, lists, sets and dicts that hold them —
 with every class swapped for the port's class of the same module path
 and name (`armada_tpu.jobdb.jobdb.Job` -> `armada_tpu_torch.jobdb.jobdb.Job`).
 It reads the value's dataclass fields and enum values only, and imports
-nothing of the JAX package: the class names come from the objects.
+nothing of the JAX package: the class names come from the objects. The
+query side's records carry the same way: a Lookout view's rows and runs
+(`services.lookout_ingester.LookoutRow`, `LookoutRun`), the query API's
+rows, filters and orders (`services.queryapi.JobRow`, `JobFilter`,
+`Order`); the rows' run ids are the scheduler's, drawn at random.
 
 Used by `events.log.from_reference_events` and
 `services.scheduler.from_reference_checkpoint`.

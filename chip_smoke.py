@@ -9,7 +9,7 @@ every hand-written CUDA kernel of that path against its plain torch
 version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
 time, so after phase 3 two more processes on the same card
-(`SidePhases`) run phases 10, 12 and 13, and phases 4, 11, 14 and 15,
+(`SidePhases`) run phases 10, 12, 13 and 16, and phases 4, 11, 14 and 15,
 which need nothing of the others, while this one runs 5 to 7 and 9; phase 8
 runs alone once the side processes have ended (its ring kernel spins
 across four processes' contexts, and its times would count another
@@ -253,6 +253,27 @@ line of each process's peak reserved device memory.
    a tenth of the fork's specs (the processes hold them); each live
    cycle's seconds alone and beside the rollouts, the slowest against
    the budget, and what each plan cost the live process.
+16. lookout: Lookout and the query side beside a kernel service on the
+   card (`phase_lookout`), after phase 13 in its process. A service at
+   service_100k's width in the bench's config on local:cuda, recording
+   its rounds and spans; an in-memory and a SQLite Lookout store and the
+   event-stream index follow its log on a BackgroundTaskManager's sync
+   loops; a LookoutHttpServer serves the query API over the in-memory
+   store with binoculars. 1 cold and 4 warm cycles with a thread sending
+   requests beside each, then 3 warm cycles alone (loops stopped). After
+   each cycle, the stores at the log's end: the SQLite rows the
+   in-memory rows; per-queue counts by state the job database's; the
+   index's streams a scan of the log; the bodies of /api/jobs (queue
+   filter, ordered, paged), /api/groups (by queue, state counts),
+   /api/details, /api/jobtrace and /api/logs of a leased job,
+   /api/fairshare, /api/fairness, /api/report and /api/doctor equal to
+   the direct calls. A POST /api/cancel and /api/reprioritize after the
+   third cycle (the heads of two served queues) show in the next
+   cycle's leases and rows. The port's fairness_report over the bundle
+   names every queue; trace2perfetto over the bundle and the span file
+   holds every round. Prints the stores' first and later syncs, the
+   SQLite file's bytes, the requests' latencies, and the median live
+   cycle against the median alone with their ratio (not gated).
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -275,7 +296,8 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_service_flagship`; `launches_sim_kernel`, the clean kernel
 simulation), phase 13's summed (`launches_observatory`), phase 14's
 summed (`launches_autotune_whatif`, its rollouts' counted in their
-process) and phase 15's (`launches_persistence`, likewise) beside them;
+process), phase 15's (`launches_persistence`, likewise) and phase 16's
+(`launches_lookout`) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -2610,6 +2632,369 @@ def phase_persistence(tmp, n_jobs=PERSIST_JOBS, n_nodes=PERSIST_NODES, device=No
     return rec
 
 
+LOOKOUT_JOBS, LOOKOUT_NODES = 100_000, 5000  # service_100k's width
+LOOKOUT_LIVE_CYCLES = 5  # 1 cold and 4 warm, with the sync loops and requests beside them
+LOOKOUT_ALONE_CYCLES = 3  # then warm cycles with the loops stopped and no requests
+LOOKOUT_SYNC_INTERVAL_S = 0.05  # the sync loops' spacing (BackgroundTaskManager)
+LOOKOUT_WAIT_S = 120.0  # the stores reach the log's end within this after a cycle
+# What a Lookout page polls while a cycle runs: one request each
+# LOOKOUT_REQUEST_INTERVAL_S, these in turn.
+LOOKOUT_BESIDE = ("/api/jobs?queue=queue-01&order=submitted&take=100",
+                  "/api/groups?by=queue", "/api/queues")
+LOOKOUT_REQUEST_INTERVAL_S = 0.1
+
+
+def phase_lookout(tmp, n_jobs=LOOKOUT_JOBS, n_nodes=LOOKOUT_NODES, device=None):
+    """Lookout and the query side beside a kernel service on the card
+    (phase 16). A ServiceRun at service_100k's width (n_jobs queued jobs
+    in 10 queues, two executors of n_nodes / 2 nodes, the
+    bench's config: fast fill, window 2,048) on the kernel backend, whose
+    one rung on the card is local:cuda (score_nodes, fill_take and
+    segment_add), recording its rounds to an .atrace and its spans to an
+    OTLP file under `tmp`. A LookoutStore, a SqliteLookoutStore (under
+    `tmp`) and an EventStreamIndex follow its log: each syncs the
+    ingested jobs once (timed), then a BackgroundTaskManager runs their
+    sync loops, as the JAX package's control plane registers them. A
+    LookoutHttpServer on port 0 serves QueryApi(lookout=the in-memory
+    store, timeline=the scheduler's) with the service's BinocularsService
+    and a SubmitService for the UI's mutations.
+    - LOOKOUT_LIVE_CYCLES cycles (1 cold, 4 warm), each with a thread
+      sending the GET requests of LOOKOUT_BESIDE in turn, one each
+      LOOKOUT_REQUEST_INTERVAL_S, while it runs. After each, once
+      every store has reached the log's end: the in-memory and SQLite
+      rows equal (run ids included: both follow the one log); their
+      per-queue counts by state (a group-by on each, SQL on SQLite)
+      the job database's; the index's per-jobset streams a scan of the
+      log; and a fixed set of requests (`/api/jobs` with a queue filter,
+      ordered and paged; `/api/groups` by queue with state counts;
+      `/api/details` and `/api/jobtrace` of a leased job;
+      `/api/fairshare`, `/api/fairness`, `/api/report`, `/api/doctor`;
+      `/api/logs` of a leased job) answer bodies equal to the direct
+      QueryApi, scheduler and binoculars calls.
+    - After the third cycle, one POST /api/cancel and one POST
+      /api/reprioritize: the heads of two queues served in that cycle;
+      the next cycle leases neither (the cancelled job is cancelled in
+      the job database and the rows, the other queued at its new
+      priority there) while it leases jobs behind both in their queues.
+    - Then LOOKOUT_ALONE_CYCLES warm cycles with the sync loops stopped
+      and no requests, the stores synced after each by direct calls and
+      held to the same checks.
+    - The port's fairness_report over the recorded bundle exits 0 and
+      names every queue; trace2perfetto over the bundle and the span file
+      validates and holds one round slice per recorded round.
+    Every background task runs without a failure and stops when asked;
+    a request's error status, a sync loop's failure or a server thread's
+    exception fails the phase. Prints each store's first sync (seconds
+    and events) and its later syncs (in the loops), the SQLite file's
+    bytes, the requests' median and maximum latency, and the median live
+    cycle against the median cycle alone, with their ratio (not gated:
+    the interpreter-lock question of the what-if planner's rollouts)."""
+    import contextlib
+    import io
+    import statistics
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from dataclasses import asdict
+
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.services.binoculars import BinocularsService
+    from armada_tpu_torch.services.event_index import EventStreamIndex
+    from armada_tpu_torch.services.lookout_http import LookoutHttpServer
+    from armada_tpu_torch.services.lookout_ingester import LookoutStore
+    from armada_tpu_torch.services.lookout_sqlite import SqliteLookoutStore
+    from armada_tpu_torch.services.queryapi import JobFilter, Order, QueryApi
+    from armada_tpu_torch.services.submit import SubmitService
+    from armada_tpu_torch.tools import fairness_report, trace2perfetto
+    from armada_tpu_torch.trace import TraceRecorder
+    from armada_tpu_torch.utils.tasks import BackgroundTaskManager
+    from armada_tpu_torch.utils.tracing import OtlpJsonFileExporter, Tracer
+    from armada_tpu_torch.workload import ServiceRun, submit_events
+
+    rec, launches = {}, {name: 0 for name in K.KERNELS}
+    t0 = time.time()
+    cfg, entries, submit_s = submit_events(n_jobs)
+    K.reset_launches()
+    run = ServiceRun(cfg, entries, n_nodes, device=device)
+    del entries
+    sched, log = run.sched, run.sched.log
+    if [r.label for r in sched._rungs][:1 if device else None] != ["local:cuda"]:
+        raise AssertionError(f"lookout: the card's ladder is {[r.label for r in sched._rungs]}")
+    atrace, spans = os.path.join(tmp, "lookout.atrace"), os.path.join(tmp, "lookout.otlp.jsonl")
+    sched.attach_trace_recorder(TraceRecorder(atrace, source="scheduler", config=sched.config))
+    tracer = Tracer(exporter=OtlpJsonFileExporter(spans, service_name="armada-tpu-torch"),
+                    export_every=256)
+    sched.attach_tracer(tracer)
+    submit = SubmitService(sched.config, log, scheduler=sched)
+    binoculars = BinocularsService(sched, run.executors)
+    db_path = os.path.join(tmp, "lookout.db")
+    stores = {"memory": LookoutStore(log, error_rules=sched.config.error_categories),
+              "sqlite": SqliteLookoutStore(log, db_path, error_rules=sched.config.error_categories),
+              "index": EventStreamIndex(log)}
+    rec["service"] = {"submit_us_per_job": submit_s / n_jobs * 1e6,
+                      "ingest_s": run.ingest_s, "seconds": time.time() - t0}
+
+    syncs = {}
+    for name, store in stores.items():
+        t1 = time.perf_counter()
+        n = store.sync()
+        syncs[name] = {"first_s": time.perf_counter() - t1, "first_events": n, "later": []}
+        if store.lag_events:
+            raise AssertionError(f"lookout: the {name} store's first sync left {store.lag_events}")
+    sync_lock = threading.Lock()
+
+    def loop(name):
+        store = stores[name]
+
+        def sync():
+            t1 = time.perf_counter()
+            n = store.sync()
+            if n:
+                with sync_lock:
+                    syncs[name]["later"].append((time.perf_counter() - t1, n))
+        return sync
+
+    tasks = BackgroundTaskManager()
+    for name in stores:
+        tasks.register(loop(name), LOOKOUT_SYNC_INTERVAL_S, f"lookout-sync-{name}")
+    query = QueryApi(lookout=stores["memory"], timeline=sched.timeline)
+    server = LookoutHttpServer(query, sched, submit, port=0, binoculars=binoculars)
+    base = f"http://127.0.0.1:{server.port}"
+    latencies = []
+
+    def request(path, body=None):
+        req = urllib.request.Request(
+            base + path, data=None if body is None else json.dumps(body).encode(),
+            headers={} if body is None else {"Content-Type": "application/json",
+                                             "X-Requested-With": "armada-lookout"},
+            method="GET" if body is None else "POST")
+        t1 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"lookout: {path} answered {e.code}: {e.read()[:300]!r}") from e
+        latencies.append(time.perf_counter() - t1)
+        return out
+
+    def direct(obj):
+        return json.loads(json.dumps(obj, default=str))
+
+    def fairshare():
+        return {"pools": {pool: [
+            {"queue": qr.queue, "fair_share": qr.fair_share,
+             "adjusted_fair_share": qr.adjusted_fair_share, "actual_share": qr.actual_share,
+             "scheduled_jobs": qr.scheduled_jobs, "preempted_jobs": qr.preempted_jobs,
+             "top_reasons": dict(qr.top_reasons)} for qr in rep.queues.values()]
+            for pool, rep in sched.reports.latest_reports().items()}}
+
+    def routes(leased):
+        """(path, direct body) of the fixed request set."""
+        rows, total = query.get_jobs([JobFilter("queue", "queue-03")],
+                                     Order("submitted", "asc"), 100, 50)
+        q = urllib.parse.quote(json.dumps(["state_counts"]))
+        return [
+            ("/api/jobs?queue=queue-03&order=submitted&direction=asc&skip=100&take=50",
+             {"jobs": [asdict(r) for r in rows], "total": total}),
+            (f"/api/groups?by=queue&aggregates={q}",
+             {"groups": query.group_jobs("queue", aggregates=["state_counts"])}),
+            (f"/api/details/{leased}", query.job_details(leased)),
+            (f"/api/jobtrace/{leased}", query.job_trace(leased)),
+            ("/api/fairshare", fairshare()),
+            ("/api/fairness", sched.fairness.snapshot()),
+            ("/api/report", {"report": sched.reports.scheduling_report()}),
+            ("/api/doctor", sched.doctor_report()),
+            (f"/api/logs/{leased}", {"job_id": leased,
+                                      "lines": binoculars.get_logs(leased, 100)}),
+        ]
+
+    def caught_up(label):
+        """Waits for every store to reach the log's end and for each sync
+        loop to finish two more runs (a store moves its cursor before its
+        batch commits, so the second run started after the first had
+        nothing left)."""
+        deadline = time.time() + LOOKOUT_WAIT_S
+        runs = None
+        while True:
+            if runs is None and not any(s.lag_events for s in stores.values()):
+                runs = {k: st["runs"] + 2 for k, st in tasks.stats().items()}
+            if runs is not None and all(st["runs"] >= runs[k]
+                                        for k, st in tasks.stats().items()):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"lookout {label}: the stores lag "
+                                     f"{[s.lag_events for s in stores.values()]}")
+            time.sleep(0.01)
+        for name, st in tasks.stats().items():
+            if st["failures"]:
+                raise AssertionError(f"lookout {label}: the task {name} failed {st}")
+
+    def check(out, label):
+        t1 = time.time()
+        mem = {r.job_id: r for r in stores["memory"].all_rows()}
+        if {r.job_id: r for r in stores["sqlite"].all_rows()} != mem:
+            raise AssertionError(f"lookout {label}: the SQLite rows are not the in-memory rows")
+        want = {}
+        for j in sched.jobdb.read_txn().all_jobs():
+            want.setdefault(j.queue, {}).setdefault(j.state.value, 0)
+            want[j.queue][j.state.value] += 1
+        for name in ("memory", "sqlite"):
+            groups = QueryApi(lookout=stores[name]).group_jobs("queue", aggregates=["state_counts"])
+            got = {g["name"]: g["aggregates"]["state_counts"] for g in groups}
+            if got != want:
+                raise AssertionError(f"lookout {label}: the {name} store counts {got}, "
+                                     f"the job database {want}")
+        scan = {}
+        for e in log.read(0, log.end_offset):
+            scan.setdefault((e.sequence.queue, e.sequence.jobset), []).append(e.offset)
+        for key, offsets in scan.items():
+            if stores["index"].offsets_from(*key, 0, limit=len(offsets) + 1) != offsets:
+                raise AssertionError(f"lookout {label}: the index's stream {key} is not the log's")
+        leased = out["leases"][0][0]
+        for path, body in routes(leased):
+            if request(path) != direct(body):
+                raise AssertionError(f"lookout {label}: {path} is not its direct call")
+        return {"check_s": time.time() - t1, "rows": len(mem), "log_entries": log.end_offset}
+
+    def cycle(label):
+        out = run.cycle()
+        st = out["stats"]
+        if st["rung"] != "local:cuda" or st["failover"] is not None or not out["leases"]:
+            raise AssertionError(f"lookout {label}: rung {st['rung']}, failover "
+                                 f"{st['failover']}, {len(out['leases'])} leased")
+        return out
+
+    def heads(out):
+        """job id of the head of each queue served by `out`'s cycle, in
+        the within-queue order (priority, submitted, id), and the queue."""
+        served = {}
+        for job_id, _, _ in out["leases"]:
+            q = sched.jobdb.get(job_id).queue
+            served[q] = served.get(q, 0) + 1
+        best = {}
+        for j in sched.jobdb.read_txn().all_jobs():
+            if j.state.value == "queued" and served.get(j.queue, 0) >= 2:
+                key = (j.priority, j.spec.submitted_ts, j.id)
+                if j.queue not in best or key < best[j.queue][0]:
+                    best[j.queue] = (key, j.id)
+        return sorted((q, jid) for q, (_, jid) in best.items())
+
+    live, alone, mutations, errors = [], [], None, []
+    try:
+        for i in range(LOOKOUT_LIVE_CYCLES):
+            stop = threading.Event()
+
+            def beside():
+                try:
+                    k = 0
+                    while not stop.is_set():
+                        request(LOOKOUT_BESIDE[k % len(LOOKOUT_BESIDE)])
+                        k += 1
+                        stop.wait(LOOKOUT_REQUEST_INTERVAL_S)
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+
+            th = threading.Thread(target=beside, name="lookout-requests")
+            th.start()
+            out = cycle(f"live cycle {i}")
+            stop.set()
+            th.join()
+            if errors:
+                raise errors[0]
+            if mutations is not None and "shown" not in mutations:
+                got = {jid for jid, _, _ in out["leases"]}
+                (qc, cancelled), (qr, reprio) = mutations["heads"]
+                lq = {sched.jobdb.get(jid).queue for jid in got}
+                if cancelled in got or reprio in got or not {qc, qr} <= lq:
+                    raise AssertionError(f"lookout: after the mutations the cycle leased "
+                                         f"{sorted(got & {cancelled, reprio})}, queues {lq}")
+                caught_up(f"live cycle {i}")
+                jc, jr = sched.jobdb.get(cancelled), sched.jobdb.get(reprio)
+                rc, rr = stores["memory"].get(cancelled), stores["sqlite"].get(reprio)
+                if (jc.state.value, rc.state, jc.latest_run) != ("cancelled", "cancelled", None) or \
+                        (jr.state.value, jr.priority, rr.state, rr.priority) != (
+                            "queued", 1000, "queued", 1000):
+                    raise AssertionError(f"lookout: the mutations did not show: {jc.state} "
+                                         f"{rc.state} {jr.state} {jr.priority} {rr.priority}")
+                mutations.update(next_cycle_leased=len(got), shown=True)
+            caught_up(f"live cycle {i}")
+            live.append({"cycle_s": out["cycle_s"], "solve_s": out["stats"]["solve_s"],
+                         "leased": len(out["leases"]), **check(out, f"live cycle {i}")})
+            if i == 2:
+                (qc, cancelled), (qr, reprio) = heads(out)[:2]
+                if request("/api/cancel", {"queue": qc, "jobset": "bench",
+                                           "job_ids": [cancelled]}) != {"cancelled": 1} or \
+                        request("/api/reprioritize", {"queue": qr, "jobset": "bench",
+                                                      "job_ids": [reprio], "priority": 1000}
+                                ) != {"reprioritized": 1}:
+                    raise AssertionError("lookout: a mutation was refused")
+                mutations = {"heads": [[qc, cancelled], [qr, reprio]]}
+        stragglers = tasks.stop_all(timeout=LOOKOUT_WAIT_S)
+        if stragglers:
+            raise AssertionError(f"lookout: the tasks {stragglers} did not stop")
+        task_stats = tasks.stats()
+        if any(st["failures"] or not st["runs"] for st in task_stats.values()):
+            raise AssertionError(f"lookout: the sync loops {task_stats}")
+        for i in range(LOOKOUT_ALONE_CYCLES):
+            out = cycle(f"alone cycle {i}")
+            for store in stores.values():
+                store.sync()
+            alone.append({"cycle_s": out["cycle_s"], "solve_s": out["stats"]["solve_s"],
+                          "leased": len(out["leases"]), **check(out, f"alone cycle {i}")})
+        sqlite_bytes = sum(os.path.getsize(p) for p in (db_path, db_path + "-wal")
+                           if os.path.exists(p))
+    finally:
+        tasks.stop_all(timeout=LOOKOUT_WAIT_S)
+        server.stop()
+        stores["sqlite"].close()
+    if not (mutations or {}).get("shown"):
+        raise AssertionError("lookout: the mutations' cycle did not run")
+    recorded = sched.trace_recorder.rounds_recorded
+    sched.trace_recorder.close()
+    tracer.flush()
+    rec["launches"] = take_launches(launches, "lookout")
+
+    t1 = time.time()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        rc = fairness_report.main([atrace])
+    missing = [f"queue-{q:02d}" for q in range(10) if f"queue-{q:02d}" not in report.getvalue()]
+    if rc != 0 or missing:
+        raise AssertionError(f"lookout: fairness_report exited {rc}, missing {missing}")
+    doc = trace2perfetto.convert([atrace, spans])
+    problems = trace2perfetto.validate(doc)
+    slices = [e for e in doc["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "round"]
+    n_spans = sum(1 for e in doc["traceEvents"] if e.get("cat") == "span")
+    rounds = LOOKOUT_LIVE_CYCLES + LOOKOUT_ALONE_CYCLES
+    if problems or len(slices) != rounds or recorded != rounds or not n_spans:
+        raise AssertionError(f"lookout: trace2perfetto {problems[:3]}, {len(slices)} round "
+                             f"slices for {rounds} rounds, {n_spans} spans")
+    rec["tools"] = {"fairness_report_rc": rc, "round_slices": len(slices), "spans": n_spans,
+                    "atrace_bytes": os.path.getsize(atrace), "seconds": time.time() - t1}
+
+    live_warm = [c["cycle_s"] for c in live[1:]]
+    rec.update({
+        "syncs": {name: {"first_s": s["first_s"], "first_events": s["first_events"],
+                         "later_syncs": len(s["later"]),
+                         "later_s": [x for x, _ in s["later"]],
+                         "later_events": [n for _, n in s["later"]],
+                         "later_median_s": (statistics.median(x for x, _ in s["later"])
+                                            if s["later"] else None)}
+                  for name, s in syncs.items()},
+        "sqlite_bytes": sqlite_bytes,
+        "requests": {"count": len(latencies), "median_s": statistics.median(latencies),
+                     "max_s": max(latencies)},
+        "live": live, "alone": alone, "mutations": mutations,
+        "median_live_cycle_s": statistics.median(live_warm),
+        "median_alone_cycle_s": statistics.median(c["cycle_s"] for c in alone),
+        "live_over_alone": (statistics.median(live_warm)
+                            / statistics.median(c["cycle_s"] for c in alone)),
+        "tasks": task_stats,
+    })
+    return rec
+
+
 def _round_100k():
     """Phase 4: round_100k on "cuda" and "lax", bit-equal."""
     res, outs, _ = run_round(100_000, 5000, ("cuda", "lax"))
@@ -2633,14 +3018,19 @@ def _persistence():
         return phase_persistence(tmp)
 
 
+def _lookout():
+    with tempfile.TemporaryDirectory(prefix="lookout-") as tmp:
+        return phase_lookout(tmp)
+
+
 # The phases that need nothing of the others, in two processes of their
-# own beside the first: phases 10, 12 and 13; phases 4, 11, 14 and 15.
+# own beside the first: phases 10, 12, 13 and 16; phases 4, 11, 14 and 15.
 SIDE_PHASES = {
     "market": phase_market, "service": phase_service, "observatory": _observatory,
-    "round": _round_100k, "warm": phase_warm, "autotune_whatif": _autotune_whatif,
-    "persistence": _persistence,
+    "lookout": _lookout, "round": _round_100k, "warm": phase_warm,
+    "autotune_whatif": _autotune_whatif, "persistence": _persistence,
 }
-SIDES = (("market", "service", "observatory"),
+SIDES = (("market", "service", "observatory", "lookout"),
          ("round", "warm", "autotune_whatif", "persistence"))
 SIDE_TIMEOUT_S = 1000.0
 
@@ -2703,9 +3093,9 @@ class SidePhases:
 
 
 def main_phases(timing, sides):
-    """Phases 5 to 7 and 9 in this process while `sides` run 10, 12 and
-    13, and 4, 11, 14 and 15, then phase 8 alone; returns their records
-    and the sides' merged."""
+    """Phases 5 to 7 and 9 in this process while `sides` run 10, 12, 13
+    and 16, and 4, 11, 14 and 15, then phase 8 alone; returns their
+    records and the sides' merged."""
     t0 = time.time()
     flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
@@ -2835,9 +3225,9 @@ def main() -> int:
         finally:
             for side in sides:
                 side.stop()
-    res, warm, market, service, observatory, autotune_whatif, persistence = (
+    res, warm, market, service, observatory, autotune_whatif, persistence, lookout = (
         side_rec[k] for k in ("round", "warm", "market", "service", "observatory",
-                              "autotune_whatif", "persistence"))
+                              "autotune_whatif", "persistence", "lookout"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
           **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
 
@@ -2894,6 +3284,7 @@ def main() -> int:
             "launches_observatory": int(observatory["launches"][name]),
             "launches_autotune_whatif": int(autotune_whatif["launches"][name]),
             "launches_persistence": int(persistence["launches"][name]),
+            "launches_lookout": int(lookout["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -464,6 +464,47 @@ def test_service_cycles_on_card_cuda_equal_lax(cuda_device):
 
 
 @pytest.mark.cuda
+def test_lookout_views_follow_a_kernel_service_on_card(cuda_device, tmp_path):
+    """Lookout beside a kernel service on the card (workload.ServiceRun:
+    3,000 queued jobs, two fake executors of 300 nodes, "cuda"): an
+    in-memory and a SQLite Lookout store follow its log, synced after
+    each of 3 cycles; their rows are equal, their per-queue counts by
+    state are the job database's, a query API answers alike over both,
+    and score_nodes, fill_take and segment_add were launched."""
+    from armada_tpu_torch.services.lookout_ingester import LookoutStore
+    from armada_tpu_torch.services.lookout_sqlite import SqliteLookoutStore
+    from armada_tpu_torch.services.queryapi import JobFilter, Order, QueryApi
+    from armada_tpu_torch.workload import ServiceRun, submit_events
+
+    tk.build_all()
+    cfg, entries, _ = submit_events(3000)
+    tk.reset_launches()
+    run = ServiceRun(cfg, entries, 600, kernel_path="cuda")
+    log = run.sched.log
+    stores = [LookoutStore(log), SqliteLookoutStore(log, str(tmp_path / "lookout.db"))]
+    for _ in range(3):
+        rec = run.cycle()
+        assert rec["leases"] and rec["stats"]["rung"] == "local:cuda"
+        for store in stores:
+            store.sync()
+        rows = [{r.job_id: r for r in s.all_rows()} for s in stores]
+        assert rows[0] == rows[1] and len(rows[0]) == 3000
+        counts = {}
+        for j in run.sched.jobdb.read_txn().all_jobs():
+            counts[j.queue, j.state.value] = counts.get((j.queue, j.state.value), 0) + 1
+        got = {}
+        for r in rows[0].values():
+            got[r.queue, r.state] = got.get((r.queue, r.state), 0) + 1
+        assert got == counts
+        pages = [QueryApi(lookout=s).get_jobs([JobFilter("state", "leased")],
+                                              Order("job_id", "asc"), 0, 50) for s in stores]
+        assert pages[0] == pages[1] and pages[0][1] > 0
+    stores[1].close()
+    for name in ("score_nodes", "fill_take", "segment_add"):
+        assert tk.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
 def test_recorded_rounds_replay_on_card(cuda_device, tmp_path):
     """The round observatory on the card: the committed bundle the JAX
     package recorded replays under LOCAL (the "cuda" path), "lax" and

@@ -15,8 +15,10 @@ controller and the what-if planner attached plans against its state
 (its rollouts in a spawned rollout process), a budgeted service takes a
 planner, a service over the file-backed log restarts from its directory,
 a simulation runs over a crash-recovering log behind a front door, both
-soak tools run a plan, and the file lease and the HS256 authenticators
-decide. prometheus_client is blocked too: the metrics stay optional (no
+soak tools run a plan, the file lease and the HS256 authenticators
+decide, the Lookout views and the event index follow a service's log on
+background tasks behind the Lookout HTTP server, and the fairness report
+and the Perfetto converter read a recorded bundle. prometheus_client is blocked too: the metrics stay optional (no
 registry, an empty rendering); so are grpc and cryptography, which the
 card's machine lacks (auth.py imports cryptography only where an RS256
 token is made or checked). The default device is the CUDA card, which
@@ -276,6 +278,57 @@ _GUARD = textwrap.dedent(
             {"authorization": "Bearer " + auth.make_token("s", "bob", groups=["ops"])})
         auth.Authorizer(permission_groups={auth.SUBMIT_ANY_JOBS: ["ops"]}).authorize_global(
             principal, auth.SUBMIT_ANY_JOBS)
+        # Lookout and the query side: the in-memory and SQLite views and
+        # the event-stream index follow a service's log on a background
+        # task manager's loops; the HTTP server answers; the fairness
+        # report and the Perfetto converter read the simulation's bundle.
+        for name in ("services.queryapi", "services.lookout_ingester",
+                     "services.lookout_sqlite", "services.binoculars", "services.event_index",
+                     "services.lookout_ui", "services.lookout_http", "utils.tasks",
+                     "tools.fairness_report", "tools.trace2perfetto"):
+            assert "armada_tpu_torch." + name in names
+        import json, time, urllib.request
+        from armada_tpu_torch.services.binoculars import BinocularsService
+        from armada_tpu_torch.services.event_index import EventStreamIndex
+        from armada_tpu_torch.services.lookout_http import LookoutHttpServer
+        from armada_tpu_torch.services.lookout_ingester import LookoutStore
+        from armada_tpu_torch.services.lookout_sqlite import SqliteLookoutStore
+        from armada_tpu_torch.services.queryapi import QueryApi
+        from armada_tpu_torch.tools import fairness_report, trace2perfetto
+        from armada_tpu_torch.utils.tasks import BackgroundTaskManager
+
+        log = InMemoryEventLog()
+        sched = SchedulerService(cfg, log, device="cpu")
+        submit = SubmitService(cfg, log, scheduler=sched)
+        ex = FakeExecutor("c", log, sched, nodes=make_nodes("c", count=2, cpu="8"),
+                          runtime_for=lambda job_id: 100.0)
+        stores = [LookoutStore(log), SqliteLookoutStore(log, os.path.join(tmp, "lookout.db")),
+                  EventStreamIndex(log)]
+        tasks = BackgroundTaskManager()
+        for k, store in enumerate(stores):
+            tasks.register(store.sync, 0.01, f"sync-{k}")
+        server = LookoutHttpServer(QueryApi(lookout=stores[0], timeline=sched.timeline), sched,
+                                   submit, binoculars=BinocularsService(sched, [ex]))
+        submit.create_queue(QueueSpec("q"))
+        submit.submit("q", "s", [JobSpec(id=f"l{i}", queue="", requests={"cpu": "2"})
+                                 for i in range(6)], now=0.0)
+        ex.tick(0.0)
+        sched.cycle(now=0.0)
+        deadline = time.time() + 60
+        while any(s.lag_events for s in stores) and time.time() < deadline:
+            time.sleep(0.01)
+        # A SQLite store moves its cursor before its batch commits: stop
+        # the loops (each ends its sync) before reading the views.
+        assert tasks.stop_all() == [] and all(
+            t["failures"] == 0 and t["runs"] > 0 for t in tasks.stats().values())
+        assert not any(s.lag_events for s in stores)
+        assert stores[0].all_rows() == stores[1].all_rows() and len(stores[1].all_rows()) == 6
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/api/jobs?queue=q") as r:
+            assert json.loads(r.read())["total"] == 6
+        server.stop()
+        assert fairness_report.main([path]) == 0
+        doc = trace2perfetto.convert([path, os.path.join(tmp, "spans.jsonl")])
+        assert trace2perfetto.validate(doc) == []
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("GUARD_OK", len(names))

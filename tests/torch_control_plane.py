@@ -11,7 +11,10 @@ its reference counterpart on the same inputs and holds them equal.
 `jobdb_view` is a job database in that form, keyed by job id; with
 `run_ids=False` it drops the run ids, which the scheduler draws at random
 (`events.model.new_id`), so two services fed the same events compare
-equal. `Package` gathers one package's control-plane classes under the
+equal. `lookout_view` is a Lookout store's rows (`LookoutRow`, its
+`LookoutRun`s) the same way, and `scrub_run_ids` replaces a package's run
+ids wherever they appear in a query result or an HTTP body (`JobRow`,
+job details, log lines). `Package` gathers one package's control-plane classes under the
 same names, so a test case is written once and run against both.
 
 `port_copy` compiles a reference test module again with its
@@ -74,6 +77,38 @@ def job_view(job, run_ids=True):
 
 def jobdb_view(jobdb, run_ids=True):
     return {j.id: job_view(j, run_ids) for j in jobdb.read_txn().all_jobs()}
+
+
+def lookout_view(store, run_ids=True):
+    """job id -> a Lookout store's row (in-memory or SQLite) in the plain
+    form; with `run_ids=False` each run's id is None."""
+    out = {}
+    for row in store.all_rows():
+        rec = dict(plain(row)[1:])
+        if not run_ids:
+            rec["runs"] = tuple(dict(plain(r)[1:], run_id=None) for r in row.runs)
+        out[row.job_id] = rec
+    return out
+
+
+def run_ids_of(jobdb):
+    return {r.id for j in jobdb.read_txn().all_jobs() for r in j.runs}
+
+
+def scrub_run_ids(value, run_ids):
+    """`value` in the plain form with every string that holds one of
+    `run_ids` (the package's own, `run_ids_of`) holding "<run>" there."""
+    value = plain(value)
+    if isinstance(value, str):
+        for rid in run_ids:
+            if rid in value:
+                value = value.replace(rid, "<run>")
+        return value
+    if isinstance(value, dict):
+        return {scrub_run_ids(k, run_ids): scrub_run_ids(v, run_ids) for k, v in value.items()}
+    if isinstance(value, (tuple, frozenset)):
+        return type(value)(scrub_run_ids(v, run_ids) for v in value)
+    return value
 
 
 def leases_view(jobdb):
