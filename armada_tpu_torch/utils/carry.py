@@ -11,7 +11,11 @@ nothing of the JAX package: the class names come from the objects. The
 query side's records carry the same way: a Lookout view's rows and runs
 (`services.lookout_ingester.LookoutRow`, `LookoutRun`), the query API's
 rows, filters and orders (`services.queryapi.JobRow`, `JobFilter`,
-`Order`); the rows' run ids are the scheduler's, drawn at random.
+`Order`); the rows' run ids are the scheduler's, drawn at random. So do
+the records an executor's lease exchange leaves in the scheduler
+(`services.scheduler.ExecutorHeartbeat` and its `core.types.NodeSpec`s,
+with their `Taint`s), which the wire's handlers build from the agent's
+node dicts.
 
 Used by `events.log.from_reference_events` and
 `services.scheduler.from_reference_checkpoint`.

@@ -10,7 +10,7 @@ version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
 time, so after phase 3 two more processes on the same card
 (`SidePhases`) run phases 10, 12, 13 and 16, and phases 4, 11, 14 and 15,
-which need nothing of the others, while this one runs 5 to 7 and 9; phase 8
+which need nothing of the others, while this one runs 5 to 7, 9 and 17; phase 8
 runs alone once the side processes have ended (its ring kernel spins
 across four processes' contexts, and its times would count another
 one's work). Launch counts are per process, set to 0 and read within
@@ -274,6 +274,27 @@ line of each process's peak reserved device memory.
    holds every round. Prints the stores' first and later syncs, the
    SQLite file's bytes, the requests' latencies, and the median live
    cycle against the median alone with their ratio (not gated).
+17. wire: the wire and the executor side (`phase_wire`), after phase 9
+   in this process. Two stacks wired as the JAX package's ControlPlane
+   wires its parts, minus the gRPC listener (`WireStack`: in-memory log,
+   SchedulerService on the card, kernel path "cuda" in one and "lax" in
+   the other, SubmitService, QueryApi, EventStreamIndex,
+   BinocularsService, ApiServer), each with a RestGateway behind a
+   ChaosProxy and two ExecutorAgents of 2,500 nodes leasing through the
+   method table over the JSON codec (`Loopback`, the JSON wire minus its
+   socket). service_100k's 100,000 jobs go in as JSON job dicts by REST
+   through the proxies in requests of 1,000, one inside a partition
+   window (it fails; sent again after the heal it lands once). 1 cold
+   and 4 warm cycles as ControlPlane._loop runs them: the stacks'
+   leases equal every cycle, the fill kernels launched on local:cuda,
+   every leased run a pod on its agent and each pod's phase its job's
+   state, the REST and loopback reads equal to their direct calls; a
+   CancelJobs and a ReprioritizeJobs through the loopback before the
+   last cycle show there and in the next exchange; the agents' final
+   ExecutorSyncs are clean. Prints the REST submit rate and latencies,
+   each agent's exchange seconds and lease reply bytes a cycle, the
+   cycle seconds (beside phase 12's service_100k after the side
+   processes end) and the loopback calls' latencies.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -296,8 +317,9 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 `launches_service_flagship`; `launches_sim_kernel`, the clean kernel
 simulation), phase 13's summed (`launches_observatory`), phase 14's
 summed (`launches_autotune_whatif`, its rollouts' counted in their
-process), phase 15's (`launches_persistence`, likewise) and phase 16's
-(`launches_lookout`) beside them;
+process), phase 15's (`launches_persistence`, likewise), phase 16's
+(`launches_lookout`) and phase 17's (`launches_wire`, the "cuda" stack's
+five cycles) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -2995,6 +3017,570 @@ def phase_lookout(tmp, n_jobs=LOOKOUT_JOBS, n_nodes=LOOKOUT_NODES, device=None):
     return rec
 
 
+WIRE_CYCLES = 5  # 1 cold and 4 warm, 10 virtual seconds apart
+WIRE_SUBMIT_BATCH = 1000  # jobs in one REST submit request
+WIRE_PARTITION_AT = 50  # the submit request sent inside the proxy's partition window
+WIRE_WAIT_S = 10.0  # the proxy's listener goes down or comes back within this
+WIRE_READ_LIMIT = 2_000_000  # log entries a REST events read may scan (all of them)
+
+
+class Loopback:
+    """The JSON wire minus its socket, as an executor agent's client:
+    `_call(method, request)` passes the request through the codec
+    (`grpc_api._encode`, `_decode`), runs `api.method_table()[method]` on
+    it and passes the reply back through the codec. A handler's exception
+    reaches the caller as it is, as an in-process `FencedError` does
+    (`grpc_api.is_fenced_error`). Records each call's seconds and the
+    encoded bytes of its reply by method."""
+
+    def __init__(self, api):
+        from armada_tpu_torch.services.grpc_api import _decode, _encode
+
+        self._table = api.method_table()
+        self._encode, self._decode = _encode, _decode
+        self.seconds: dict = {}
+        self.reply_bytes: dict = {}
+
+    def _call(self, method, request):
+        t0 = time.perf_counter()
+        body = self._encode(self._table[method](self._decode(self._encode(request))))
+        self.seconds.setdefault(method, []).append(time.perf_counter() - t0)
+        self.reply_bytes.setdefault(method, []).append(len(body))
+        return self._decode(body)
+
+
+def job_spec_to_dict(spec) -> dict:
+    """The JSON job dict of a JobSpec: the inverse of
+    `grpc_api.job_spec_from_dict` (which reads no submitted_ts: the
+    submit service stamps it)."""
+    from dataclasses import asdict
+
+    d = {"id": spec.id, "queue": spec.queue, "jobset": spec.jobset, "pools": list(spec.pools),
+         "priority": spec.priority, "priority_class": spec.priority_class,
+         "requests": dict(spec.requests), "node_selector": dict(spec.node_selector),
+         "tolerations": [asdict(t) for t in spec.tolerations],
+         "annotations": dict(spec.annotations),
+         # A (queued, running) pair in the proto json_format shape, which
+         # the parser turns back into the pair.
+         "bid_prices": {k: {"queued": v[0], "running": v[1]} if isinstance(v, tuple) else v
+                        for k, v in spec.bid_prices.items()},
+         "command": list(spec.command),
+         "services": [asdict(s) for s in spec.services],
+         "ingresses": [asdict(i) for i in spec.ingresses]}
+    if spec.gang is not None:
+        d["gang"] = asdict(spec.gang)
+    if spec.affinity is not None:
+        d["affinity"] = {"terms": [{"expressions": [asdict(e) for e in t.expressions]}
+                                   for t in spec.affinity.terms]}
+    return d
+
+
+class _NoContext:
+    """The gRPC context `ApiServer._watch_entries` reads: always active."""
+
+    @staticmethod
+    def is_active():
+        return True
+
+
+def _listening(port, up):
+    """Waits up to WIRE_WAIT_S for a connect to 127.0.0.1:`port` to
+    succeed (`up`) or be refused; raises otherwise."""
+    import socket
+
+    deadline = time.time() + WIRE_WAIT_S
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1.0):
+                ok = True
+        except OSError:
+            ok = False
+        if ok == up:
+            return
+        if time.time() > deadline:
+            raise AssertionError(f"wire: the proxy's listener never went {'up' if up else 'down'}")
+        time.sleep(0.02)
+
+
+class WireStack:
+    """One stack of phase 17, wired as the JAX package's
+    `ControlPlane.__init__` wires it (services/server.py) minus its gRPC
+    listener: an in-memory log, a SchedulerService (kernel backend on
+    `device`, the config's solve kernel path `kernel_path`), a
+    SubmitService, a QueryApi over the job database, an EventStreamIndex,
+    a BinocularsService and an ApiServer (`serve()` never called); a
+    RestGateway on port 0 over the same objects, behind a ChaosProxy
+    whose FaultPlan runs on `clock`; and `n_agents` ExecutorAgents of
+    `nodes_per_agent` nodes of 32 cpu / 256Gi each (`ServiceRun`'s
+    nodes), pods running an hour, whose client is a Loopback."""
+
+    def __init__(self, cfg, kernel_path, clock, plan, n_agents, nodes_per_agent, device=None):
+        import dataclasses
+
+        from armada_tpu_torch.events import InMemoryEventLog
+        from armada_tpu_torch.services.binoculars import BinocularsService
+        from armada_tpu_torch.services.event_index import EventStreamIndex
+        from armada_tpu_torch.services.executor_agent import ExecutorAgent, _PodRuntime
+        from armada_tpu_torch.services.fake_executor import make_nodes
+        from armada_tpu_torch.services.grpc_api import ApiServer
+        from armada_tpu_torch.services.netchaos import ChaosProxy
+        from armada_tpu_torch.services.queryapi import QueryApi
+        from armada_tpu_torch.services.rest_gateway import RestGateway
+        from armada_tpu_torch.services.scheduler import SchedulerService
+        from armada_tpu_torch.services.submit import SubmitService
+
+        self.log = InMemoryEventLog()
+        self.sched = SchedulerService(dataclasses.replace(cfg, solve_kernel_path=kernel_path),
+                                      self.log, backend="kernel", device=device)
+        self.submit = SubmitService(self.sched.config, self.log, scheduler=self.sched)
+        self.query = QueryApi(self.sched.jobdb, timeline=self.sched.timeline)
+        self.binoculars = BinocularsService(self.sched, [])
+        self.index = EventStreamIndex(self.log)
+        self.api = ApiServer(self.submit, self.sched, self.query, self.log,
+                             binoculars=self.binoculars, event_index=self.index)
+        self.rest = RestGateway(self.submit, self.sched, self.query, self.log, port=0,
+                                api=self.api)
+        self.proxy = ChaosProxy("rest", "127.0.0.1", self.rest.port, plan, clock=clock)
+        self.proxy.start()
+        self.base = f"http://{self.proxy.address}"
+        self.wire = Loopback(self.api)
+        self.agents = []
+        for k in range(n_agents):
+            name = f"executor-{k}"
+            nodes = [{"id": n.id, "name": n.name, "labels": dict(n.labels),
+                      "total_resources": dict(n.total_resources)}
+                     for n in make_nodes(name, count=nodes_per_agent, cpu="32", memory="256Gi")]
+            self.agents.append(ExecutorAgent(self.wire, name, nodes,
+                                             runtime=_PodRuntime(runtime_s=3600.0)))
+
+    def close(self):
+        self.proxy.stop()
+        self.rest.stop()
+
+
+def _rest(base, path, body=None, latencies=None):
+    """One REST call through the proxy: the decoded JSON reply; raises
+    on an error status or a failed connection (URLError)."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST",
+                                 headers={} if body is None else {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.loads(r.read())
+    if latencies is not None:
+        latencies.append(time.perf_counter() - t0)
+    return out
+
+
+def _canon(obj):
+    """`obj` as the JSON wire carries it, in one canonical text (NaN
+    included), so a reply and its direct call compare exactly."""
+    from armada_tpu_torch.services.grpc_api import _decode, _encode
+
+    return json.dumps(_decode(_encode(obj)), sort_keys=True)
+
+
+def _wire_reads(stack, queue, jobset, leased, queued):
+    """The phase's reads on one stack, each against its direct call:
+    REST /api/v1/jobs (a queue's rows) and QueryApi.get_jobs; REST
+    /api/v1/queues and ListQueues through the loopback; REST
+    /api/v1/jobset/<q>/<js>/events from 0, the log's scan of that
+    jobset, and the index's stream (`_watch_entries` with watch off,
+    paged from each batch's last offset); GetJobs, GroupJobs,
+    SchedulingReport, QueueReport, JobReport, Doctor, FairnessReport and
+    GetJobLogs (a queued job's; a leased job's raises the same KeyError
+    both ways: an agent serves no logs) through the loopback against the
+    scheduler's and the query API's own calls."""
+    import dataclasses
+
+    from armada_tpu_torch.services.queryapi import JobFilter, Order
+
+    sched, query, wire = stack.sched, stack.query, stack.wire
+    rows, total = query.get_jobs([JobFilter("queue", queue)], Order("submitted", "desc"), 0, 100)
+    want = {"jobs": [dataclasses.asdict(r) for r in rows], "total": total}
+    if _rest(stack.base, f"/api/v1/jobs?queue={queue}") != json.loads(json.dumps(want, default=str)):
+        raise AssertionError(f"wire: REST jobs of {queue} are not QueryApi.get_jobs")
+    if _rest(stack.base, "/api/v1/queues") != wire._call("ListQueues", {}):
+        raise AssertionError("wire: REST queues are not ListQueues")
+    got = _rest(stack.base, f"/api/v1/jobset/{queue}/{jobset}/events?from=0&watch=false"
+                            f"&limit={WIRE_READ_LIMIT}")
+    end = stack.log.end_offset
+
+    def expand(pairs):
+        return [{"offset": off, "type": type(e).__name__, "job_id": getattr(e, "job_id", ""),
+                 "created": getattr(e, "created", 0.0)} for off, seq in pairs for e in seq.events]
+
+    scan = [(x.offset, x.sequence) for x in stack.log.read(0, end)
+            if x.sequence.queue == queue and x.sequence.jobset == jobset]
+    stream, cursor = [], 0
+    while True:
+        batch = list(stack.api._watch_entries(queue, jobset, cursor, False, _NoContext()))
+        if not batch:
+            break
+        stream += batch
+        cursor = batch[-1][0] + 1
+    if got["events"] != json.loads(json.dumps(expand(scan))) or got["next"] != end:
+        raise AssertionError(f"wire: REST events of {queue}/{jobset} are not the log's scan")
+    if [o for o, _ in stream] != [o for o, _ in scan]:
+        raise AssertionError(f"wire: the index's stream of {queue}/{jobset} is not the log's scan")
+    filters = [{"field": "queue", "value": queue}]
+    calls = [
+        ("GetJobs", {"filters": filters, "order_field": "submitted", "order_direction": "asc",
+                     "skip": 50, "take": 100},
+         lambda: (lambda r: {"jobs": [dataclasses.asdict(x) for x in r[0]], "total": r[1]})(
+             query.get_jobs([JobFilter("queue", queue)], Order("submitted", "asc"), 50, 100))),
+        ("GroupJobs", {"group_by": "queue", "aggregates": ["state_counts"]},
+         lambda: {"groups": query.group_jobs("queue", [], ["state_counts"])}),
+        ("SchedulingReport", {}, lambda: {"report": sched.reports.scheduling_report()}),
+        ("QueueReport", {"queue": queue}, lambda: {"report": sched.reports.queue_report(queue)}),
+        ("JobReport", {"job_id": leased}, lambda: {"report": sched.reports.job_report(leased)}),
+        ("Doctor", {}, sched.doctor_report),
+        ("FairnessReport", {"pool": ""}, sched.fairness.snapshot),
+        ("GetJobLogs", {"job_id": queued, "tail_lines": 100},
+         lambda: {"lines": stack.binoculars.get_logs(queued, 100)}),
+    ]
+    for method, req, direct in calls:
+        if _canon(wire._call(method, req)) != _canon(direct()):
+            raise AssertionError(f"wire: {method} through the loopback is not its direct call")
+    errors = []
+    for fn in (lambda: wire._call("GetJobLogs", {"job_id": leased}),
+               lambda: stack.binoculars.get_logs(leased, 100)):
+        try:
+            fn()
+            errors.append(None)
+        except KeyError as e:
+            errors.append(str(e))
+    if errors[0] is None or errors[0] != errors[1]:
+        raise AssertionError(f"wire: GetJobLogs of a leased job gave {errors}")
+
+
+def phase_wire(n_jobs=100_000, n_nodes=5000, device=None, cycles=WIRE_CYCLES,
+               batch=WIRE_SUBMIT_BATCH, partition_at=WIRE_PARTITION_AT):
+    """The wire and the executor side on the card (phase 17). Two stacks
+    (`WireStack`), one on the "cuda" path and one on "lax", each with two
+    ExecutorAgents of n_nodes / 2 nodes leasing through the ApiServer's
+    method table over the JSON codec (`Loopback`). service_100k's jobs
+    (`build_inputs(n_jobs, 1, n_running=0)`'s queued JobSpecs, the bench's
+    config: fast fill, window 2,048) go in as JSON job dicts through each
+    stack's RestGateway behind its ChaosProxy with urllib: the queues by
+    POST /api/v1/queue, the jobs by POST /api/v1/job/submit in requests
+    of `batch`, one jobset per queue, the same requests in the same order
+    to both stacks. Request `partition_at` is sent inside a
+    network_partition window on the proxy's clock and fails; sent again
+    after the heal, it lands once. Job ids are matched between the
+    stacks by submission order.
+    Then 1 cold and `cycles` - 1 warm cycles, 10 virtual seconds apart
+    from the wall clock after the submission, as the JAX package's
+    ControlPlane._loop runs them: each agent's tick, the scheduler's
+    cycle, the index's sync. After each: the cuda stack's leases (job,
+    executor, node) equal the lax stack's, and every cycle leases; the
+    ladders are local:cuda and LOCAL alone, with no failover; the cuda
+    cycle launches score_nodes, fill_take and segment_add and the lax
+    one none; every run the job database holds on an executor is a pod
+    on that agent after its exchange and every pod a run, and each pod's
+    reported phase (pending, running) is its job's state; the reads of
+    `_wire_reads` equal their direct calls. After the fourth cycle a
+    CancelJobs of a job leased two cycles before and a ReprioritizeJobs
+    of a served queue's head (to 1,000) go through the loopback: the
+    next cycle leases neither while it serves both queues, and the
+    exchange after it carries the cancel run, after which the pod is
+    gone. At the end each agent's ExecutorSync kills nothing, finds no
+    orphan, and keeps exactly its pods; the stacks' job states are equal;
+    each proxy forwarded at least the submit bodies sent outside the
+    window and severed connections only inside it. Any exception of a
+    handler, an agent tick or a proxy thread fails the phase. Prints the
+    REST submit seconds and jobs a second, the requests' latencies, each
+    agent's exchange seconds and lease reply bytes per cycle, the cycle
+    seconds and the loopback calls' latencies."""
+    import statistics
+    import threading
+    import urllib.error
+
+    from armada_tpu_torch.events import JobRunLeased
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.services.chaos import FaultPlan, FaultSpec, VirtualClock
+    from armada_tpu_torch.workload import build_inputs
+
+    thread_errors = []
+    hook = threading.excepthook
+
+    def record(args):
+        thread_errors.append(f"{args.thread.name if args.thread else '?'}: {args.exc_value!r}")
+        hook(args)
+
+    threading.excepthook = record
+    rec, launches = {}, {name: 0 for name in K.KERNELS}
+    cfg, _, _, queues, _, queued = build_inputs(n_jobs, 1, n_running=0, fast_fill=True,
+                                                fill_window=2048)
+    requests = []
+    by_queue: dict = {}
+    for job in queued:
+        by_queue.setdefault(job.queue, []).append(job)
+    for q in queues:
+        jobs = by_queue.get(q.name, [])
+        for i in range(0, len(jobs), batch):
+            requests.append({"queue": q.name, "jobset": "bench",
+                             "jobs": [job_spec_to_dict(j) for j in jobs[i:i + batch]]})
+    clock = VirtualClock(0.0)
+    plan = FaultPlan([FaultSpec("network_partition", "rest", start=100.0, duration=100.0)])
+    stacks = {}
+    try:
+        for kp in ("cuda", "lax"):
+            stacks[kp] = WireStack(cfg, kp, clock, plan, 2, n_nodes // 2, device=device)
+        ladders = {kp: [r.label for r in s.sched._rungs] for kp, s in stacks.items()}
+        if ladders["cuda"][:1 if device else None] != ["local:cuda"] or \
+                ladders["lax"][:1 if device else None] != ["LOCAL"]:
+            raise AssertionError(f"wire: the card's ladders are {ladders}")
+
+        # Submission through the proxies.
+        latencies = {kp: [] for kp in stacks}
+        ids, sent_bytes = {kp: [] for kp in stacks}, {kp: 0 for kp in stacks}
+        for q in queues:
+            for kp, s in stacks.items():
+                body = {"name": q.name, "priority_factor": q.priority_factor}
+                _rest(s.base, "/api/v1/queue", body)
+                sent_bytes[kp] += len(json.dumps(body))
+        partition = {}
+        for n, body in enumerate(requests):
+            raw = json.dumps(body)
+            if n == partition_at:
+                clock.now = 150.0
+                for s in stacks.values():
+                    _listening(s.proxy._listen_port, up=False)
+                partition["severed_before"] = {kp: s.proxy.connections_severed
+                                               for kp, s in stacks.items()}
+                partition["log_end_before"] = {kp: s.log.end_offset for kp, s in stacks.items()}
+                for kp, s in stacks.items():
+                    try:
+                        _rest(s.base, "/api/v1/job/submit", body)
+                    except urllib.error.URLError as e:
+                        partition.setdefault("failed", {})[kp] = repr(e.reason)
+                    else:
+                        raise AssertionError("wire: a submit inside the partition landed")
+                    if s.log.end_offset != partition["log_end_before"][kp]:
+                        raise AssertionError("wire: the partitioned submit reached the log")
+                clock.now = 250.0
+                for s in stacks.values():
+                    _listening(s.proxy._listen_port, up=True)
+                partition["severed_after"] = {kp: s.proxy.connections_severed
+                                              for kp, s in stacks.items()}
+            for kp, s in stacks.items():
+                ids[kp] += _rest(s.base, "/api/v1/job/submit", body, latencies[kp])["job_ids"]
+                sent_bytes[kp] += len(raw)
+        if ids["cuda"] != ids["lax"] or ids["cuda"] != [d["id"] for r in requests
+                                                        for d in r["jobs"]]:
+            raise AssertionError("wire: the stacks' job ids are not the submitted ones")
+        match = dict(zip(ids["lax"], ids["cuda"]))  # lax id -> cuda id, by submission order
+        rec["submit"] = {kp: {"requests": len(xs), "jobs": len(ids[kp]), "seconds": sum(xs),
+                              "jobs_per_s": len(ids[kp]) / sum(xs),
+                              "median_latency_s": statistics.median(xs),
+                              "max_latency_s": max(xs)} for kp, xs in latencies.items()}
+        rec["submit"]["partition"] = partition
+
+        # Cycles.
+        t_start = float(int(time.time()))
+        cycle_recs, leased_in, mutation = [], [], None
+        for c in range(cycles):
+            now = t_start + 10.0 * c
+            crec = {"cycle": c}
+            out = {}
+            for kp, s in stacks.items():
+                agents = []
+                for agent in s.agents:
+                    t1 = time.perf_counter()
+                    reply = agent.tick(now)
+                    agents.append({"name": agent.name, "exchange_s": time.perf_counter() - t1,
+                                   "lease_reply_bytes": s.wire.reply_bytes["ExecutorLease"][-1],
+                                   "leases_in_reply": len(reply["leases"]),
+                                   "cancels_in_reply": len(reply["cancel_runs"]),
+                                   "pods": len(agent.runtime.pods)})
+                _check_pods(s, f"{kp} cycle {c}, after the exchange")
+                K.reset_launches()
+                t1 = time.perf_counter()
+                seqs = s.sched.cycle(now=now)
+                cycle_s = time.perf_counter() - t1
+                got = take_launches(launches, f"wire {kp} cycle {c}") if kp == "cuda" else \
+                    dict(K.LAUNCHES)
+                if kp == "lax" and any(got[k] for k in K.KERNELS):
+                    raise AssertionError(f"wire: the lax cycle {c} launched {got}")
+                s.index.sync()
+                st = s.sched.last_cycle_stats
+                if st["rung"] != ladders[kp][0] or st["failover"] is not None:
+                    raise AssertionError(f"wire {kp} cycle {c}: rung {st['rung']}, "
+                                         f"failover {st['failover']}")
+                leases = sorted((e.job_id, e.executor, e.node_id) for seq in seqs
+                                for e in seq.events if isinstance(e, JobRunLeased))
+                if not leases:
+                    raise AssertionError(f"wire {kp} cycle {c}: nothing leased")
+                _check_phases(s, f"{kp} cycle {c}", mutation)
+                out[kp] = leases
+                crec[kp] = {"cycle_s": cycle_s, "leased": len(leases), "agents": agents,
+                            "launches": {k: got[k] for k in K.KERNELS}}
+            if out["cuda"] != sorted((match[j], e, n) for j, e, n in out["lax"]):
+                raise AssertionError(f"wire cycle {c}: the cuda and lax stacks leased differently")
+            leased_in.append(out["cuda"])
+            if mutation is not None:
+                got = {j for j, _, _ in out["cuda"]}
+                lq = {stacks["cuda"].sched.jobdb.get(j).queue for j in got}
+                if mutation["cancel"] in got or mutation["reprioritize"] in got or \
+                        not {mutation["cancel_queue"], mutation["reprioritize_queue"]} <= lq:
+                    raise AssertionError(f"wire: after the mutations cycle {c} leased "
+                                         f"{sorted(got & {mutation['cancel'], mutation['reprioritize']})}"
+                                         f", queues {sorted(lq)}")
+                for kp, s in stacks.items():
+                    jc = s.sched.jobdb.get(mutation["cancel"])
+                    jr = s.sched.jobdb.get(mutation["reprioritize"])
+                    if (jc.state.value, jr.state.value, jr.priority) != ("cancelled", "queued",
+                                                                         1000):
+                        raise AssertionError(f"wire {kp}: the mutations did not show: {jc.state} "
+                                             f"{jr.state} {jr.priority}")
+                mutation["next_cycle_leased"] = len(got)
+            t1 = time.perf_counter()
+            q = queues[c % len(queues)].name
+            leased_job = out["cuda"][0][0]
+            queued_job = next(j.id for j in stacks["cuda"].sched.jobdb.read_txn().all_jobs()
+                              if j.state.value == "queued")
+            for s in stacks.values():
+                _wire_reads(s, q, "bench", leased_job, queued_job)
+            crec["reads_s"] = time.perf_counter() - t1
+            cycle_recs.append(crec)
+            if c == cycles - 2:
+                mutation = _wire_mutations(stacks, leased_in, out["cuda"])
+        if mutation is None or "next_cycle_leased" not in mutation:
+            raise AssertionError("wire: the mutations' cycle did not run")
+
+        # The exchange after the last cycle, then the anti-entropy sync.
+        now = t_start + 10.0 * cycles
+        final = {}
+        for kp, s in stacks.items():
+            for agent in s.agents:
+                reply = agent.tick(now)
+                if agent.name == mutation["cancel_executor"]:
+                    if mutation["cancel"] not in {x["job_id"] for x in reply["cancel_runs"]}:
+                        raise AssertionError(f"wire {kp}: the cancel never reached {agent.name}")
+                    if any(p["job_id"] == mutation["cancel"] for p in agent.runtime.pods.values()):
+                        raise AssertionError(f"wire {kp}: the cancelled job's pod survived")
+            _check_pods(s, f"{kp} final exchange")
+            syncs = []
+            for agent in s.agents:
+                reply = agent.resync(now)
+                if reply["kill_runs"] or reply["orphaned_run_ids"] or \
+                        set(reply["kept_run_ids"]) != set(agent.runtime.pods):
+                    raise AssertionError(f"wire {kp}: {agent.name}'s ExecutorSync gave "
+                                         f"{len(reply['kill_runs'])} kills, "
+                                         f"{len(reply['orphaned_run_ids'])} orphans, "
+                                         f"{len(reply['kept_run_ids'])} kept of "
+                                         f"{len(agent.runtime.pods)} pods")
+                syncs.append({"name": agent.name, "kept": len(reply["kept_run_ids"]),
+                              "fence_token": reply["fence_token"]})
+            n = len(s.sched.jobdb.read_txn().all_jobs())
+            if n != len(ids[kp]):
+                raise AssertionError(f"wire {kp}: {n} jobs in the job database")
+            final[kp] = {"syncs": syncs, "jobs": n}
+        states = {kp: {j.id: j.state.value for j in s.sched.jobdb.read_txn().all_jobs()}
+                  for kp, s in stacks.items()}
+        if states["cuda"] != {match[j]: v for j, v in states["lax"].items()}:
+            raise AssertionError("wire: the stacks' job states differ")
+        proxies = {}
+        for kp, s in stacks.items():
+            p = s.proxy
+            proxies[kp] = {"bytes_forwarded": p.bytes_forwarded, "body_bytes": sent_bytes[kp],
+                           "connections": p.connections_total,
+                           "severed": p.connections_severed}
+            if p.bytes_forwarded < sent_bytes[kp]:
+                raise AssertionError(f"wire {kp}: the proxy forwarded {p.bytes_forwarded} bytes, "
+                                     f"the bodies sent outside the window {sent_bytes[kp]}")
+            if partition["severed_before"][kp] or \
+                    p.connections_severed != partition["severed_after"][kp]:
+                raise AssertionError(f"wire {kp}: the proxy severed connections outside the "
+                                     f"window ({partition}, {p.connections_severed})")
+        wire = {}
+        for kp, s in stacks.items():
+            for method, xs in s.wire.seconds.items():
+                w = wire.setdefault(method, [])
+                w += xs
+        rec["loopback"] = {m: {"calls": len(xs), "median_s": statistics.median(xs),
+                               "max_s": max(xs)} for m, xs in sorted(wire.items())}
+    finally:
+        for s in stacks.values():
+            s.close()
+        threading.excepthook = hook
+    if thread_errors:
+        raise AssertionError(f"wire: a thread raised: {thread_errors[:3]}")
+    warm = [c["cuda"]["cycle_s"] for c in cycle_recs[1:]]
+    rec.update({"cycles": cycle_recs, "final": final, "proxies": proxies,
+                "mutation": mutation, "ladders": ladders,
+                "median_warm_cycle_s": statistics.median(warm) if warm else None,
+                "launches": launches})
+    return rec
+
+
+def _check_pods(stack, label):
+    """Every run the job database holds on an agent's executor (leased,
+    pending, running) is a pod on that agent, and every pod is such a
+    run."""
+    want = {}
+    for j in stack.sched.jobdb.read_txn().all_jobs():
+        run = j.latest_run
+        if run is not None and j.state.value in ("leased", "pending", "running"):
+            want.setdefault(run.executor, set()).add(run.id)
+    for agent in stack.agents:
+        pods = set(agent.runtime.pods)
+        if pods != want.get(agent.name, set()):
+            raise AssertionError(f"wire {label}: {agent.name} holds {len(pods)} pods for "
+                                 f"{len(want.get(agent.name, ()))} runs "
+                                 f"({len(pods - want.get(agent.name, set()))} without a run)")
+
+
+def _check_phases(stack, label, mutation):
+    """Each pod's reported phase (pending, running) is its job's state in
+    the job database, which has just ingested the agents' reports; the
+    job cancelled by `mutation` is cancelled there, its pod alive until
+    the next exchange carries the cancel."""
+    for agent in stack.agents:
+        for pod in agent.runtime.pods.values():
+            if mutation is not None and pod["job_id"] == mutation["cancel"]:
+                continue
+            if pod["phase"] in ("pending", "running"):
+                state = stack.sched.jobdb.get(pod["job_id"]).state.value
+                if state != pod["phase"]:
+                    raise AssertionError(f"wire {label}: {pod['job_id']} is {state}, its pod "
+                                         f"{pod['phase']}")
+
+
+def _wire_mutations(stacks, leased_in, last):
+    """The CancelJobs of a job leased two cycles before (a pod on its
+    agent) and the ReprioritizeJobs (to 1,000) of the head of a queue
+    `last` served, through each stack's loopback; the same job ids (by
+    submission order, equal here) in both."""
+    cuda = stacks["cuda"]
+    job_id, executor, _ = leased_in[-2][0]
+    served = {}
+    for jid, _, _ in last:
+        q = cuda.sched.jobdb.get(jid).queue
+        served[q] = served.get(q, 0) + 1
+    cancel_queue = cuda.sched.jobdb.get(job_id).queue
+    best = {}
+    for j in cuda.sched.jobdb.read_txn().all_jobs():
+        if j.state.value == "queued" and served.get(j.queue, 0) >= 2 and j.queue != cancel_queue:
+            key = (j.priority, j.spec.submitted_ts, j.id)
+            if j.queue not in best or key < best[j.queue][0]:
+                best[j.queue] = (key, j.id)
+    reprio_queue, (_, reprio) = sorted(best.items())[0]
+    for s in stacks.values():
+        pods = {p["job_id"] for a in s.agents for p in a.runtime.pods.values()}
+        if job_id not in pods:
+            raise AssertionError(f"wire: the job to cancel, {job_id}, has no pod")
+        s.wire._call("CancelJobs", {"queue": cancel_queue, "jobset": "bench",
+                                    "job_ids": [job_id], "reason": "phase 17"})
+        s.wire._call("ReprioritizeJobs", {"queue": reprio_queue, "jobset": "bench",
+                                          "job_ids": [reprio], "priority": 1000})
+    return {"cancel": job_id, "cancel_queue": cancel_queue, "cancel_executor": executor,
+            "reprioritize": reprio, "reprioritize_queue": reprio_queue}
+
+
 def _round_100k():
     """Phase 4: round_100k on "cuda" and "lax", bit-equal."""
     res, outs, _ = run_round(100_000, 5000, ("cuda", "lax"))
@@ -3093,8 +3679,8 @@ class SidePhases:
 
 
 def main_phases(timing, sides):
-    """Phases 5 to 7 and 9 in this process while `sides` run 10, 12, 13
-    and 16, and 4, 11, 14 and 15, then phase 8 alone; returns their
+    """Phases 5 to 7, 9 and 17 in this process while `sides` run 10, 12,
+    13 and 16, and 4, 11, 14 and 15, then phase 8 alone; returns their
     records and the sides' merged."""
     t0 = time.time()
     flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
@@ -3161,6 +3747,10 @@ def main_phases(timing, sides):
     del dev_flag, dev_fast, dev_100k_fast
     emit({"phase": "policies", **policies, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    wire = phase_wire()
+    emit({"phase": "wire", **wire, "seconds": time.time() - t0})
+
     # The ring drive times a kernel that spins across four processes'
     # contexts on the card, so it runs once the side processes have ended.
     side_rec = {}
@@ -3177,7 +3767,7 @@ def main_phases(timing, sides):
     del gang_outs, dev_gangs
     timing["ring_exchange"] = ring_timing(multiproc)
     emit({"phase": "multiproc", **multiproc, "seconds": time.time() - t0})
-    return flag, fast, driver, sharded, multiproc, policies, side_rec
+    return flag, fast, driver, sharded, multiproc, policies, wire, side_rec
 
 
 def main() -> int:
@@ -3220,7 +3810,7 @@ def main() -> int:
         try:
             for names in SIDES:
                 sides.append(SidePhases(side_dir, names))
-            (flag, fast, driver, sharded, multiproc, policies,
+            (flag, fast, driver, sharded, multiproc, policies, wire,
              side_rec) = main_phases(timing, sides)
         finally:
             for side in sides:
@@ -3230,6 +3820,11 @@ def main() -> int:
                               "autotune_whatif", "persistence", "lookout"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
           **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
+    # Phase 17's cycles beside phase 12's service_100k, the same jobs and
+    # nodes fed straight into the service with fake executors.
+    emit({"phase": "wire_beside_service_100k",
+          "wire_cycle_s": [c["cuda"]["cycle_s"] for c in wire["cycles"]],
+          "service_100k_cycle_s": [c["cycle_s"] for c in service["service_100k"]["cuda"]["cycles"]]})
 
     def launch_sum(records, name):
         return int(sum(r.get("cuda_cold_launches", r.get("launches", {})).get(name, 0)
@@ -3285,6 +3880,7 @@ def main() -> int:
             "launches_autotune_whatif": int(autotune_whatif["launches"][name]),
             "launches_persistence": int(persistence["launches"][name]),
             "launches_lookout": int(lookout["launches"][name]),
+            "launches_wire": int(wire["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -505,6 +505,58 @@ def test_lookout_views_follow_a_kernel_service_on_card(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_agent_leases_from_a_kernel_stack_on_card(cuda_device):
+    """A kernel-backed stack on the card as chip_smoke.py's phase 17 wires
+    it (`WireStack`, "cuda"): 600 queued jobs of workload.build_inputs
+    submitted by REST through the ChaosProxy, one executor agent of 100
+    nodes leasing through the loopback (the method table over the JSON
+    codec). The cycle after the agent's first exchange leases every job
+    on local:cuda; after the next exchange every lease is a pod on the
+    agent and every pod a lease, and the pods' reported states are the
+    job database's after the cycle that follows. score_nodes, fill_take
+    and segment_add were launched."""
+    import importlib.util
+    import os
+
+    from armada_tpu_torch.services.chaos import FaultPlan, VirtualClock
+    from armada_tpu_torch.workload import build_inputs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    tk.build_all()
+    cfg, _, _, queues, _, queued = build_inputs(600, 1, n_running=0, fast_fill=True,
+                                                fill_window=2048)
+    stack = smoke.WireStack(cfg, "cuda", VirtualClock(), FaultPlan([]), 1, 100)
+    agent = stack.agents[0]
+    try:
+        assert [r.label for r in stack.sched._rungs] == ["local:cuda"]
+        for q in queues:
+            smoke._rest(stack.base, "/api/v1/queue", {"name": q.name})
+            jobs = [smoke.job_spec_to_dict(j) for j in queued if j.queue == q.name]
+            if jobs:
+                smoke._rest(stack.base, "/api/v1/job/submit",
+                            {"queue": q.name, "jobset": "bench", "jobs": jobs})
+        agent.tick(0.0)
+        tk.reset_launches()
+        seqs = stack.sched.cycle(now=0.0)
+        launches = dict(tk.LAUNCHES)
+        leased = {e.job_id for seq in seqs for e in seq.events if type(e).__name__ == "JobRunLeased"}
+        assert len(leased) == 600 and stack.sched.last_cycle_stats["rung"] == "local:cuda"
+        reply = agent.tick(10.0)
+        assert {x["job_id"] for x in reply["leases"]} == leased
+        smoke._check_pods(stack, "on the card")
+        assert {p["job_id"] for p in agent.runtime.pods.values()} == leased
+        stack.sched.cycle(now=10.0)
+        smoke._check_phases(stack, "on the card", None)
+    finally:
+        stack.close()
+    for name in smoke.FILL_KERNELS:
+        assert launches[name] > 0, name
+
+
+@pytest.mark.cuda
 def test_recorded_rounds_replay_on_card(cuda_device, tmp_path):
     """The round observatory on the card: the committed bundle the JAX
     package recorded replays under LOCAL (the "cuda" path), "lax" and

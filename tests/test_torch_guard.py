@@ -18,11 +18,19 @@ a simulation runs over a crash-recovering log behind a front door, both
 soak tools run a plan, the file lease and the HS256 authenticators
 decide, the Lookout views and the event index follow a service's log on
 background tasks behind the Lookout HTTP server, and the fairness report
-and the Perfetto converter read a recorded bundle. prometheus_client is blocked too: the metrics stay optional (no
-registry, an empty rendering); so are grpc and cryptography, which the
-card's machine lacks (auth.py imports cryptography only where an RS256
-token is made or checked). The default device is the CUDA card, which
-raises where there is none."""
+and the Perfetto converter read a recorded bundle, and jobs go in by REST
+through a ChaosProxy to a kernel stack whose executor agent leases
+through chip_smoke.py's loopback (the method table over the JSON codec).
+prometheus_client is blocked too: the metrics stay optional (no
+registry, an empty rendering); so are grpc, google.protobuf and
+cryptography, which the card's machine lacks (auth.py imports
+cryptography only where an RS256 token is made or checked; grpc_api.py
+imports grpc only where a socket is opened or a status code read, and
+protobuf only on the binary wire). Every module imports without them
+but the proto bindings (`armada_tpu_torch.proto`, its `armada_pb2`) and
+`tools/gen_proto.py`, which fail with an ImportError naming
+google.protobuf. The default device is the CUDA card, which raises
+where there is none."""
 
 import os
 import subprocess
@@ -41,11 +49,15 @@ _GUARD = textwrap.dedent(
 
     BLOCKED = ("jax", "jaxlib", "armada_tpu", "yaml", "prometheus_client", "grpc",
                "cryptography")
+    PROTOBUF = ("armada_tpu_torch.proto", "armada_tpu_torch.proto.armada_pb2",
+                "armada_tpu_torch.tools.gen_proto")
+
+    def blocked(name):
+        return name.split(".")[0] in BLOCKED or name.split(".")[:2] == ["google", "protobuf"]
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            top = name.split(".")[0]
-            if top in BLOCKED:
+            if blocked(name):
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -54,7 +66,16 @@ _GUARD = textwrap.dedent(
     import armada_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         armada_tpu_torch.__path__, "armada_tpu_torch.")]
+    names = sorted(set(names) | set(PROTOBUF))
     for name in names:
+        if name in PROTOBUF:
+            try:
+                importlib.import_module(name)
+            except ImportError as e:
+                assert "google.protobuf" in str(e), (name, e)
+            else:
+                raise AssertionError(f"{name} imported without google.protobuf")
+            continue
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT + "/chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -329,7 +350,29 @@ _GUARD = textwrap.dedent(
         assert fairness_report.main([path]) == 0
         doc = trace2perfetto.convert([path, os.path.join(tmp, "spans.jsonl")])
         assert trace2perfetto.validate(doc) == []
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    # The wire and the executor side, as chip_smoke.py's phase 17 drives
+    # them on the card: a queue and a REST submit through the ChaosProxy,
+    # the agent's first exchange (its nodes), a cycle, then the exchange
+    # that carries the leases, through the loopback.
+    for name in ("services.node_info", "services.netchaos", "services.grpc_api",
+                 "services.executor_agent", "services.rest_gateway", "services.server"):
+        assert "armada_tpu_torch." + name in names
+    from armada_tpu_torch.services.chaos import VirtualClock
+
+    stack = smoke.WireStack(cfg, "cuda", VirtualClock(), FaultPlan([]), 1, 2, device="cpu")
+    try:
+        smoke._rest(stack.base, "/api/v1/queue", {"name": "w"})
+        ids = smoke._rest(stack.base, "/api/v1/job/submit", {"queue": "w", "jobset": "s", "jobs": [
+            {"id": f"w{i}", "requests": {"cpu": "1", "memory": "1Gi"}} for i in range(3)]})["job_ids"]
+        stack.agents[0].tick(0.0)
+        stack.sched.cycle(now=0.0)
+        reply = stack.agents[0].tick(10.0)
+        assert len(reply["leases"]) == 3 and stack.wire.seconds["ExecutorLease"]
+        assert {p["job_id"] for p in stack.agents[0].runtime.pods.values()} == set(ids)
+        assert stack.proxy.bytes_forwarded > 0
+    finally:
+        stack.close()
+    loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
     """

@@ -10,8 +10,8 @@ package's does, and again on the port's kernel on the CPU, whose rounds
 feed the round-observatory families themselves; an autotune controller
 and a what-if plan against the simulator's scheduler feed the
 `scheduler_autotune_*` and `whatif_*` families. The front door's
-families (ROADMAP A2, a later slice) are exempt by prefix and must stay
-sample-free; the metric family names are the JAX package's
+families are exempt by prefix and must stay sample-free here (their
+liveness case runs in tests/test_torch_server.py); the metric family names are the JAX package's
 (`test_metric_families_are_the_reference_families`).
 """
 
@@ -101,11 +101,12 @@ EXEMPT_LABELED = {
 
 # Front-door families are exempt from the sim sweep BY PREFIX (the sim
 # publishes directly; the front door is off) — every one of them is
-# liveness-asserted instead by test_frontdoor_families_live_after_short_soak
-# below, which auto-covers families added later.
+# liveness-asserted instead by test_frontdoor_families_live_after_short_soak,
+# which auto-covers families added later (its port copy runs in
+# tests/test_torch_server.py: it needs the ApiServer's submit handler).
 FRONTDOOR_PREFIX = "frontdoor_"
-# The front door waits for ROADMAP A2: its families are registered (the
-# JAX package's names) and stay silent here.
+# The front door's families are registered (the JAX package's names) and
+# stay silent in this sweep.
 WAITING_PREFIXES = (FRONTDOOR_PREFIX,)
 
 # UNLABELED families legitimately untouched by this test's sims — each

@@ -20,7 +20,9 @@ same names, so a test case is written once and run against both.
 `port_copy` compiles a reference test module again with its
 `armada_tpu` imports pointed at the port, and `run_side_by_side` runs
 one of its cases on both packages, recording the leases after every
-cycle of every scheduler service (`record_cycles`).
+cycle of every scheduler service (`record_cycles`). A case's fixtures
+are the module's own (built per call, torn down after it), or values
+the caller gives per package (a module-scoped fixture's).
 """
 
 from __future__ import annotations
@@ -283,8 +285,42 @@ def case_marks(name, test):
     return list(getattr(getattr(importlib.import_module(name), test), "pytestmark", []))
 
 
+def _call_case(module, fn, args, tmp_dir, given):
+    """`fn(*args, **fixtures)`: `tmp_path` is `tmp_dir`, a name in
+    `given` takes its value, any other fixture is the module's own,
+    built once per call (its own fixtures resolved the same way) and
+    torn down after the call, last built first."""
+    built, teardown = {}, []
+
+    def resolve(arg):
+        if arg in built:
+            return built[arg]
+        if arg == "tmp_path":
+            tmp_dir.mkdir(exist_ok=True)
+            value = tmp_dir
+        elif arg in given:
+            value = given[arg]
+        else:
+            fixture = getattr(module, arg, None)
+            assert hasattr(fixture, "_get_wrapped_function"), f"{fn.__name__}: fixture {arg!r}"
+            wrapped = fixture._get_wrapped_function()
+            value = wrapped(**{p: resolve(p) for p in inspect.signature(wrapped).parameters})
+            if inspect.isgenerator(value):
+                teardown.append(value)
+                value = next(value)
+        built[arg] = value
+        return value
+
+    try:
+        params = list(inspect.signature(fn).parameters)[len(args):]
+        return fn(*args, **{arg: resolve(arg) for arg in params})
+    finally:
+        for gen in reversed(teardown):
+            next(gen, None)
+
+
 def run_side_by_side(name, test, monkeypatch, tmp_path, *, args=(), subs=(), port_subs=(),
-                     first_only=False):
+                     first_only=False, cycles=True, given=({}, {})):
     """Run the reference case `name`::`test`, then its port copy with the
     port's default device set to the CPU; each case's own assertions
     hold on both. `subs` rewrite both sides (a variant of the case, say
@@ -292,27 +328,29 @@ def run_side_by_side(name, test, monkeypatch, tmp_path, *, args=(), subs=(), por
     of the reference's script). The leases after every cycle are equal
     service by service (with `first_only`, the first service's alone: a
     case whose other services run on threads in an order of their own).
+    With `cycles=False` they are not compared: a case whose control
+    plane cycles on the wall clock, in a thread of its own, sees as many
+    cycles as the machine's timing gives it, on either package.
     A case's `tmp_path` argument is a directory of its own per package;
-    `args` go to both calls (a helper of the module run as a case).
-    Returns both calls' return values (reference, port)."""
+    its other fixtures are the module's (`_call_case`) or, by name, the
+    values of `given` (the reference's, the port's); `args` go to both
+    calls (a helper of the module run as a case). Returns both calls'
+    return values (reference, port)."""
     import armada_tpu.services.scheduler as ref_scheduler
     import armada_tpu_torch.device as port_device
     import armada_tpu_torch.services.scheduler as port_scheduler
 
-    def call(fn, label):
-        kwargs = {}
-        for arg in list(inspect.signature(fn).parameters)[len(args):]:
-            assert arg == "tmp_path", f"{name}::{test}: fixture {arg!r}"
-            kwargs[arg] = tmp_path / label
-            kwargs[arg].mkdir()
-        return fn(*args, **kwargs)
+    def record(module):
+        return record_cycles(monkeypatch, module) if cycles else []
 
     ref_module = port_copy(name, subs, port=False) if subs else importlib.import_module(name)
-    ref_history = record_cycles(monkeypatch, ref_scheduler)
-    ref_out = call(getattr(ref_module, test), "ref")
+    ref_history = record(ref_scheduler)
+    ref_out = _call_case(ref_module, getattr(ref_module, test), args, tmp_path / "ref", given[0])
     monkeypatch.setattr(port_device, "DEFAULT_DEVICE", "cpu")
-    port_history = record_cycles(monkeypatch, port_scheduler)
-    port_out = call(getattr(port_copy(name, tuple(subs) + tuple(port_subs)), test), "port")
+    port_history = record(port_scheduler)
+    port_module = port_copy(name, tuple(subs) + tuple(port_subs))
+    port_out = _call_case(port_module, getattr(port_module, test), args, tmp_path / "port",
+                          given[1])
     if first_only:
         ref_history, port_history = ref_history[:1], port_history[:1]
     assert len(port_history) == len(ref_history)
