@@ -233,12 +233,30 @@ def _policy_cost(rd, alloc):
     return _drf_cost(alloc, t.total_resources, t.drf_multipliers)
 
 
+def _fixed_sum(x, dim=-1):
+    """The float sum of `x` along `dim` in one fixed order on any device:
+    pairwise, adjacent entries first, an odd last entry carried to the
+    next level, every level an elementwise add. Elementwise float64 adds
+    round the same on the card and the CPU, where `torch.sum` pairs as
+    each device's reduction does, so a share summed here has the same
+    bits on both (a bundle recorded on the card replays on the CPU)."""
+    x = x.movedim(dim, -1)
+    if x.shape[-1] == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        pairs = x[..., 0:n - 1:2] + x[..., 1:n:2]
+        x = torch.cat([pairs, x[..., n - 1:]], dim=-1) if n % 2 else pairs
+    return x[..., 0]
+
+
 def _fair_shares(weights, demand_costs, total_is_zero):
     """Water-filling fair shares (context/scheduling.go:252-331): at most
-    10 rounds, stopping once less than 0.01 of the pool is unallocated."""
+    10 rounds, stopping once less than 0.01 of the pool is unallocated.
+    Every sum is `_fixed_sum`."""
     Q = weights.shape[0]
     zeros = torch.zeros(Q, dtype=COST_DTYPE, device=weights.device)
-    wsum = torch.sum(weights)
+    wsum = _fixed_sum(weights)
     fair_share = torch.where(
         wsum > 0.0, weights / torch.where(wsum > 0.0, wsum, 1.0), 0.0
     )
@@ -250,7 +268,7 @@ def _fair_shares(weights, demand_costs, total_is_zero):
     for _ in range(10):
         if not bool(unallocated > 0.01):
             break
-        total_weight = torch.sum(torch.where(achieved, 0.0, weights))
+        total_weight = _fixed_sum(torch.where(achieved, 0.0, weights))
         total_incl = total_weight + torch.where(achieved, weights, 0.0)
         share = torch.where(
             total_incl > 0,
@@ -270,7 +288,7 @@ def _fair_shares(weights, demand_costs, total_is_zero):
         achieved = achieved | over
         spare = torch.where(over, new_spare, 0.0)
         unallocated = torch.where(
-            live, torch.sum(torch.where(over, new_spare, 0.0)), 0.0
+            live, _fixed_sum(torch.where(over, new_spare, 0.0)), 0.0
         )
     return fair_share, capped, uncapped
 
@@ -293,7 +311,7 @@ def _priority_shares(rd, w, demand_costs, total_is_zero):
     (name rank breaking ties) take their whole demand from what the
     earlier ones left. One float64 accumulator walks the Q queues on the
     host, the reference's IEEE sequence step for step."""
-    wsum = torch.sum(w)
+    wsum = _fixed_sum(w)
     fair_share = torch.where(wsum > 0.0, w / torch.where(wsum > 0.0, wsum, 1.0), 0.0)
     demand = torch.where(total_is_zero, 1.0, demand_costs).cpu().numpy()
     w_h = w.cpu().numpy()
@@ -1750,7 +1768,7 @@ def _round_setup(rd):
 
     # Fair shares from constrained demand.
     demand_capped_pc = torch.minimum(_f(t.queue_demand_pc), t.queue_pc_limit)
-    constrained = torch.sum(demand_capped_pc, dim=1)  # [Q, R]
+    constrained = _fixed_sum(demand_capped_pc, dim=1)  # [Q, R]
     total_is_zero = torch.all(t.total_resources == 0)
     demand_costs = _policy_cost(rd, constrained)
     w = _f(t.queue_weight)

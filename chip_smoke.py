@@ -9,8 +9,8 @@ every hand-written CUDA kernel of that path against its plain torch
 version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
 time, so after phase 3 two more processes on the same card
-(`SidePhases`) run phases 10, 12, 13 and 16, and phases 4, 11, 14 and 15,
-which need nothing of the others, while this one runs 5 to 7, 9 and 17; phase 8
+(`SidePhases`) run phases 10, 12, 13 and 16, and phases 4, 11, 14, 15 and
+18, which need nothing of the others, while this one runs 5 to 7, 9 and 17; phase 8
 runs alone once the side processes have ended (its ring kernel spins
 across four processes' contexts, and its times would count another
 one's work). Launch counts are per process, set to 0 and read within
@@ -294,7 +294,38 @@ line of each process's peak reserved device memory.
    ExecutorSyncs are clean. Prints the REST submit rate and latencies,
    each agent's exchange seconds and lease reply bytes a cycle, the
    cycle seconds (beside phase 12's service_100k after the side
-   processes end) and the loopback calls' latencies.
+   processes end) and the loopback calls' latencies. The partition
+   check reads the proxies' severed counts before the window opens and
+   after it has closed and the listeners are back.
+18. clients: the clients, the CLIs and the testsuite (`phase_clients`),
+   last in the side process of phases 4, 11, 14 and 15. Stacks wired as
+   ControlPlane wires its parts, minus the gRPC listener (`ClientStack`:
+   FakeExecutors, an SLOTracker and a WhatIfService beside phase 17's
+   parts), reached through `LoopbackClient`, ApiClient's methods over
+   the method table and the JSON codec. (a) tests/test_testsuite.py's
+   plane (6 nodes of 16 cpu, 64Gi and 4 GPUs in zone z1, three priority
+   classes, jobs running 3 s) on the "cuda" path, cycling every 0.05 s
+   on the wall clock in a thread: the nine testsuite_cases specs
+   (TESTSUITE_SPECS, held equal to the files by a CPU test) pass through
+   the port's TestSuiteRunner, the preemption spec preempting, and a
+   spec no node fits times out. (b) Two stacks, "cuda" and "lax", with
+   two executors of 2,500 nodes of 32 cpu / 256Gi: the port's load
+   tester submits 100,000 jobs of 2 cpu / 4Gi in batches of 1,000 over
+   nine queues to each; two cycles, leases equal once the jobs are
+   matched by their place in the job database's order; armadactl's
+   `main` on both (queue create, get and list, jobs --queue, report,
+   fairness and its JSON, doctor, slo, job-trace, whatif --inject-gang,
+   drain --dry-run, cancel, reprioritize, node and executor cordon),
+   every output equal once ids, submit times, plans' solver labels and
+   round durations are mapped (`_Canon`); the next cycle shows the
+   cancel, the reprioritise and both cordons (every lease on
+   executor-1, none on the cordoned node). Then broadside's in-process
+   and SQLite backends for 3 s each over 100,000 seeded rows, no error
+   on any operation. Fill kernels launched in part (a) and in every
+   "cuda" cycle, none in a "lax" one. Prints per spec its seconds, the
+   load tester's reports, per cycle its seconds and leases, per command
+   and stack its seconds, output rows and reply bytes, and broadside's
+   reports.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -318,8 +349,9 @@ and the rest), the policy runs' summed (`launches_policy_runs`,
 simulation), phase 13's summed (`launches_observatory`), phase 14's
 summed (`launches_autotune_whatif`, its rollouts' counted in their
 process), phase 15's (`launches_persistence`, likewise), phase 16's
-(`launches_lookout`) and phase 17's (`launches_wire`, the "cuda" stack's
-five cycles) beside them;
+(`launches_lookout`), phase 17's (`launches_wire`, the "cuda" stack's
+five cycles) and phase 18's (`launches_clients`, the testsuite plane's
+cycles and the "cuda" stack's three) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -345,6 +377,7 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3102,48 +3135,150 @@ def _listening(port, up):
         time.sleep(0.02)
 
 
-class WireStack:
-    """One stack of phase 17, wired as the JAX package's
-    `ControlPlane.__init__` wires it (services/server.py) minus its gRPC
-    listener: an in-memory log, a SchedulerService (kernel backend on
-    `device`, the config's solve kernel path `kernel_path`), a
-    SubmitService, a QueryApi over the job database, an EventStreamIndex,
-    a BinocularsService and an ApiServer (`serve()` never called); a
-    RestGateway on port 0 over the same objects, behind a ChaosProxy
-    whose FaultPlan runs on `clock`; and `n_agents` ExecutorAgents of
-    `nodes_per_agent` nodes of 32 cpu / 256Gi each (`ServiceRun`'s
-    nodes), pods running an hour, whose client is a Loopback."""
+class LoopbackClient:
+    """An ApiClient over a `Loopback`: every ApiClient method but
+    `watch_jobset` runs as written in services/grpc_api.py, its `_call`
+    going through the method table over the JSON codec; `watch_jobset`
+    streams the ApiServer's WatchJobSet handler through the codec. Keeps
+    the ids of every SubmitJobs reply, in order (`submitted`)."""
 
-    def __init__(self, cfg, kernel_path, clock, plan, n_agents, nodes_per_agent, device=None):
+    def __init__(self, api):
+        self.api = api
+        self.wire = Loopback(api)
+        self.submitted = []
+
+    def _call(self, method, request, timeout=None):
+        out = self.wire._call(method, request)
+        if method == "SubmitJobs":
+            self.submitted += out["job_ids"]
+        return out
+
+    def watch_jobset(self, queue, jobset, from_offset=0, watch=True):
+        req = self.wire._decode(self.wire._encode(
+            {"queue": queue, "jobset": jobset, "from_offset": from_offset, "watch": watch}))
+        for msg in self.api._watch_jobset(req, _NoContext()):
+            yield self.wire._decode(msg)
+
+    def __getattr__(self, name):
+        from armada_tpu_torch.services.grpc_api import ApiClient
+
+        return getattr(ApiClient, name).__get__(self)
+
+
+class ClientStack:
+    """A control plane of the port wired as services/server.py's
+    ControlPlane wires it, minus its gRPC listener and its Lookout view:
+    an in-memory log, a SchedulerService (kernel backend on `device`, the
+    config's solve kernel path `kernel_path`) with an SLOTracker, a
+    SubmitService, a QueryApi over the job database, FakeExecutors of
+    `executors` (ControlPlane's `fake_executors` dicts), a
+    BinocularsService, an EventStreamIndex, with `whatif` a
+    WhatIfService, and an ApiServer (`serve()` never called), reached
+    through a LoopbackClient (`client`). `cycle(now)` runs one turn of
+    ControlPlane._loop at `now`; `start(period)` runs that loop on the
+    wall clock in a thread of its own, as ControlPlane.start does, and
+    keeps any exception of a cycle in `errors`."""
+
+    def __init__(self, cfg, kernel_path, executors, device=None, whatif=False):
         import dataclasses
 
         from armada_tpu_torch.events import InMemoryEventLog
         from armada_tpu_torch.services.binoculars import BinocularsService
         from armada_tpu_torch.services.event_index import EventStreamIndex
-        from armada_tpu_torch.services.executor_agent import ExecutorAgent, _PodRuntime
-        from armada_tpu_torch.services.fake_executor import make_nodes
+        from armada_tpu_torch.services.fake_executor import FakeExecutor, make_nodes
         from armada_tpu_torch.services.grpc_api import ApiServer
-        from armada_tpu_torch.services.netchaos import ChaosProxy
         from armada_tpu_torch.services.queryapi import QueryApi
-        from armada_tpu_torch.services.rest_gateway import RestGateway
         from armada_tpu_torch.services.scheduler import SchedulerService
+        from armada_tpu_torch.services.slo import SLOTracker
         from armada_tpu_torch.services.submit import SubmitService
 
         self.log = InMemoryEventLog()
         self.sched = SchedulerService(dataclasses.replace(cfg, solve_kernel_path=kernel_path),
                                       self.log, backend="kernel", device=device)
+        self.now = 0.0
+        # The tracker's windows end at the last cycle's time, the clock its
+        # observations carry.
+        self.sched.attach_slo(SLOTracker.from_config(self.sched.config, clock=lambda: self.now))
         self.submit = SubmitService(self.sched.config, self.log, scheduler=self.sched)
         self.query = QueryApi(self.sched.jobdb, timeline=self.sched.timeline)
-        self.binoculars = BinocularsService(self.sched, [])
+        self.executors = [
+            FakeExecutor(spec["name"], self.log, self.sched,
+                         nodes=make_nodes(spec["name"], count=int(spec["nodes"]), cpu=spec["cpu"],
+                                          memory=spec["memory"], labels=spec.get("labels"),
+                                          extra_resources=spec.get("extra_resources")),
+                         runtime_for=lambda job_id, rt=float(spec["runtime"]): rt)
+            for spec in executors]
+        self.binoculars = BinocularsService(self.sched, self.executors)
         self.index = EventStreamIndex(self.log)
+        self.whatif = None
+        if whatif:
+            from armada_tpu_torch.whatif import WhatIfService
+
+            # Rollout cycles 10 s apart, as phase 18 cycles its stacks.
+            self.whatif = WhatIfService(self.sched, cycle_interval=10.0)
+            self.sched.attach_whatif(self.whatif)
         self.api = ApiServer(self.submit, self.sched, self.query, self.log,
                              binoculars=self.binoculars, event_index=self.index)
+        self.client = LoopbackClient(self.api)
+        self.errors = []
+        self.cycles = 0
+        self._stop = None
+        self._thread = None
+
+    def cycle(self, now):
+        self.now = now
+        for ex in self.executors:
+            ex.tick(now)
+        return self.sched.cycle(now=now)
+
+    def start(self, period):
+        import threading
+
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.cycle(time.time())
+                    self.cycles += 1
+                except Exception as e:  # noqa: BLE001 - kept, and fails the phase
+                    self.errors.append(repr(e))
+                self._stop.wait(period)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def close(self):
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=30)
+        if self.whatif is not None:
+            self.whatif.close()
+
+
+class WireStack(ClientStack):
+    """One stack of phase 17: a ClientStack with no executors and no
+    planner (kernel backend on `device`, the config's solve kernel path
+    `kernel_path`), with a RestGateway on port 0 over the same objects,
+    behind a ChaosProxy whose FaultPlan runs on `clock`, and `n_agents`
+    ExecutorAgents of `nodes_per_agent` nodes of 32 cpu / 256Gi each
+    (`ServiceRun`'s nodes), pods running an hour, whose client is the
+    stack's Loopback (`wire`)."""
+
+    def __init__(self, cfg, kernel_path, clock, plan, n_agents, nodes_per_agent, device=None):
+        from armada_tpu_torch.services.executor_agent import ExecutorAgent, _PodRuntime
+        from armada_tpu_torch.services.fake_executor import make_nodes
+        from armada_tpu_torch.services.netchaos import ChaosProxy
+        from armada_tpu_torch.services.rest_gateway import RestGateway
+
+        super().__init__(cfg, kernel_path, [], device=device)
         self.rest = RestGateway(self.submit, self.sched, self.query, self.log, port=0,
                                 api=self.api)
         self.proxy = ChaosProxy("rest", "127.0.0.1", self.rest.port, plan, clock=clock)
         self.proxy.start()
         self.base = f"http://{self.proxy.address}"
-        self.wire = Loopback(self.api)
+        self.wire = self.client.wire
         self.agents = []
         for k in range(n_agents):
             name = f"executor-{k}"
@@ -3156,6 +3291,7 @@ class WireStack:
     def close(self):
         self.proxy.stop()
         self.rest.stop()
+        super().close()
 
 
 def _rest(base, path, body=None, latencies=None):
@@ -3346,11 +3482,14 @@ def phase_wire(n_jobs=100_000, n_nodes=5000, device=None, cycles=WIRE_CYCLES,
         for n, body in enumerate(requests):
             raw = json.dumps(body)
             if n == partition_at:
+                # Read before the window opens: the probes below are real
+                # connections, and one the proxy accepts as the window
+                # opens is severed inside it.
+                partition["severed_before"] = {kp: s.proxy.connections_severed
+                                               for kp, s in stacks.items()}
                 clock.now = 150.0
                 for s in stacks.values():
                     _listening(s.proxy._listen_port, up=False)
-                partition["severed_before"] = {kp: s.proxy.connections_severed
-                                               for kp, s in stacks.items()}
                 partition["log_end_before"] = {kp: s.log.end_offset for kp, s in stacks.items()}
                 for kp, s in stacks.items():
                     try:
@@ -3399,7 +3538,7 @@ def phase_wire(n_jobs=100_000, n_nodes=5000, device=None, cycles=WIRE_CYCLES,
                 _check_pods(s, f"{kp} cycle {c}, after the exchange")
                 K.reset_launches()
                 t1 = time.perf_counter()
-                seqs = s.sched.cycle(now=now)
+                seqs = s.cycle(now)
                 cycle_s = time.perf_counter() - t1
                 got = take_launches(launches, f"wire {kp} cycle {c}") if kp == "cuda" else \
                     dict(K.LAUNCHES)
@@ -3581,6 +3720,467 @@ def _wire_mutations(stacks, leased_in, last):
             "reprioritize": reprio, "reprioritize_queue": reprio_queue}
 
 
+# The load tester's queues, load-000 to load-008. It sends a batch to the
+# queue of its first job's index modulo the queue count, so with batches of
+# 1,000 only a count that does not divide 1,000 spreads them: 1,000 % 9 = 1
+# puts consecutive batches in consecutive queues.
+CLIENT_QUEUES = 9
+CLIENT_BATCH = 1000  # jobs in one load-tester submit
+CLIENT_CPU, CLIENT_MEMORY = "2", "4Gi"  # each load-tester job's requests
+CLIENT_WHATIF_ROUNDS = 1  # the what-if and drain plans' horizon, in rounds
+BROADSIDE_S = 3.0  # each broadside backend's measured seconds
+TESTSUITE_PERIOD_S = 0.05  # the testsuite plane's cycle period (tests/test_testsuite.py)
+# testsuite_cases/*.yaml as the card runs them (it has no PyYAML), in the
+# order tests/test_testsuite.py runs them; a CPU test holds each equal to
+# its file.
+TESTSUITE_SPECS = {
+    "basic": {"name": "basic", "timeout": 60, "queue": "ts-basic",
+              "jobs": [{"count": 2, "requests": {"cpu": "1", "memory": "1Gi"}}],
+              "expectedEvents": ["JobRunLeased", "JobRunRunning", "JobRunSucceeded",
+                                 "JobSucceeded"]},
+    "gang": {"name": "gang", "timeout": 60, "queue": "ts-gang",
+             "jobs": [{"count": 4, "requests": {"cpu": "2", "memory": "1Gi"},
+                       "gang": {"cardinality": 4}}],
+             "expectedEvents": ["JobRunLeased", "JobRunRunning", "JobRunSucceeded",
+                                "JobSucceeded"]},
+    "gpu": {"name": "gpu", "timeout": 60, "queue": "ts-gpu",
+            "jobs": [{"count": 2, "requests": {"cpu": "1", "memory": "1Gi",
+                                               "nvidia.com/gpu": "1"}}],
+            "expectedEvents": ["JobRunLeased", "JobRunRunning", "JobRunSucceeded",
+                               "JobSucceeded"]},
+    "node_selector": {"name": "node-selector", "timeout": 60, "queue": "ts-select",
+                      "jobs": [{"count": 2, "requests": {"cpu": "1", "memory": "1Gi"},
+                                "nodeSelector": {"zone": "z1"}}],
+                      "expectedEvents": ["JobRunLeased", "JobRunSucceeded", "JobSucceeded"]},
+    "reprioritization": {"name": "reprioritization", "timeout": 60, "queue": "ts-reprio",
+                         "jobs": [{"count": 3, "priority": 100,
+                                   "requests": {"cpu": "1", "memory": "1Gi"}}],
+                         "actions": [{"afterSeconds": 0.5, "reprioritizeJobSet": 0}],
+                         "expectedEvents": ["JobRunLeased", "JobRunSucceeded", "JobSucceeded"]},
+    "categorization": {"name": "categorization", "timeout": 60, "queue": "ts-categ",
+                       "jobs": [{"count": 2, "requests": {"cpu": "1", "memory": "1Gi"},
+                                 "annotations": {"armadaproject.io/fail-simulation":
+                                                 "oom killed: container"}}],
+                       "expectedEvents": ["JobRunLeased", "JobRunErrors", "JobErrors"]},
+    "cancellation": {"name": "cancellation", "timeout": 60, "queue": "ts-cancel",
+                     "jobs": [{"count": 3, "requests": {"cpu": "1", "memory": "1Gi"}}],
+                     "actions": [{"afterSeconds": 1.0, "cancelJobSet": True}],
+                     "expectedEvents": ["JobRunLeased"]},
+    "performance": {"name": "performance", "timeout": 120, "queue": "ts-perf",
+                    "jobs": [{"count": 64, "requests": {"cpu": "1", "memory": "256Mi"}}],
+                    "expectedEvents": ["JobRunLeased", "JobRunSucceeded", "JobSucceeded"]},
+    "preemption": {"name": "preemption", "timeout": 90, "queue": "ts-preempt",
+                   "jobs": [{"count": 12, "priorityClassName": "ts-low",
+                             "requests": {"cpu": "8", "memory": "2Gi"},
+                             "expectedEvents": ["JobRunLeased", "JobRunRunning"]},
+                            {"count": 4, "priorityClassName": "ts-high",
+                             "requests": {"cpu": "8", "memory": "2Gi"},
+                             "submitDelaySeconds": 1.5,
+                             "expectedEvents": ["JobRunLeased", "JobRunRunning",
+                                                "JobRunSucceeded", "JobSucceeded"]}]},
+}
+# tests/test_testsuite.py::test_testsuite_detects_failure's spec: no node
+# fits its job, so it must time out.
+TESTSUITE_IMPOSSIBLE = {"name": "impossible", "timeout": 3, "queue": "ts-imp",
+                        "jobs": [{"count": 1, "requests": {"cpu": "999", "memory": "1Gi"}}],
+                        "expectedEvents": ["JobRunLeased"]}
+
+
+def _testsuite_plane(device):
+    """tests/test_testsuite.py's plane (`plane`, :13-40): ts-default,
+    ts-low and ts-high, 6 nodes of 16 cpu / 64Gi with 4 GPUs each in zone
+    z1, jobs running 3 s; on the "cuda" path."""
+    from armada_tpu_torch.core.config import PriorityClass, SchedulingConfig
+
+    config = SchedulingConfig(
+        priority_classes={
+            "ts-default": PriorityClass("ts-default", 1000, preemptible=True),
+            "ts-low": PriorityClass("ts-low", 100, preemptible=True),
+            "ts-high": PriorityClass("ts-high", 30000, preemptible=False),
+        },
+        default_priority_class="ts-default",
+        protected_fraction_of_fair_share=0.0,
+    )
+    return ClientStack(config, "cuda", [{
+        "name": "ts-exec", "nodes": 6, "cpu": "16", "memory": "64Gi", "runtime": 3.0,
+        "labels": {"zone": "z1"}, "extra_resources": {"nvidia.com/gpu": "4"}}], device=device)
+
+
+def _run_testsuite(device, launches):
+    """Part (a) of phase 18: the nine specs through the port's
+    TestSuiteRunner on the testsuite plane, cycling every
+    TESTSUITE_PERIOD_S on its own thread; each must pass (the preemption
+    spec with a job preempted), and the impossible spec must time out."""
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.testsuite import TestSpec, TestSuiteRunner
+
+    K.reset_launches()
+    stack = _testsuite_plane(device).start(TESTSUITE_PERIOD_S)
+    results = {}
+    try:
+        runner = TestSuiteRunner(stack.client)
+        for case, doc in TESTSUITE_SPECS.items():
+            res = runner.run(TestSpec.from_dict(doc))
+            results[case] = {"passed": res.passed, "seconds": res.duration_s, "jobs":
+                             len(res.events_by_job), "reason": res.reason}
+            if not res.passed:
+                raise AssertionError(f"clients: testsuite {case} failed: {res.reason}")
+        preempted = [j for j, evs in res.events_by_job.items() if "JobRunPreempted" in evs]
+        if not preempted:
+            raise AssertionError("clients: testsuite preemption preempted no job")
+        res = runner.run(TestSpec.from_dict(TESTSUITE_IMPOSSIBLE))
+        results["impossible"] = {"passed": res.passed, "seconds": res.duration_s,
+                                 "reason": res.reason}
+        if res.passed or "timeout" not in res.reason:
+            raise AssertionError(f"clients: the impossible spec gave {res.passed}, {res.reason}")
+    finally:
+        stack.close()
+    if stack.errors:
+        raise AssertionError(f"clients: the testsuite plane's loop raised {stack.errors[:3]}")
+    got = take_launches(launches, "clients testsuite")
+    return {"specs": results, "preempted": len(preempted), "cycles": stack.cycles,
+            "launches": {k: got[k] for k in launches}}
+
+
+class _Commands:
+    """Command lines run in process, on several threads at once (phase
+    18 runs the "cuda" and the "lax" stack's together): within the
+    context, sys.stdout and each of `modules`' `connect` answer per
+    thread, so `run(client, fn, *args)` calls `fn(*args)` with the
+    thread's writes to standard output taken and `connect` returning
+    `client` (the CLIs reach a server through it); it returns (return
+    value, output, seconds). Other threads' writes pass through."""
+
+    def __init__(self, modules):
+        import threading
+
+        self.modules = modules
+        self.local = threading.local()
+        self.stream = sys.stdout
+
+    def __enter__(self):
+        self.saved = [sys.stdout] + [m.connect for m in self.modules]
+        self.stream = sys.stdout
+        sys.stdout = self
+        for m in self.modules:
+            m.connect = lambda server, ca_cert=None, token=None: self.local.client
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.saved[0]
+        for m, connect in zip(self.modules, self.saved[1:]):
+            m.connect = connect
+
+    def write(self, text):
+        return getattr(self.local, "out", self.stream).write(text)
+
+    def flush(self):
+        getattr(self.local, "out", self.stream).flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    def run(self, client, fn, *args):
+        import io
+
+        self.local.client, self.local.out = client, io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            got = fn(*args)
+        finally:
+            out = self.local.out.getvalue()
+            del self.local.client, self.local.out
+        return got, out, time.perf_counter() - t0
+
+
+def _on_both(stacks, fn):
+    """{kp: fn(kp, stack)} for every stack at once, each on a thread of
+    its own; the first exception is raised."""
+    import threading
+
+    got, errors = {}, []
+
+    def one(kp, s):
+        try:
+            got[kp] = fn(kp, s)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=item) for item in stacks.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return {kp: got[kp] for kp in stacks}
+
+
+def _job_order(stack):
+    """The stack's job ids in the job database's within-queue order
+    (queue, priority, submitted, id), which the round schedules by: the
+    load tester's jobs are alike, so the stacks' jobs at one position
+    are scheduled alike whatever ids the submit service drew."""
+    jobs = stack.sched.jobdb.read_txn().all_jobs()
+    return [j.id for j in sorted(jobs, key=lambda j: (j.queue, j.priority,
+                                                      j.spec.submitted_ts, j.id))]
+
+
+class _Canon:
+    """One stack's CLI output in a form both stacks share: each job id as
+    its position in `_job_order` (`job#<k>`), each run id as "<run>",
+    each submit time as its batch (`t#<k>`; a job trace's clock time of
+    its submit as "<t>"), a plan's solver label as "<solver>" and a
+    round's measured duration as "<s>"; the doctor's
+    rung lines name no rung, a run of equal lines kept once (the ladders
+    differ by construction: on the card each stack has one rung, on the
+    CPU the "cuda" stack's falls back to LOCAL, the "lax" stack's
+    first)."""
+
+    def __init__(self, order, submit_times):
+        import re
+
+        self.ids = {jid: f"job#{k}" for k, jid in enumerate(order)}
+        self.times = {repr(t): f"t#{k}" for k, t in enumerate(submit_times)}
+        self._id = re.compile(r"\bjob-[0-9a-z]{26}\b")
+        self._run = re.compile(r"\brun-[0-9a-z]{26}\b")
+        self._num = re.compile(r"\b\d{10}\.\d+\b")
+        self._duration = re.compile(r"(duration: )\d+\.\d+s")
+        self._submitted = re.compile(r"^(  submitted )\d\d:\d\d:\d\d", re.M)
+        self._solver = re.compile(r"(· solver )\S+")
+        self._rung = re.compile(r"^  rung \S+:(?= )", re.M)
+        self._rungs = re.compile(r"^(  rung <rung>:[^\n]*\n)(\1)+", re.M)
+
+    def __call__(self, text):
+        text = self._id.sub(lambda m: self.ids.get(m.group(0), "<new job>"), text)
+        text = self._run.sub("<run>", text)
+        text = self._num.sub(lambda m: self.times.get(m.group(0), m.group(0)), text)
+        text = self._duration.sub(r"\1<s>", text)
+        text = self._submitted.sub(r"\1<t>", text)
+        text = self._solver.sub(r"\1<solver>", text)
+        return self._rungs.sub(r"\1", self._rung.sub("  rung <rung>:", text))
+
+
+def _client_commands(stacks, order, first, last):
+    """armadactl's commands of part (b), as argv per stack ("cuda" ids,
+    the "lax" stack's the jobs at the same positions), and the mutation
+    they make: a cancel of a job leased in the first cycle, a
+    reprioritise (to 1,000) of the head of a queue the last cycle served,
+    a cordon of executor-0 (where best fit has packed every lease) and of
+    executor-1's first node."""
+    cuda = stacks["cuda"]
+    to_lax = dict(zip(order["cuda"], order["lax"]))
+    job, _, _ = first[0]
+    j = cuda.sched.jobdb.get(job)
+    served = {cuda.sched.jobdb.get(jid).queue for jid, _, _ in last}
+    head = next(jid for jid in order["cuda"]
+                if cuda.sched.jobdb.get(jid).queue in served
+                and cuda.sched.jobdb.get(jid).state.value == "queued")
+    h = cuda.sched.jobdb.get(head)
+    node = sorted(n.id for n in stacks["cuda"].executors[1].nodes)[0]
+    mutation = {"cancel": job, "reprioritize": head, "node": node,
+                "executor": "executor-0"}
+    common = [
+        ["queue", "create", "ops", "--priority-factor", "2"],
+        ["queue", "get", "load-000"],
+        ["queue", "list"],
+        ["jobs", "--queue", "load-001"],
+        ["report", "scheduling"],
+        ["report", "queue", "load-000"],
+        ["report", "job", "{job}"],
+        ["fairness"],
+        ["fairness", "--json"],
+        ["doctor"],
+        ["slo"],
+        ["job-trace", "{job}"],
+        ["whatif", "--inject-gang", "ops:8", "--rounds", str(CLIENT_WHATIF_ROUNDS)],
+        # Deadline 0: every run preempted at once, so the rollout's horizon
+        # is the requested rounds and one more (the config's 600 s
+        # deadline adds 61 rounds at 10 s apart).
+        ["drain", "executor-0", "--dry-run", "--deadline-s", "0", "--rounds",
+         str(CLIENT_WHATIF_ROUNDS)],
+        ["cancel", "--queue", j.queue, "--jobset", j.jobset, "--job-id", "{job}"],
+        ["reprioritize", "--queue", h.queue, "--jobset", h.jobset, "--job-id", "{head}",
+         "--priority", "1000"],
+        ["node", "cordon", node],
+        ["executor", "cordon", "executor-0"],
+    ]
+    argv = {}
+    for kp in stacks:
+        ids = {"job": job, "head": head} if kp == "cuda" else \
+            {"job": to_lax[job], "head": to_lax[head]}
+        argv[kp] = [[a.format(**ids) for a in cmd] for cmd in common]
+    return argv, mutation
+
+
+def _armadactl(runner, stack, argv):
+    """armadactl's `main(argv)` on `stack` through `runner` (a
+    `_Commands`): its output, and its seconds, output rows and the
+    encoded bytes of the replies it read."""
+    from armada_tpu_torch.clients import cli
+
+    wire = stack.client.wire
+    before = {m: len(v) for m, v in wire.reply_bytes.items()}
+    _, out, sec = runner.run(stack.client, cli.main, ["--server", "loopback"] + argv)
+    replies = sum(sum(v[before.get(m, 0):]) for m, v in wire.reply_bytes.items())
+    return out, {"seconds": sec, "rows": len(out.splitlines()), "reply_bytes": replies}
+
+
+def _run_clients(n_jobs, n_nodes, device, launches):
+    """Part (b) of phase 18: two stacks, "cuda" and "lax", fed `n_jobs`
+    jobs by the port's load tester; armadactl's commands on both, equal
+    once ids are mapped; the mutations shown by the next cycle; then
+    broadside's in-process and SQLite backends."""
+    from armada_tpu_torch.clients import cli, load_tester
+    from armada_tpu_torch.clients.broadside import BroadsideConfig, Runner
+    from armada_tpu_torch.events import JobRunLeased
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.workload import scheduling_config
+
+    cfg = scheduling_config(n_running=0, fast_fill=True, fill_window=2048)
+    executors = [{"name": f"executor-{k}", "nodes": n_nodes // 2, "cpu": "32",
+                  "memory": "256Gi", "runtime": 3600.0} for k in range(2)]
+    stacks, rec = {}, {}
+    try:
+        for kp in ("cuda", "lax"):
+            stacks[kp] = ClientStack(cfg, kp, executors, device=device, whatif=True)
+        # One stack after the other: the submit path is host Python, and two
+        # at once take about twice as long each (PERF.md, phase 18).
+        with _Commands((load_tester,)) as commands:
+            load = {kp: commands.run(s.client, load_tester.main, [
+                "--server", "loopback", "--queues", str(CLIENT_QUEUES), "--jobs", str(n_jobs),
+                "--batch", str(CLIENT_BATCH), "--cpu", CLIENT_CPU, "--memory", CLIENT_MEMORY])
+                for kp, s in stacks.items()}
+        for kp, (rc, out, sec) in load.items():
+            if rc != 0 or len(stacks[kp].client.submitted) != n_jobs:
+                raise AssertionError(f"clients {kp}: the load tester gave {rc}, "
+                                     f"{len(stacks[kp].client.submitted)} jobs")
+            load[kp] = {**json.loads(out.strip().splitlines()[-1]), "seconds": sec}
+        rec["load_tester"] = load
+
+        # Virtual cycle times from the next whole second after the last
+        # submit: no job is submitted after its first cycle.
+        t_start = float(int(time.time())) + 1.0
+        cycles, leased, order = [], [], {}
+
+        def cycle(c):
+            out, crec = {}, {"cycle": c}
+            for kp, s in stacks.items():
+                K.reset_launches()
+                t1 = time.perf_counter()
+                seqs = s.cycle(t_start + 10.0 * c)
+                cycle_s = time.perf_counter() - t1
+                got = take_launches(launches, f"clients {kp} cycle {c}") if kp == "cuda" else \
+                    dict(K.LAUNCHES)
+                if kp == "lax" and any(got[k] for k in K.KERNELS):
+                    raise AssertionError(f"clients: the lax cycle {c} launched {got}")
+                st = s.sched.last_cycle_stats
+                if st["failover"] is not None:
+                    raise AssertionError(f"clients {kp} cycle {c}: failover {st['failover']}")
+                if not order.get(kp):
+                    order[kp] = _job_order(s)
+                out[kp] = sorted((e.job_id, e.executor, e.node_id) for seq in seqs
+                                 for e in seq.events if isinstance(e, JobRunLeased))
+                if not out[kp]:
+                    raise AssertionError(f"clients {kp} cycle {c}: nothing leased")
+                crec[kp] = {"cycle_s": cycle_s, "leased": len(out[kp]), "rung": st["rung"],
+                            "launches": {k: got[k] for k in K.KERNELS}}
+            to_cuda = dict(zip(order["lax"], order["cuda"]))
+            if out["cuda"] != sorted((to_cuda[j], e, n) for j, e, n in out["lax"]):
+                raise AssertionError(f"clients cycle {c}: the cuda and lax stacks leased "
+                                     "differently")
+            cycles.append(crec)
+            leased.append(out["cuda"])
+
+        cycle(0)
+        cycle(1)
+        argv, mutation = _client_commands(stacks, order, leased[0], leased[-1])
+        canon = {}
+        for kp, s in stacks.items():
+            times = sorted({s.sched.jobdb.get(j).spec.submitted_ts for j in order[kp]})
+            canon[kp] = _Canon(order[kp], times)
+        commands, outputs, raw = [], {kp: [] for kp in stacks}, []
+        for k in range(len(argv["cuda"])):
+            with _Commands((cli,)) as runner:
+                got = _on_both(stacks, lambda kp, s: _armadactl(runner, s, argv[kp][k]))
+            crec = {"argv": argv["cuda"][k], **{kp: got[kp][1] for kp in stacks}}
+            for kp in stacks:
+                outputs[kp].append(canon[kp](got[kp][0]))
+            raw.append(got["cuda"][0])
+            if outputs["cuda"][-1] != outputs["lax"][-1]:
+                raise AssertionError(f"clients: armadactl {' '.join(argv['cuda'][k][:2])} "
+                                     "printed differently on the cuda and lax stacks:\n"
+                                     f"{outputs['cuda'][-1][:2000]}\n---\n"
+                                     f"{outputs['lax'][-1][:2000]}")
+            commands.append(crec)
+        jobs_rows = json.loads(raw[3])
+        if jobs_rows["total"] <= 0 or len(jobs_rows["jobs"]) != min(100, jobs_rows["total"]):
+            raise AssertionError(f"clients: jobs --queue gave {jobs_rows['total']} rows: "
+                                 f"{raw[3][:300]}")
+
+        # The mutations show in the next cycle.
+        cycle(2)
+        to_lax = dict(zip(order["cuda"], order["lax"]))
+        for kp, s in stacks.items():
+            ids = mutation if kp == "cuda" else {
+                **mutation, "cancel": to_lax[mutation["cancel"]],
+                "reprioritize": to_lax[mutation["reprioritize"]]}
+            jc, jr = s.sched.jobdb.get(ids["cancel"]), s.sched.jobdb.get(ids["reprioritize"])
+            if (jc.state.value, jr.priority) != ("cancelled", 1000):
+                raise AssertionError(f"clients {kp}: the cancel and reprioritise did not show: "
+                                     f"{jc.state} {jr.priority}")
+            if "executor-0" not in s.sched.cordoned_executors:
+                raise AssertionError(f"clients {kp}: executor-0 is not cordoned")
+            node = next(n for n in s.executors[1].nodes if n.id == mutation["node"])
+            if not node.unschedulable:
+                raise AssertionError(f"clients {kp}: {mutation['node']} is not cordoned")
+        last = leased[-1]
+        if mutation["reprioritize"] in {j for j, _, _ in last} or \
+                any(e != "executor-1" or n == mutation["node"] for _, e, n in last):
+            raise AssertionError("clients: the cycle after the mutations leased "
+                                 f"{sorted({(e, n) for _, e, n in last})[:5]}")
+        mutation["next_cycle_leased"] = len(last)
+        rec.update({"cycles": cycles, "commands": commands, "mutation": mutation,
+                    "plans": {kp: plan_costs(s.whatif.plan_stats) for kp, s in stacks.items()}})
+    finally:
+        for s in stacks.values():
+            s.close()
+
+    broadside = {}
+    for backend in ("inproc", "sqlite"):
+        t0 = time.perf_counter()
+        report = Runner(BroadsideConfig(
+            backend=backend, duration_s=BROADSIDE_S, seed_jobs=n_jobs, batch=CLIENT_BATCH,
+            progress_every_s=3600.0)).run()
+        sec = time.perf_counter() - t0
+        errors = {op: report[op]["errors"] for op in ("ingest", "get_jobs", "group_jobs",
+                                                      "job_details")}
+        if any(errors.values()) or not report["ingest"]["ops"] or not report["get_jobs"]["ops"]:
+            raise AssertionError(f"clients: broadside {backend} gave {report}")
+        broadside[backend] = {**report, "seconds": sec}
+    rec["broadside"] = broadside
+    return rec
+
+
+def phase_clients(n_jobs=100_000, n_nodes=5000, device=None):
+    """The clients, the CLIs and the testsuite on the card (phase 18):
+    part (a), `_run_testsuite`; part (b), `_run_clients`. Prints per
+    testsuite spec its seconds, the load tester's report, per cycle and
+    stack the cycle's seconds and leases, per armadactl command its
+    seconds, output rows and reply bytes on each stack, and broadside's
+    reports."""
+    from armada_tpu_torch.ops import kernels as K
+
+    launches = {name: 0 for name in K.KERNELS}
+    t0 = time.perf_counter()
+    testsuite = _run_testsuite(device, launches)
+    testsuite["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clients = _run_clients(n_jobs, n_nodes, device, launches)
+    clients["seconds"] = time.perf_counter() - t0
+    return {"testsuite": testsuite, **clients, "launches": launches}
+
+
 def _round_100k():
     """Phase 4: round_100k on "cuda" and "lax", bit-equal."""
     res, outs, _ = run_round(100_000, 5000, ("cuda", "lax"))
@@ -3610,14 +4210,15 @@ def _lookout():
 
 
 # The phases that need nothing of the others, in two processes of their
-# own beside the first: phases 10, 12, 13 and 16; phases 4, 11, 14 and 15.
+# own beside the first: phases 10, 12, 13 and 16; phases 4, 11, 14, 15
+# and 18.
 SIDE_PHASES = {
     "market": phase_market, "service": phase_service, "observatory": _observatory,
     "lookout": _lookout, "round": _round_100k, "warm": phase_warm,
-    "autotune_whatif": _autotune_whatif, "persistence": _persistence,
+    "autotune_whatif": _autotune_whatif, "persistence": _persistence, "clients": phase_clients,
 }
 SIDES = (("market", "service", "observatory", "lookout"),
-         ("round", "warm", "autotune_whatif", "persistence"))
+         ("round", "warm", "autotune_whatif", "persistence", "clients"))
 SIDE_TIMEOUT_S = 1000.0
 
 
@@ -3680,8 +4281,8 @@ class SidePhases:
 
 def main_phases(timing, sides):
     """Phases 5 to 7, 9 and 17 in this process while `sides` run 10, 12,
-    13 and 16, and 4, 11, 14 and 15, then phase 8 alone; returns their
-    records and the sides' merged."""
+    13 and 16, and 4, 11, 14, 15 and 18, then phase 8 alone; returns
+    their records and the sides' merged."""
     t0 = time.time()
     flag, flag_outs, dev_flag = run_round(1_000_000, 50_000, ("cuda",))
     emit({"phase": "flagship", **flag, "seconds": time.time() - t0})
@@ -3815,9 +4416,9 @@ def main() -> int:
         finally:
             for side in sides:
                 side.stop()
-    res, warm, market, service, observatory, autotune_whatif, persistence, lookout = (
+    res, warm, market, service, observatory, autotune_whatif, persistence, lookout, clients = (
         side_rec[k] for k in ("round", "warm", "market", "service", "observatory",
-                              "autotune_whatif", "persistence", "lookout"))
+                              "autotune_whatif", "persistence", "lookout", "clients"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
           **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
     # Phase 17's cycles beside phase 12's service_100k, the same jobs and
@@ -3881,6 +4482,7 @@ def main() -> int:
             "launches_persistence": int(persistence["launches"][name]),
             "launches_lookout": int(lookout["launches"][name]),
             "launches_wire": int(wire["launches"][name]),
+            "launches_clients": int(clients["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -594,6 +594,21 @@ def test_recorded_rounds_replay_on_card(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_fixed_sum_on_card_equals_cpu(cuda_device):
+    """ROADMAP C4: the water-fill's sums (`_fixed_sum`, elementwise adds
+    in one pairwise order) give the same bits on the card as on the CPU,
+    along either axis, for Q from 1 to 64."""
+    from armada_tpu_torch.solver.kernel import _fixed_sum
+
+    for q in range(1, 65):
+        rng = np.random.default_rng(q)
+        x = torch.as_tensor(rng.random((q, 3)) * 10.0 ** rng.integers(-6, 3, size=(q, 3)))
+        for dim in (0, 1):
+            card = _fixed_sum(x.to(cuda_device), dim).cpu().numpy()
+            assert card.tobytes() == _fixed_sum(x, dim).numpy().tobytes(), (q, dim)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = _port_args(_score_inputs(np.random.default_rng(13), 256), device="cuda")
     with pytest.raises(TypeError):

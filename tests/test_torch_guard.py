@@ -20,7 +20,12 @@ decide, the Lookout views and the event index follow a service's log on
 background tasks behind the Lookout HTTP server, and the fairness report
 and the Perfetto converter read a recorded bundle, and jobs go in by REST
 through a ChaosProxy to a kernel stack whose executor agent leases
-through chip_smoke.py's loopback (the method table over the JSON codec).
+through chip_smoke.py's loopback (the method table over the JSON codec),
+and the load tester, armadactl and the testsuite runner drive a kernel
+stack through its LoopbackClient (ApiClient's methods over that
+loopback), the simulator runs from the dict halves of its CLI's loaders
+and broadside's in-process backend ingests a batch. A package's
+`__main__` is found, not run.
 prometheus_client is blocked too: the metrics stay optional (no
 registry, an empty rendering); so are grpc, google.protobuf and
 cryptography, which the card's machine lacks (auth.py imports
@@ -68,6 +73,10 @@ _GUARD = textwrap.dedent(
         armada_tpu_torch.__path__, "armada_tpu_torch.")]
     names = sorted(set(names) | set(PROTOBUF))
     for name in names:
+        if name.endswith(".__main__"):
+            # A package's command line (`python -m`): found, not run.
+            assert importlib.util.find_spec(name) is not None, name
+            continue
         if name in PROTOBUF:
             try:
                 importlib.import_module(name)
@@ -372,6 +381,59 @@ _GUARD = textwrap.dedent(
         assert stack.proxy.bytes_forwarded > 0
     finally:
         stack.close()
+    # The clients, the CLIs and the testsuite, as chip_smoke.py's phase 18
+    # drives them on the card: the load tester and armadactl over its
+    # LoopbackClient, a testsuite spec from its dict on the stack's own
+    # loop, the simulator from dicts, broadside's in-process backend.
+    for name in ("clients.aio", "clients.cli", "clients.broadside", "clients.load_tester",
+                 "sim.cli", "testsuite.runner", "testsuite.__main__", "tools.policy_ab",
+                 "tools.gen_metrics_doc", "tools.gen_known_gaps"):
+        assert "armada_tpu_torch." + name in names
+    from armada_tpu_torch.clients import cli, load_tester
+    from armada_tpu_torch.clients.broadside import BroadsideConfig, InprocBackend
+    from armada_tpu_torch.sim.cli import cluster_from_dict, workload_from_dict
+    from armada_tpu_torch.testsuite import TestSpec, TestSuiteRunner
+
+    cstack = smoke.ClientStack(SchedulingConfig(), "cuda", [{
+        "name": "ex", "nodes": 2, "cpu": "8", "memory": "32Gi", "runtime": 0.5}], device="cpu")
+    try:
+        with smoke._Commands((cli, load_tester)) as commands:
+            assert commands.run(cstack.client, load_tester.main, [
+                "--jobs", "4", "--batch", "2", "--queues", "1"])[0] == 0
+            cstack.cycle(0.0)
+            out = commands.run(cstack.client, cli.main, ["jobs", "--queue", "load-000"])[1]
+            # A handler's error reaches armadactl's error handler, which
+            # raises it as it is where grpc was never imported.
+            try:
+                commands.run(cstack.client, cli.main, ["queue", "get", "no-such-queue"])
+            except KeyError:
+                pass
+            else:
+                raise AssertionError("armadactl printed an unknown queue")
+        assert json.loads(out)["total"] == 4
+        cstack.start(0.02)
+        res = TestSuiteRunner(cstack.client).run(TestSpec.from_dict({
+            "name": "one", "timeout": 30, "queue": "g", "jobs": [
+                {"count": 1, "requests": {"cpu": "1", "memory": "1Gi"}}],
+            "expectedEvents": ["JobRunLeased", "JobSucceeded"]}))
+        assert res.passed, res.reason
+    finally:
+        cstack.close()
+    assert not cstack.errors, cstack.errors
+    result = Simulator(
+        [cluster_from_dict({"name": "c", "nodeTemplates": [{"count": 2, "cpu": "8"}]})],
+        workload_from_dict({"queues": [{"name": "q", "jobTemplates": [
+            {"number": 4, "cpu": "1", "runtimeMinimum": 10}]}]}),
+        device="cpu").run()
+    assert result.finished_jobs == 4
+    backend = InprocBackend()
+    try:
+        backend.submit_batch("q", "s", 20, BroadsideConfig())
+        while backend.lag_events() > 0:
+            pass
+        assert sum(g["count"] for g in backend.group_jobs("q")) == 20
+    finally:
+        backend.teardown()
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))

@@ -8,10 +8,10 @@ every scheduler service are equal.
   (services/queryapi.py), the HTTP surface and UI
   (services/lookout_http.py, lookout_ui.py), the UI's mutations and its
   log fetch through binoculars (services/binoculars.py);
-- tests/test_lookout_sqlite.py, 3 of its 4 cases: the SQLite view
+- tests/test_lookout_sqlite.py, all 4 cases: the SQLite view
   (services/lookout_sqlite.py) against the in-memory one, restart
-  without replay, the pruner (the fourth needs the broadside load
-  tester, a client the port has not written);
+  without replay, the pruner, and the broadside load bench's SQLite
+  backend (clients/broadside.py);
 - tests/test_categorizer.py, both cases: the error categoriser, into the
   job database and the query API;
 - tests/test_ingest_pipeline.py's event-index cases: the per-jobset
@@ -43,7 +43,8 @@ def _all(name):
 CASES = (
     _all("test_lookout")
     + [("test_lookout_sqlite", t) for t in (
-        "test_differential_vs_in_memory", "test_restart_without_replay", "test_pruner")]
+        "test_differential_vs_in_memory", "test_restart_without_replay", "test_pruner",
+        "test_broadside_sqlite_backend_smoke")]
     + _all("test_categorizer")
     + [("test_ingest_pipeline", t) for t in (
         "test_event_index_partitions_streams", "test_event_index_idempotent_replay",
@@ -59,8 +60,7 @@ def test_case_list_is_whole():
     """Every case of the reference's Lookout files is here but the ones
     the module docstring names as waiting for the server or a client."""
     assert len(_all("test_lookout")) == 11 and len(_all("test_categorizer")) == 2
-    waiting = {("test_lookout_sqlite", "test_broadside_sqlite_backend_smoke"),
-               ("test_ingest_pipeline", "test_watch_uses_index_end_to_end")}
+    waiting = {("test_ingest_pipeline", "test_watch_uses_index_end_to_end")}
     for name in ("test_lookout_sqlite",):
         assert set(_all(name)) - set(CASES) == {c for c in waiting if c[0] == name}
     index = {c for c in _all("test_ingest_pipeline") if "index" in c[1]}

@@ -187,3 +187,36 @@ def test_fill_sort_follows_stable_sort_where_reference_top_b_drops_nodes():
         )
         got = port_kernel.solve_round(port_dev, device="cpu")
         _assert_same(f"top-b/{port_dev.kernel_path}", got, want)
+
+
+def _pairwise_numpy(x):
+    """The fixed-order sum of `_fixed_sum` in numpy float64 scalars:
+    adjacent pairs level by level, an odd last entry carried up."""
+    level = [np.float64(v) for v in x]
+    while len(level) > 1:
+        nxt = [level[i] + level[i + 1] for i in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
+
+
+@pytest.mark.parametrize("q", range(1, 65))
+def test_fixed_sum_is_the_pairwise_sum_bit_for_bit(q):
+    """The water-fill's sums (`_fixed_sum`, ROADMAP C4) are the pairwise
+    sum in one fixed order: bit for bit numpy's in that order, along
+    either axis of a [Q, R] table, over weights of mixed magnitudes
+    (queue weights, capped shares, spares) and exact zeros."""
+    import torch
+
+    rng = np.random.default_rng(q)
+    x = rng.random(q) * 10.0 ** rng.integers(-6, 3, size=q)
+    x[rng.random(q) < 0.25] = 0.0
+    got = port_kernel._fixed_sum(torch.as_tensor(x))
+    assert got.dtype == torch.float64 and got.shape == ()
+    assert got.numpy().tobytes() == _pairwise_numpy(x).tobytes()
+    table = rng.random((q, 3)) * 1e3
+    by_rows = port_kernel._fixed_sum(torch.as_tensor(table), dim=1).numpy()
+    assert by_rows.tobytes() == np.array([_pairwise_numpy(r) for r in table]).tobytes()
+    by_cols = port_kernel._fixed_sum(torch.as_tensor(table), dim=0).numpy()
+    assert by_cols.tobytes() == np.array([_pairwise_numpy(c) for c in table.T]).tobytes()

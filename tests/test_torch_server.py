@@ -22,11 +22,12 @@ cases that need a gRPC or REST server or the executor agent:
   test_chaos.py::test_lease_breaker_on_server_lease_path,
   test_ingest_pipeline.py::test_watch_uses_index_end_to_end and
   test_metrics_liveness.py::test_frontdoor_families_live_after_short_soak;
-- tests/test_job_journey.py and tests/test_retry_and_cordon.py, all but
-  their cases that drive clients/cli.py (ROADMAP A4): the job timeline,
-  one trace id from a gRPC submit through the lease to an agent's
-  reports, the JobTrace RPC and Lookout's /api/jobtrace; retry node
-  anti-affinity and cordoned queues, round and end to end.
+- tests/test_job_journey.py and tests/test_retry_and_cordon.py, all
+  their cases: the job timeline, one trace id from a gRPC submit through
+  the lease to an agent's reports, the JobTrace RPC, Lookout's
+  /api/jobtrace and `armadactl job-trace`; retry node anti-affinity and
+  cordoned queues, round and end to end; `armadactl node` and
+  `executor` cordons through a started plane.
 The leases after every cycle are compared but where a case's control
 plane cycles on the wall clock in a thread of its own (a started
 ControlPlane) or the submit service draws its jobs' ids at random.
@@ -71,11 +72,15 @@ CASES = (
         ("test_one_trace_id_spans_submit_to_lease_over_grpc", False),
         ("test_job_trace_query_and_lookout_http", False),
         ("test_job_trace_unknown_job_is_not_found", False),
+        ("test_job_trace_cli_renders_multiround_history", False),
         ("test_round_report_top_reasons_match_job_reason_map", True))]
     + [("test_retry_and_cordon", t, True) for t in (
         "test_excluded_nodes_respected", "test_all_nodes_excluded_blocks",
         "test_cordoned_queue_blocks_new_jobs", "test_e2e_failed_node_retry_avoids_node",
         "test_e2e_cordoned_queue")]
+    + [("test_retry_and_cordon", t, False) for t in (
+        "test_cli_node_cordon_respected_by_next_round",
+        "test_cli_executor_cordon_event_log_round_trip")]
 )
 # The job timeline counts a job's unschedulable rounds from the host
 # oracle's per-job reasons; a kernel round records none, in either package
@@ -85,12 +90,8 @@ CASES = (
 STUCK = ((r'(ControlPlane\(\n\s+SchedulingConfig\(\),\n)(\s+)(cycle_period=0\.05,\n\s+'
           r'fake_executors=\[\{"name": "small")', r'\1\2backend="oracle",\n\2\3'),)
 PORT_SUBS = {("test_job_journey", t): STUCK for t in (
-    "test_job_trace_query_and_lookout_http", "test_job_trace_unknown_job_is_not_found")}
-# Cases of these files that drive clients/cli.py, which the port has not
-# written (ROADMAP A4).
-WAITING = {("test_job_journey", "test_job_trace_cli_renders_multiround_history"),
-           ("test_retry_and_cordon", "test_cli_node_cordon_respected_by_next_round"),
-           ("test_retry_and_cordon", "test_cli_executor_cordon_event_log_round_trip")}
+    "test_job_trace_query_and_lookout_http", "test_job_trace_unknown_job_is_not_found",
+    "test_job_trace_cli_renders_multiround_history")}
 # tests/test_frontdoor.py's cases over its module-scoped overloaded plane,
 # in the reference's order (later ones use the queues and sheds of
 # earlier ones).
@@ -106,13 +107,13 @@ FRONTDOOR = (
 
 def test_case_list_is_whole():
     """The reference's cases that take the server fixture of their file,
-    or a ControlPlane, are all here (but the ones ROADMAP A4 holds)."""
+    or a ControlPlane, are all here."""
     import inspect
 
     for name in ("test_executor_runtime", "test_job_journey", "test_retry_and_cordon"):
         ref = importlib.import_module(name)
         assert {t for t in vars(ref) if t.startswith("test_")} == {
-            t for n, t, _ in CASES if n == name} | {t for n, t in WAITING if n == name}
+            t for n, t, _ in CASES if n == name}
     checkpoint = importlib.import_module("test_checkpoint")
     assert {t for t in vars(checkpoint) if t.startswith("test_")
             and "_plane(" in inspect.getsource(getattr(checkpoint, t))} == {
@@ -132,9 +133,10 @@ def _param(name, test, cycles):
 
 
 @pytest.mark.parametrize("name,test,cycles", [_param(*c) for c in CASES])
-def test_server_case_matches_reference(name, test, cycles, monkeypatch, tmp_path):
+def test_server_case_matches_reference(name, test, cycles, monkeypatch, tmp_path, capsys):
     run_side_by_side(name, test, monkeypatch, tmp_path, cycles=cycles,
-                     port_subs=PORT_SUBS.get((name, test), ()))
+                     port_subs=PORT_SUBS.get((name, test), ()),
+                     given=({"capsys": capsys}, {"capsys": capsys}))
 
 
 @pytest.fixture(scope="module")

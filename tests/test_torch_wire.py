@@ -6,8 +6,8 @@ ControlPlane) against the JAX package's, on the CPU.
 
 Port copies, side by side (`torch_control_plane.run_side_by_side`), each
 case's own assertions holding on both packages:
-- tests/test_api.py, 15 of its 16 cases (`test_cli_against_server`
-  drives clients/cli.py, which the port has not written);
+- tests/test_api.py, all 16 cases (`test_cli_against_server` with the
+  port's armadactl);
 - tests/test_proto.py, its cases but `test_codegen_bindings_current`
   (the JAX package's Java and C# bindings; the port needs the Python
   ones, held below);
@@ -54,12 +54,13 @@ UNCOMPARED = {
                  "test_binoculars_logs_and_cordon", "test_priority_override",
                  "test_lookout_http", "test_remote_executor_agent",
                  "test_executor_agent_restart_reconciliation",
-                 "test_cordon_executor_over_grpc", "test_whatif_rpcs_both_wires"},
+                 "test_cordon_executor_over_grpc", "test_whatif_rpcs_both_wires",
+                 "test_cli_against_server"},
     "test_proto": {"test_proto_service_shares_the_method_table", "test_proto_watch_stream",
                    "test_proto_submit_affinity_and_zero_priority"},
     "test_executor_proto_wire": {"test_proto_executor_lifecycle"},
 }
-WAITING = {("test_api", "test_cli_against_server"), ("test_proto", "test_codegen_bindings_current")}
+WAITING = {("test_proto", "test_codegen_bindings_current")}
 
 
 def _cases():
@@ -75,16 +76,17 @@ CASES = _cases()
 
 
 def test_case_list_is_whole():
-    assert len([c for c in CASES if c[0] == "test_api"]) == 15
+    assert len([c for c in CASES if c[0] == "test_api"]) == 16
     assert len([c for c in CASES if c[0] == "test_proto"]) == 5
     for name, tests in UNCOMPARED.items():
         assert tests <= {t for n, t in CASES if n == name}
 
 
 @pytest.mark.parametrize("name,test", CASES, ids=[f"{n}::{t}" for n, t in CASES])
-def test_wire_case_matches_reference(name, test, monkeypatch, tmp_path):
+def test_wire_case_matches_reference(name, test, monkeypatch, tmp_path, capsys):
     run_side_by_side(name, test, monkeypatch, tmp_path,
-                     cycles=test not in UNCOMPARED.get(name, ()))
+                     cycles=test not in UNCOMPARED.get(name, ()),
+                     given=({"capsys": capsys}, {"capsys": capsys}))
 
 
 # ---- proto bindings and converters ----
