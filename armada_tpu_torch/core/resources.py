@@ -23,8 +23,10 @@ from fractions import Fraction
 
 import numpy as np
 
-# Quantities are parsed by the exact-Fraction path only; the JAX package's
-# optional C++ parser gives the same integers and is not carried over.
+# A batch of request shapes is parsed by the port's C++ parser
+# (csrc/quantity.cpp, built at first use by ops/kernels.py
+# `load_quantity`), which gives the exact Fraction path's integers;
+# `parse_quantity` and `from_map` are the Fraction path.
 
 # Binary and decimal suffixes accepted by Kubernetes resource quantities.
 _BINARY = {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50, "Ei": 2**60}
@@ -179,9 +181,10 @@ class ResourceListFactory:
         """Encode a batch of {name: quantity} dicts into int64[J, R].
 
         Distinct request shapes are parsed once (real workloads submit
-        thousands of identical specs), via the native C++ parser when built
-        (~100x the Fraction path; bit-identical exact int128 arithmetic,
-        fuzz-tested), else the Fraction path.
+        thousands of identical specs), by the compiled parser
+        (csrc/quantity.cpp: exact int128 arithmetic, the Fraction path's
+        integers; built at first use, and a failed build raises). The
+        Fraction path is `from_map`, one request at a time.
         """
         J = len(requests)
         R = self.num_resources
@@ -238,6 +241,20 @@ class ResourceListFactory:
 
     def _encode_unique(self, requests: list, *, ceil: bool) -> np.ndarray:
         U = len(requests)
+        if U:
+            from ..ops.kernels import load_quantity
+
+            parser = load_quantity()
+            try:
+                raw = parser.encode_requests(
+                    list(requests), list(self.names), list(self.scales), ceil
+                )
+                return np.frombuffer(raw, dtype=np.int64).reshape(U, self.num_resources).copy()
+            except (ValueError, TypeError):
+                # The Fraction path accepts a slightly wider grammar (e.g.
+                # Fraction instances, "1e3Ki"): such a batch takes it, so the
+                # grammar is the Fraction path's whichever parser runs.
+                pass
         out = np.zeros((U, self.num_resources), dtype=np.int64)
         for j, req in enumerate(requests):
             out[j] = self.from_map(req, ceil=ceil)

@@ -55,11 +55,21 @@ Build: each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its
 own shared library with a plain C interface, loaded with ctypes, at first
 use (or all at once, in parallel, by `build_all`). Libraries land under
 `build/kernels/` at the repository root, named by a hash of their source,
-so an edited source is rebuilt and a stale library is never loaded.
+so an edited source is rebuilt and a stale library is never loaded. A
+build writes under a name of its own process and renames the library
+into place, so processes that build at once never load a partial file.
+
+The same builder makes one piece of host code, not a kernel:
+`csrc/quantity.cpp`, the exact quantity parser of the snapshot's
+resource encoding (core/resources.py), a CPython extension compiled by
+the host C++ compiler against this interpreter's headers and loaded by
+`load_quantity` at first use (and by `build_all`). A failed build or load
+raises with the compiler's message.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -69,6 +79,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 
@@ -140,23 +151,62 @@ def _nvcc() -> str:
     return found
 
 
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler found (set CXX or put c++ on PATH)")
+    return found
+
+
+@dataclasses.dataclass(frozen=True)
+class _Target:
+    """One library the builder makes from csrc/: its source file, the
+    compiler that builds it, its flags, and its file name's stem and
+    suffix. `kernel` says whether it is a CUDA kernel, which counts in
+    the compile telemetry."""
+
+    source: str
+    compiler: object
+    flags: tuple
+    stem: str
+    suffix: str
+    kernel: bool
+
+
+QUANTITY = "quantity"
+# The host parser's flags name this interpreter's headers and its file
+# suffix the extension ABI, so its hash names the Python it was built for.
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC",
+             f"-I{sysconfig.get_paths()['include']}")
+TARGETS = {
+    **{name: _Target(f"{name}.cu", _nvcc, NVCC_FLAGS, f"lib{name}", ".so", True)
+       for name in KERNELS},
+    QUANTITY: _Target("quantity.cpp", _cxx, CXX_FLAGS, "_armada_quantity",
+                      sysconfig.get_config_var("EXT_SUFFIX") or ".so", False),
+}
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    t = TARGETS[name]
+    src = (CSRC / t.source).read_bytes()
+    tag = hashlib.sha256(src + " ".join(t.flags + (t.suffix,)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{t.stem}-{tag}{t.suffix}"
 
 
 def _start_build(name: str):
-    """Start nvcc for one kernel unless its library is already built;
-    returns (process, tmp path, final path) or None."""
+    """Start the compiler for one library unless it is already built;
+    returns (process, tmp path, final path, start time) or None."""
+    t = TARGETS[name]
     out = _lib_path(name)
     if out.exists():
-        TELEMETRY.note_cache(hit=True)
+        if t.kernel:
+            TELEMETRY.note_cache(hit=True)
         return None
-    TELEMETRY.note_cache(hit=False)
+    if t.kernel:
+        TELEMETRY.note_cache(hit=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [t.compiler(), *t.flags, "-o", str(tmp), str(CSRC / t.source)]
     started = time.monotonic()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -170,18 +220,44 @@ def _finish_build(name: str, job) -> None:
     proc, tmp, out, started = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(tmp)
+        raise RuntimeError(f"{proc.args[0]} failed for {TARGETS[name].source}:\n{log}")
     os.replace(tmp, out)
-    TELEMETRY.note_compile(time.monotonic() - started)
+    if TARGETS[name].kernel:
+        TELEMETRY.note_compile(time.monotonic() - started)
 
 
 def build_all() -> dict:
-    """Build every kernel library, one nvcc per source, all started
-    together. Returns {name: library path}."""
-    jobs = {name: _start_build(name) for name in KERNELS}
+    """Build every kernel library and the host parser, one compiler per
+    source, all started together. Returns {name: library path}."""
+    jobs = {name: _start_build(name) for name in TARGETS}
     for name, job in jobs.items():
         _finish_build(name, job)
-    return {name: str(_lib_path(name)) for name in KERNELS}
+    return {name: str(_lib_path(name)) for name in TARGETS}
+
+
+def load_quantity():
+    """The host quantity parser (`csrc/quantity.cpp`, module
+    `_armada_quantity`), built and loaded at first use. Raises if it does
+    not build or load."""
+    module = _libs.get(QUANTITY)
+    if module is None:
+        with _BUILD_LOCK:
+            module = _libs.get(QUANTITY)
+            if module is None:
+                import importlib.machinery
+                import importlib.util
+
+                _finish_build(QUANTITY, _start_build(QUANTITY))
+                path = str(_lib_path(QUANTITY))
+                loader = importlib.machinery.ExtensionFileLoader("_armada_quantity", path)
+                spec = importlib.util.spec_from_file_location("_armada_quantity", path,
+                                                              loader=loader)
+                module = importlib.util.module_from_spec(spec)
+                loader.exec_module(module)
+                _libs[QUANTITY] = module
+    return module
 
 
 # csrc/score_nodes.cu struct ScorePlan: the same fields in the same order

@@ -234,63 +234,72 @@ def _policy_cost(rd, alloc):
 
 
 def _fixed_sum(x, dim=-1):
-    """The float sum of `x` along `dim` in one fixed order on any device:
-    pairwise, adjacent entries first, an odd last entry carried to the
-    next level, every level an elementwise add. Elementwise float64 adds
-    round the same on the card and the CPU, where `torch.sum` pairs as
-    each device's reduction does, so a share summed here has the same
-    bits on both (a bundle recorded on the card replays on the CPU)."""
-    x = x.movedim(dim, -1)
-    if x.shape[-1] == 0:
-        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    while x.shape[-1] > 1:
-        n = x.shape[-1]
-        pairs = x[..., 0:n - 1:2] + x[..., 1:n:2]
-        x = torch.cat([pairs, x[..., n - 1:]], dim=-1) if n % 2 else pairs
-    return x[..., 0]
+    """The float sum of `x` along `dim` in index order, one elementwise
+    add per entry from the first: the order of the JAX package's sums on
+    the CPU over the short axes it sums here (XLA:CPU adds up to 32
+    float64 entries one after another), and of the host oracle's
+    (solver/drf.py `update_fair_shares`). `x` is a tensor, on the card
+    or the CPU, whose elementwise adds round the same on both, where
+    `torch.sum` pairs as each device's reduction does (a bundle recorded
+    on the card replays on the CPU); or a host array, which the
+    water-fill's loop sums in numpy float64."""
+    if isinstance(x, torch.Tensor):
+        x = x.movedim(dim, -1)
+        if x.shape[-1] == 0:
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    else:
+        x = np.moveaxis(np.asarray(x, dtype=np.float64), dim, -1)
+        if x.shape[-1] == 0:
+            return np.zeros(x.shape[:-1])
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
 
 
 def _fair_shares(weights, demand_costs, total_is_zero):
     """Water-filling fair shares (context/scheduling.go:252-331): at most
     10 rounds, stopping once less than 0.01 of the pool is unallocated.
-    Every sum is `_fixed_sum`."""
-    Q = weights.shape[0]
-    zeros = torch.zeros(Q, dtype=COST_DTYPE, device=weights.device)
-    wsum = _fixed_sum(weights)
-    fair_share = torch.where(
-        wsum > 0.0, weights / torch.where(wsum > 0.0, wsum, 1.0), 0.0
-    )
-    demand = torch.where(total_is_zero, 1.0, demand_costs)
-    capped, uncapped = zeros, zeros
-    achieved = torch.zeros(Q, dtype=torch.bool, device=weights.device)
-    spare = zeros
-    unallocated = torch.tensor(1.0, dtype=COST_DTYPE, device=weights.device)
+    On the host in float64, the JAX package's elementwise steps one for
+    one, every sum `_fixed_sum`'s: the vectors are Q long, and the loop reads
+    its stopping test every round. An exact tie (a capped share equal to
+    its demand) decides whether a queue is satisfied, so one rounding of
+    a sum taken in another order can change every uncapped share."""
+    device = weights.device
+    w = weights.cpu().numpy()
+    demand = torch.where(total_is_zero, 1.0, demand_costs).cpu().numpy()
+    Q = w.shape[0]
+    wsum = _fixed_sum(w)
+    fair_share = np.where(wsum > 0.0, w / (wsum if wsum > 0.0 else 1.0), 0.0)
+    capped = np.zeros(Q)
+    uncapped = np.zeros(Q)
+    achieved = np.zeros(Q, dtype=bool)
+    spare = np.zeros(Q)
+    unallocated = np.float64(1.0)
     for _ in range(10):
-        if not bool(unallocated > 0.01):
+        if not unallocated > 0.01:
             break
-        total_weight = _fixed_sum(torch.where(achieved, 0.0, weights))
-        total_incl = total_weight + torch.where(achieved, weights, 0.0)
-        share = torch.where(
-            total_incl > 0,
-            weights / torch.where(total_incl > 0, total_incl, 1.0),
-            0.0,
-        )
+        total_weight = _fixed_sum(np.where(achieved, 0.0, w))
+        total_incl = total_weight + np.where(achieved, w, 0.0)
+        share = np.where(total_incl > 0, w / np.where(total_incl > 0, total_incl, 1.0), 0.0)
         uncapped = uncapped + share * (unallocated - spare)
         live = total_weight > 0.0
-        capped = torch.where(
+        capped = np.where(
             live & ~achieved,
-            capped + (weights / torch.where(live, total_weight, 1.0)) * unallocated,
+            capped + (w / (total_weight if live else 1.0)) * unallocated,
             capped,
         )
         new_spare = capped - demand
         over = live & (new_spare > 0)
-        capped = torch.where(over, demand, capped)
+        capped = np.where(over, demand, capped)
         achieved = achieved | over
-        spare = torch.where(over, new_spare, 0.0)
-        unallocated = torch.where(
-            live, _fixed_sum(torch.where(over, new_spare, 0.0)), 0.0
-        )
-    return fair_share, capped, uncapped
+        spare = np.where(over, new_spare, 0.0)
+        unallocated = _fixed_sum(np.where(over, new_spare, 0.0)) if live else np.float64(0.0)
+
+    def up(a):
+        return torch.as_tensor(a, dtype=COST_DTYPE, device=device)
+
+    return up(fair_share), up(capped), up(uncapped)
 
 
 def _deadline_factors(rd, boost, horizon):
@@ -311,10 +320,10 @@ def _priority_shares(rd, w, demand_costs, total_is_zero):
     (name rank breaking ties) take their whole demand from what the
     earlier ones left. One float64 accumulator walks the Q queues on the
     host, the reference's IEEE sequence step for step."""
-    wsum = _fixed_sum(w)
-    fair_share = torch.where(wsum > 0.0, w / torch.where(wsum > 0.0, wsum, 1.0), 0.0)
-    demand = torch.where(total_is_zero, 1.0, demand_costs).cpu().numpy()
     w_h = w.cpu().numpy()
+    wsum = _fixed_sum(w_h)
+    fair_share = rd.up(np.where(wsum > 0.0, w_h / (wsum if wsum > 0.0 else 1.0), 0.0))
+    demand = torch.where(total_is_zero, 1.0, demand_costs).cpu().numpy()
     order = np.lexsort((rd.h.queue_name_rank, -w_h))
     capped = np.zeros_like(w_h)
     uncapped = np.zeros_like(w_h)

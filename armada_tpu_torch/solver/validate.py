@@ -184,7 +184,7 @@ def validate_round(
             return v
 
     if fairness is not None:
-        v = _validate_fairness(fairness)
+        v = _validate_fairness(fairness, dev, J)
         if v is not None:
             return v
     return None
@@ -249,19 +249,27 @@ def _validate_capacity(dev, assigned, scheduled, preempted, J):
     return None
 
 
-def _validate_fairness(fairness) -> RoundViolation | None:
-    """fairness_ledger: the share ledger is finite and deliveries sum to
-    at most the policy's cost ceiling. Under max-fraction costs (drf /
-    priority / deadline) each queue's delivered share is a fraction of
-    total resources, so the sum cannot exceed 1; under the proportional
-    policy the cost is the SUM of resource fractions, so the pool-wide
-    ceiling is the resource count instead."""
+def _validate_fairness(fairness, dev=None, J=None) -> RoundViolation | None:
+    """fairness_ledger: the share ledger is finite, no delivered share is
+    negative, and deliveries fit the pool.
+
+    With `dev` (the DeviceRound the ledger was computed from: its
+    `job_req`, `total_resources` and `drf_multipliers`), per resource:
+    the ledger's `delivered_total[r]` is at most the pool's total of r,
+    or what the round's running jobs held before it where that is more
+    (a floating resource whose total shrank under its running jobs). The delivered shares sum to at most the policy cost of those
+    totals under the proportional policy, `sum_r m_r * delivered_total[r]
+    / total[r]`: a queue's max-fraction cost (DRF, priority, deadline)
+    is at most its sum of fractions, and the proportional cost is that
+    sum. Without `dev` (the ledger alone) the sum's ceiling is the
+    resource count (1 where the ledger has no totals). The JAX package's
+    ceiling under the max-fraction policies is 1, which a feasible DRF
+    round over two resources exceeds when queues dominate on different
+    resources (BASELINE's multi-queue configuration: 1.109 in its first
+    round), so it rejects such rounds."""
     ledger = (fairness or {}).get("ledger") or {}
     rows = ledger.get("queues") or ()
     policy_kind = str(ledger.get("policy") or "drf").split("(", 1)[0]
-    bound = 1.0
-    if policy_kind == "proportional":
-        bound = float(max(1, len(ledger.get("delivered_total") or ())))
     delivered = []
     for q, row in enumerate(rows):
         for key in ("fair_share", "delivered_share", "regret"):
@@ -274,9 +282,32 @@ def _validate_fairness(fairness) -> RoundViolation | None:
                 )
         if row.get("delivered_share") is not None:
             delivered.append(float(row["delivered_share"]))
+    delivered_total = np.asarray(ledger.get("delivered_total") or (), dtype=np.float64)
+    bound = float(max(1, delivered_total.size))
+    if dev is not None and delivered_total.size:
+        total = np.asarray(dev.total_resources, dtype=np.float64)
+        mult = np.asarray(dev.drf_multipliers, dtype=np.float64)
+        if total.shape != delivered_total.shape:
+            return RoundViolation(
+                "fairness_ledger",
+                f"{delivered_total.size} delivered totals for {total.size} resources",
+            )
+        running = _bool(dev.job_is_running)[:J]
+        held = np.asarray(dev.job_req, dtype=np.float64)[:J][running].sum(axis=0)
+        cap = np.maximum(total, held)
+        over = delivered_total > cap * (1 + 1e-9) + 1e-6
+        if over.any():
+            r = int(np.flatnonzero(over)[0])
+            return RoundViolation(
+                "fairness_ledger",
+                f"resource {r}: delivered {delivered_total[r]:.6g} > the pool's "
+                f"{cap[r]:.6g}",
+            )
+        safe = np.where(total > 0, total, 1.0)
+        bound = float(np.sum(np.where(total > 0, delivered_total / safe, 0.0) * mult))
     if delivered:
         tot = float(np.sum(delivered))
-        if tot > bound + 1e-6:
+        if tot > bound * (1 + 1e-9) + 1e-6:
             return RoundViolation(
                 "fairness_ledger",
                 f"delivered shares sum to {tot:.6f} > {bound:g} "

@@ -9,8 +9,9 @@ every hand-written CUDA kernel of that path against its plain torch
 version. Phases, each printing one JSON line with its seconds. Every
 phase after the kernels' is bound by the host, the card idle most of the
 time, so after phase 3 two more processes on the same card
-(`SidePhases`) run phases 10, 12, 13 and 16, and phases 4, 11, 14, 15 and
-18, which need nothing of the others, while this one runs 5 to 7, 9 and 17; phase 8
+(`SidePhases`) run phases 10, 12, 13, 16 and 19, and phases 4, 11, 14, 15
+and 18, which need nothing of the others, while this one runs 5 to 7, 9
+and 17; phase 8
 runs alone once the side processes have ended (its ring kernel spins
 across four processes' contexts, and its times would count another
 one's work). Launch counts are per process, set to 0 and read within
@@ -18,8 +19,9 @@ each run as before. A side's lines are printed when it ends, then one
 line of each process's peak reserved device memory.
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
-2. build: the nvcc build of armada_tpu_torch/csrc/ (one nvcc per source,
-   started together).
+2. build: the nvcc build of armada_tpu_torch/csrc/*.cu and the host C++
+   build of csrc/quantity.cpp, the snapshot's quantity parser (one
+   compiler per source, started together).
 3. kernels: each kernel against its plain version on the card at the main
    path's shapes, all outputs bit-equal. score_nodes at N = 8192 and
    65536 and at a 2x2 shard's shapes, local N = 2048 and 16384 (node gids
@@ -326,6 +328,40 @@ line of each process's peak reserved device memory.
    load tester's reports, per cycle its seconds and leases, per command
    and stack its seconds, output rows and reply bytes, and broadside's
    reports.
+19. conformance: placement conformance (`phase_conformance`), last in the
+   side process of phases 10, 12, 13 and 16. The reference's test files
+   are compiled for the port from the checkout's tests/ (their
+   `armada_tpu` imports pointed at the port and tests/test_kernel_parity.py's
+   assert_parity at tests/torch_conformance.py's twin; no JAX). (a)
+   tests/test_reference_tables.py's 27 Go table cases (from Go's
+   preempting_queue_scheduler_test.go, each round's scheduled and
+   preempted sets as Go expects them) and tests/test_parity_scale.py's
+   sweep, 128 and 256 nodes and its 1,000-node x 2,000-job case: every
+   round solved on "cuda" and on "lax", bit-equal on every output, the
+   first against the port's host oracle under the reference's checks
+   (assigned node, scheduled and preempted masks equal, capped fair
+   shares within a relative 1e-12). (b) tests/test_baseline_configs.py's
+   five configurations (BASELINE.md's: 1,000 jobs on 100 nodes, 10
+   weighted queues, 128-way gangs, preemption across priority classes,
+   10 clusters with taints and a floating resource) through the port's
+   Simulator on the kernel backend on the card and on the oracle
+   backend: each case's own assertions hold on both and the leases after
+   every scheduling cycle are equal. (c) the port's quantity parser
+   (csrc/quantity.cpp, built by the build phase on this host) against
+   the Fraction path on tests/test_native.py's samples at every scale
+   and rounding, 20,000 seeded fuzz values and the request dicts of a
+   1,000,000-job `workload.build_inputs` build (its distinct specs on
+   both paths, the Fraction path being `from_map`, and the whole batch
+   by the parser, each row the Fraction path's for its spec; both
+   roundings). Fill kernels launched in (a) and in
+   (b)'s kernel runs, none in an oracle run. Prints per case its
+   seconds, rounds, jobs and decisions and the seconds of the snapshot,
+   the oracle, the prep and each path's solve; per configuration and
+   backend its seconds, cycles and launches; the parser's checks and
+   seconds (both paths per fuzz value and on the distinct specs, the
+   parser on the batch). Nothing of the JAX package is imported:
+   tests/test_torch_conformance_phase.py runs the phase with jax and
+   armada_tpu blocked.
 
 Phase 3 also holds winner_reduce against its plain version at P in {1, 2,
 3, 8, 32, 33, 1024} and K in {1, 2, 3, 4, 5} (duplicate-heavy leading keys, a
@@ -350,8 +386,10 @@ simulation), phase 13's summed (`launches_observatory`), phase 14's
 summed (`launches_autotune_whatif`, its rollouts' counted in their
 process), phase 15's (`launches_persistence`, likewise), phase 16's
 (`launches_lookout`), phase 17's (`launches_wire`, the "cuda" stack's
-five cycles) and phase 18's (`launches_clients`, the testsuite plane's
-cycles and the "cuda" stack's three) beside them;
+five cycles), phase 18's (`launches_clients`, the testsuite plane's
+cycles and the "cuda" stack's three) and phase 19's
+(`launches_conformance`, the "cuda" rounds of part (a) and the kernel
+simulations of part (b)) beside them;
 times
 at the flagship's shapes,
 winner_reduce's at the round's P = 2, K = 3 (the host stage's call, gid
@@ -3930,8 +3968,12 @@ class _Canon:
     """One stack's CLI output in a form both stacks share: each job id as
     its position in `_job_order` (`job#<k>`), each run id as "<run>",
     each submit time as its batch (`t#<k>`; a job trace's clock time of
-    its submit as "<t>"), a plan's solver label as "<solver>" and a
-    round's measured duration as "<s>"; the doctor's
+    its submit as "<t>"), a plan's solver label as "<solver>", a
+    round's measured duration as "<s>", and what the round-latency SLO
+    derives from the cycles' wall-clock seconds (its state, compliance,
+    good count, burn rates and alert time; the observation count and
+    thresholds stay) as placeholders, since a cold cycle's seconds fall
+    either side of its 5 s threshold (4.9 to 6.7 s on the card); the doctor's
     rung lines name no rung, a run of equal lines kept once (the ladders
     differ by construction: on the card each stack has one rung, on the
     CPU the "cuda" stack's falls back to LOCAL, the "lax" stack's
@@ -3948,6 +3990,9 @@ class _Canon:
         self._duration = re.compile(r"(duration: )\d+\.\d+s")
         self._submitted = re.compile(r"^(  submitted )\d\d:\d\d:\d\d", re.M)
         self._solver = re.compile(r"(· solver )\S+")
+        self._latency = re.compile(
+            r"^(\S+: )(?:ok|ALERTING)(  objective \S+ on round_seconds <= \S+  compliance )"
+            r"\S+ \(\d+/(\d+ good\)  burn fast )\S+(/\S+ slow )\S+(/\S+)[^\n]*$", re.M)
         self._rung = re.compile(r"^  rung \S+:(?= )", re.M)
         self._rungs = re.compile(r"^(  rung <rung>:[^\n]*\n)(\1)+", re.M)
 
@@ -3958,6 +4003,7 @@ class _Canon:
         text = self._duration.sub(r"\1<s>", text)
         text = self._submitted.sub(r"\1<t>", text)
         text = self._solver.sub(r"\1<solver>", text)
+        text = self._latency.sub(r"\1<state>\2<c> (<g>/\3<rate>\4<rate>\5", text)
         return self._rungs.sub(r"\1", self._rung.sub("  rung <rung>:", text))
 
 
@@ -4181,6 +4227,275 @@ def phase_clients(n_jobs=100_000, n_nodes=5000, device=None):
     return {"testsuite": testsuite, **clients, "launches": launches}
 
 
+class _Patches:
+    """monkeypatch's `setattr` for code outside pytest: every attribute
+    set is put back by `undo`."""
+
+    def __init__(self):
+        self._saved = []
+
+    def setattr(self, owner, name, value):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def undo(self):
+        while self._saved:
+            owner, name, value = self._saved.pop()
+            setattr(owner, name, value)
+
+
+def _conformance_module():
+    """tests/torch_conformance.py from the checkout: the port's
+    assert_parity twin and the cycle recording, with nothing of the JAX
+    package (tests/test_torch_conformance_phase.py runs this phase with
+    jax and armada_tpu blocked)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_conformance
+
+    return torch_conformance
+
+
+def _conformance_rounds(device, thousand):
+    """Part (a) of phase 19: tests/test_reference_tables.py's cases and
+    tests/test_parity_scale.py's sweep (its opt-in 1,000-node case with
+    `thousand`), compiled for the port, every round on "cuda" and "lax"
+    through the twin."""
+    TC = _conformance_module()
+    tables = TC.port_module("test_reference_tables")
+    scale = TC.port_module("test_parity_scale")
+    sweep = [(tuple(args), "test_scale_parity") for mark in scale.test_scale_parity.pytestmark
+             if mark.name == "parametrize" for args in mark.args[1]]
+    if thousand:
+        sweep.append(((), "test_thousand_node_parity"))
+    cases = [(tables, name, ()) for name in TC.case_names(tables)]
+    cases += [(scale, name, args) for args, name in sweep]
+    rec = {}
+    with TC.parity(device=device, paths=("cuda", "lax")) as state:
+        for module, name, args in cases:
+            before = dict(rounds=state.rounds, jobs=state.jobs, scheduled=state.scheduled,
+                          preempted=state.preempted, **state.seconds)
+            t0 = time.perf_counter()
+            getattr(module, name)(*args)
+            label = f"{name}{list(args) if args else ''}"
+            rec[label] = {
+                "seconds": time.perf_counter() - t0,
+                **{k: getattr(state, k) - before[k]
+                   for k in ("rounds", "jobs", "scheduled", "preempted")},
+                "parts_s": {k: v - before.get(k, 0.0) for k, v in state.seconds.items()},
+            }
+        totals = {"rounds": state.rounds, "jobs": state.jobs, "scheduled": state.scheduled,
+                  "preempted": state.preempted, "parts_s": dict(state.seconds)}
+    n_tables = len(TC.case_names(tables))
+    if n_tables != 27:
+        raise AssertionError(f"conformance: {n_tables} Go table cases, expected 27")
+    return {"cases": rec, "totals": totals, "table_cases": n_tables,
+            "scale_cases": len(sweep)}
+
+
+def _conformance_baseline(device):
+    """Part (b) of phase 19: tests/test_baseline_configs.py's five
+    configurations through the port's Simulator, on the kernel backend on
+    `device` and on the oracle backend; each case's own assertions hold on
+    both, and the leases after every scheduling cycle are equal."""
+    import armada_tpu_torch.services.scheduler as scheduler_module
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.sim.simulator import Simulator
+
+    TC = _conformance_module()
+    base = TC.port_module("test_baseline_configs")
+    names = TC.case_names(base)
+    if len(names) != 5:
+        raise AssertionError(f"conformance: {len(names)} baseline configurations, expected 5")
+    histories, rec = {}, {}
+    launches = {name: 0 for name in K.KERNELS}
+    for backend in ("kernel", "oracle"):
+        sims = _Patches()
+
+        made = []
+
+        def forced(*a, _backend=backend, **k):
+            made.append(Simulator(*a, **{**k, "backend": _backend, "device": device}))
+            return made[-1]
+
+        sims.setattr(base, "Simulator", forced)
+        try:
+            for name in names:
+                cycles = _Patches()
+                try:
+                    recorded = TC.record_cycles(cycles, scheduler_module)
+                    K.reset_launches()
+                    t0 = time.perf_counter()
+                    getattr(base, name)()
+                    seconds = time.perf_counter() - t0
+                    got = dict(K.LAUNCHES)
+                finally:
+                    cycles.undo()
+                if backend == "kernel":
+                    for k in launches:
+                        launches[k] += got[k]
+                elif any(got.values()):
+                    raise AssertionError(f"conformance {name}: the oracle run launched {got}")
+                # Every round committed on the backend's first rung: a
+                # rejection or failover would hide the kernel behind the
+                # oracle (the CPU's ladder) or stall (the card's one rung).
+                refused = [(r.get("invariant"), r.get("detail")) for sim in made
+                           for r in list(sim.scheduler.recent_rejections)
+                           + list(sim.scheduler.recent_failovers)]
+                if refused:
+                    raise AssertionError(f"conformance {name} on {backend}: rounds rejected or "
+                                         f"failed over: {refused[:3]}")
+                made.clear()
+                histories[(name, backend)] = recorded
+                rec.setdefault(name, {})[backend] = {
+                    "seconds": seconds, "services": len(recorded),
+                    "cycles": [len(h) for h in recorded],
+                    **({"launches": got} if backend == "kernel" else {}),
+                }
+        finally:
+            sims.undo()
+    for name in names:
+        kern, orc = histories[(name, "kernel")], histories[(name, "oracle")]
+        if len(kern) != len(orc) or not kern:
+            raise AssertionError(f"conformance {name}: {len(kern)} kernel services, "
+                                 f"{len(orc)} oracle services")
+        for k, (a, b) in enumerate(zip(kern, orc)):
+            if len(a) != len(b):
+                raise AssertionError(f"conformance {name}: service {k} ran {len(a)} cycles on "
+                                     f"the kernel, {len(b)} on the oracle")
+            for i, (x, y) in enumerate(zip(a, b)):
+                if x != y:
+                    raise AssertionError(f"conformance {name}: service {k}, cycle {i}: the "
+                                         f"kernel's leases differ from the oracle's")
+        rec[name]["history_equal"] = True
+    require_fill_launches(launches, "conformance: BASELINE's configurations")
+    return {"configs": rec, "launches": launches}
+
+
+PARSER_SCALES = (-3, 0, 3, 8)  # tests/test_native.py's
+PARSER_FUZZ = 20_000  # seeded quantities, tests/test_native.py's generator
+PARSER_JOBS = 1_000_000  # the flagship's workload build
+
+
+def _conformance_parser(n_jobs):
+    """Part (c) of phase 19: the port's quantity parser, built on this
+    host, against the Fraction path: tests/test_native.py's samples at
+    every scale and rounding, a seeded fuzz (per-value seconds on both
+    paths), and the request dicts of an `n_jobs` workload build
+    (`workload.build_inputs`): its distinct specs encoded on both paths
+    (the Fraction path is `from_map`), and the whole batch by the parser,
+    each row the Fraction path's for its spec."""
+    import math
+    from fractions import Fraction
+
+    import numpy as np
+
+    from armada_tpu_torch.core.resources import parse_quantity
+    from armada_tpu_torch.ops import kernels as K
+    from armada_tpu_torch.workload import build_inputs
+
+    TC = _conformance_module()
+    t0 = time.perf_counter()
+    native = K.load_quantity()
+    load_s = time.perf_counter() - t0
+
+    def fraction(value, scale, ceil):
+        scaled = parse_quantity(value) / (Fraction(10) ** scale)
+        v = int(math.ceil(scaled) if ceil else math.floor(scaled))
+        return min(max(v, -(2**63)), 2**63 - 1)
+
+    samples = 0
+    for value in TC.native_samples():
+        for scale in PARSER_SCALES:
+            for ceil in (True, False):
+                got, want = native.parse_quantity(value, scale, ceil), fraction(value, scale, ceil)
+                if got != want:
+                    raise AssertionError(f"parser: {value!r} at scale {scale}, ceil {ceil}: "
+                                         f"{got} against the Fraction path's {want}")
+                samples += 1
+    fuzz = TC.fuzz_quantities(seed=18, n=PARSER_FUZZ)
+    t0 = time.perf_counter()
+    got = [native.parse_quantity(v, scale, ceil) for v, scale, ceil in fuzz]
+    fuzz_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [fraction(v, scale, ceil) for v, scale, ceil in fuzz]
+    fuzz_fraction_s = time.perf_counter() - t0
+    bad = [f for f, a, b in zip(fuzz, got, want) if a != b]
+    if bad:
+        raise AssertionError(f"parser: {len(bad)} fuzz values differ, first {bad[0]}")
+
+    t0 = time.perf_counter()
+    cfg, _, _, _, running, queued = build_inputs(n_jobs, max(1, n_jobs // 20))
+    build_s = time.perf_counter() - t0
+    factory = cfg.resource_factory()
+    requests = [j.requests for j in queued] + [r.job.requests for r in running]
+    def key(r):
+        return tuple(sorted(r.items()))
+
+    distinct = list({key(r): r for r in requests}.values())
+    rec = {"load_s": load_s, "samples": samples, "fuzz": len(fuzz),
+           "fuzz_native_s": fuzz_native_s, "fuzz_fraction_s": fuzz_fraction_s,
+           "fuzz_native_us_per_value": 1e6 * fuzz_native_s / len(fuzz),
+           "fuzz_fraction_us_per_value": 1e6 * fuzz_fraction_s / len(fuzz),
+           "workload_jobs": len(requests), "workload_build_s": build_s,
+           "distinct_specs": len(distinct)}
+    for ceil in (True, False):
+        # The compiled parser on the whole batch (uniquified, as the
+        # snapshot encodes it) and on its distinct specs; the Fraction
+        # path (`from_map`) on the distinct specs, each request's row
+        # taken from them.
+        t0 = time.perf_counter()
+        batch = factory.encode_requests_batch(requests, ceil=ceil)
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unique = factory._encode_unique(distinct, ceil=ceil)
+        unique_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = {key(r): factory.from_map(r, ceil=ceil) for r in distinct}
+        plain_s = time.perf_counter() - t0
+        if unique.dtype != np.int64 or unique.shape != (len(distinct), factory.num_resources) \
+                or not np.array_equal(unique, np.stack([plain[key(r)] for r in distinct])):
+            raise AssertionError(f"parser: the distinct specs' encoding (ceil {ceil}) differs "
+                                 f"between the parser and the Fraction path")
+        if batch.shape != (len(requests), factory.num_resources) \
+                or not np.array_equal(batch, np.stack([plain[key(r)] for r in requests])):
+            raise AssertionError(f"parser: the batch encoding (ceil {ceil}) differs from the "
+                                 f"Fraction path's rows")
+        rec[f"{'ceil' if ceil else 'floor'}"] = {
+            "batch_native_s": batch_s, "distinct_native_s": unique_s,
+            "distinct_fraction_s": plain_s}
+    return rec
+
+
+def phase_conformance(device=None, thousand=True, parser_jobs=PARSER_JOBS):
+    """Placement conformance on the card (phase 19): part (a),
+    `_conformance_rounds`; part (b), `_conformance_baseline`; part (c),
+    `_conformance_parser`. Prints per case its seconds, rounds, jobs and
+    decisions and the seconds of each part of a round, per configuration
+    and backend its seconds and cycles, and the parser's checks and
+    seconds."""
+    from armada_tpu_torch.device import resolve_device
+    from armada_tpu_torch.ops import kernels as K
+
+    device = str(resolve_device(device))
+    t0 = time.perf_counter()
+    K.reset_launches()
+    rounds = _conformance_rounds(device, thousand)
+    rounds["launches"] = dict(K.LAUNCHES)
+    K.reset_launches()
+    require_fill_launches(rounds["launches"], "conformance: the Go tables and the scale sweep")
+    rounds["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    baseline = _conformance_baseline(device)
+    baseline["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parser = _conformance_parser(parser_jobs)
+    parser["seconds"] = time.perf_counter() - t0
+    launches = {name: rounds["launches"][name] + baseline["launches"][name] for name in K.KERNELS}
+    return {"rounds": rounds, "baseline": baseline, "parser": parser, "launches": launches}
+
+
 def _round_100k():
     """Phase 4: round_100k on "cuda" and "lax", bit-equal."""
     res, outs, _ = run_round(100_000, 5000, ("cuda", "lax"))
@@ -4210,14 +4525,15 @@ def _lookout():
 
 
 # The phases that need nothing of the others, in two processes of their
-# own beside the first: phases 10, 12, 13 and 16; phases 4, 11, 14, 15
-# and 18.
+# own beside the first: phases 10, 12, 13, 16 and 19; phases 4, 11, 14,
+# 15 and 18.
 SIDE_PHASES = {
     "market": phase_market, "service": phase_service, "observatory": _observatory,
     "lookout": _lookout, "round": _round_100k, "warm": phase_warm,
     "autotune_whatif": _autotune_whatif, "persistence": _persistence, "clients": phase_clients,
+    "conformance": phase_conformance,
 }
-SIDES = (("market", "service", "observatory", "lookout"),
+SIDES = (("market", "service", "observatory", "lookout", "conformance"),
          ("round", "warm", "autotune_whatif", "persistence", "clients"))
 SIDE_TIMEOUT_S = 1000.0
 
@@ -4416,9 +4732,11 @@ def main() -> int:
         finally:
             for side in sides:
                 side.stop()
-    res, warm, market, service, observatory, autotune_whatif, persistence, lookout, clients = (
+    (res, warm, market, service, observatory, autotune_whatif, persistence, lookout, clients,
+     conformance) = (
         side_rec[k] for k in ("round", "warm", "market", "service", "observatory",
-                              "autotune_whatif", "persistence", "lookout", "clients"))
+                              "autotune_whatif", "persistence", "lookout", "clients",
+                              "conformance"))
     emit({"phase": "peak_memory", "main_reserved_bytes": torch.cuda.max_memory_reserved(),
           **{k: v for k, v in side_rec.items() if k.startswith("peak_reserved_bytes")}})
     # Phase 17's cycles beside phase 12's service_100k, the same jobs and
@@ -4483,6 +4801,7 @@ def main() -> int:
             "launches_lookout": int(lookout["launches"][name]),
             "launches_wire": int(wire["launches"][name]),
             "launches_clients": int(clients["launches"][name]),
+            "launches_conformance": int(conformance["launches"][name]),
             "max_abs_err": tm["max_abs_err"],
             "equal": tm["max_abs_err"] == 0,
             "ms": tm["ms"],

@@ -460,3 +460,27 @@ def test_phase_clients_on_cpu(monkeypatch):
     assert len(rec["commands"]) == 18 and rec["mutation"]["next_cycle_leased"] > 0
     assert {b: rec["broadside"][b]["backend"] for b in rec["broadside"]} == {
         "inproc": "inproc", "sqlite": "sqlite"}
+
+
+def test_phase_clients_canon_hides_only_the_measured_round_latency():
+    """Phase 18 compares armadactl's `slo` output across its two stacks.
+    The round-latency SLO rates the cycles' wall-clock seconds, and a cold
+    cycle's fall either side of its 5 s threshold; the canonical form
+    hides what is derived from them (state, compliance, good count, burn
+    rates, alert time) and keeps the observation count, the thresholds
+    and every other SLO's line."""
+    smoke = _smoke()
+    canon = smoke._Canon([], [])
+    line = ("round-latency: {} objective 0.990 on round_seconds <= 5.0s  compliance {} "
+            "({}/{} good)  burn fast {}/14x slow {}/6x{}\n")
+    other = ("queue-wait: ok  objective 0.950 on queue_wait_seconds <= 300.0s  "
+             "compliance 1.0000 (2000/2000 good)  burn fast 0.00x/14x slow 0.00x/6x\n")
+    alerting = line.format("ALERTING ", "0.5000", 1, 2, "50.00x", "50.00x", "") + other
+    ok = line.format("ok ", "1.0000", 2, 2, "0.00x", "0.00x",
+                     "  (burn alert fired at t=12.0)") + other
+    assert canon(alerting) == canon(ok)
+    assert "<state>" in canon(ok) and "(<g>/2 good)" in canon(ok)
+    assert canon(alerting) != canon(line.format("ok ", "1.0000", 3, 3, "0.00x", "0.00x", "")
+                                    + other)
+    assert canon(alerting) != canon(alerting.replace("2000/2000", "1999/2000"))
+    assert canon(alerting) != canon(alerting.replace("<= 5.0s", "<= 6.0s"))

@@ -24,8 +24,12 @@ through chip_smoke.py's loopback (the method table over the JSON codec),
 and the load tester, armadactl and the testsuite runner drive a kernel
 stack through its LoopbackClient (ApiClient's methods over that
 loopback), the simulator runs from the dict halves of its CLI's loaders
-and broadside's in-process backend ingests a batch. A package's
-`__main__` is found, not run.
+and broadside's in-process backend ingests a batch, and the port's
+quantity parser is built and loaded (not the JAX package's
+`_armada_native`, blocked too) and a Go table case runs as phase 19 runs
+it (tests/torch_conformance.py; tests/test_torch_conformance_phase.py
+runs the whole of phase 19 with jax and armada_tpu blocked). A package's `__main__` is found, not
+run.
 prometheus_client is blocked too: the metrics stay optional (no
 registry, an empty rendering); so are grpc, google.protobuf and
 cryptography, which the card's machine lacks (auth.py imports
@@ -53,7 +57,7 @@ _GUARD = textwrap.dedent(
     import importlib, importlib.util, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "armada_tpu", "yaml", "prometheus_client", "grpc",
-               "cryptography")
+               "cryptography", "_armada_native")
     PROTOBUF = ("armada_tpu_torch.proto", "armada_tpu_torch.proto.armada_pb2",
                 "armada_tpu_torch.tools.gen_proto")
 
@@ -434,6 +438,19 @@ _GUARD = textwrap.dedent(
         assert sum(g["count"] for g in backend.group_jobs("q")) == 20
     finally:
         backend.teardown()
+    # The port's quantity parser (csrc/quantity.cpp), which the snapshots
+    # above encoded their requests with, and a Go table case as chip_smoke.py's
+    # phase 19 runs it: the reference's test file compiled for the port.
+    from armada_tpu_torch.ops.kernels import load_quantity
+
+    assert load_quantity().__name__ == "_armada_quantity"
+    sys.path.insert(0, ROOT + "/tests")
+    import torch_conformance
+
+    tables = torch_conformance.port_module("test_reference_tables")
+    with torch_conformance.parity(device="cpu", paths=("lax", "cuda")) as state:
+        tables.test_preemption_when_improving_fairness()
+        assert state.rounds == 2
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))

@@ -189,24 +189,26 @@ def test_fill_sort_follows_stable_sort_where_reference_top_b_drops_nodes():
         _assert_same(f"top-b/{port_dev.kernel_path}", got, want)
 
 
-def _pairwise_numpy(x):
-    """The fixed-order sum of `_fixed_sum` in numpy float64 scalars:
-    adjacent pairs level by level, an odd last entry carried up."""
-    level = [np.float64(v) for v in x]
-    while len(level) > 1:
-        nxt = [level[i] + level[i + 1] for i in range(0, len(level) - 1, 2)]
-        if len(level) % 2:
-            nxt.append(level[-1])
-        level = nxt
-    return level[0]
+def _sequential_numpy(x):
+    """The fixed-order sum of `_fixed_sum` in numpy float64 scalars: one
+    add per entry, in index order."""
+    acc = np.float64(x[0])
+    for v in x[1:]:
+        acc = acc + np.float64(v)
+    return acc
 
 
 @pytest.mark.parametrize("q", range(1, 65))
 def test_fixed_sum_is_the_pairwise_sum_bit_for_bit(q):
-    """The water-fill's sums (`_fixed_sum`, ROADMAP C4) are the pairwise
-    sum in one fixed order: bit for bit numpy's in that order, along
-    either axis of a [Q, R] table, over weights of mixed magnitudes
-    (queue weights, capped shares, spares) and exact zeros."""
+    """The water-fill's sums (`_fixed_sum`, ROADMAP C4 and C5) are one
+    fixed order, index order, the JAX package's on the CPU (a pairwise
+    order differed from it in tests/test_parity_scale.py's 128-node
+    round): bit for bit numpy's in that order, along either axis of a
+    [Q, R] table, over weights of mixed magnitudes (queue weights, capped
+    shares, spares) and exact zeros; on a tensor and on a host array
+    (the water-fill's loop) alike. The test keeps the name it had when
+    the order was pairwise, so its id stays the one earlier runs list;
+    what it holds is index order."""
     import torch
 
     rng = np.random.default_rng(q)
@@ -214,9 +216,57 @@ def test_fixed_sum_is_the_pairwise_sum_bit_for_bit(q):
     x[rng.random(q) < 0.25] = 0.0
     got = port_kernel._fixed_sum(torch.as_tensor(x))
     assert got.dtype == torch.float64 and got.shape == ()
-    assert got.numpy().tobytes() == _pairwise_numpy(x).tobytes()
+    assert got.numpy().tobytes() == _sequential_numpy(x).tobytes()
+    assert np.asarray(port_kernel._fixed_sum(x)).tobytes() == got.numpy().tobytes()
     table = rng.random((q, 3)) * 1e3
     by_rows = port_kernel._fixed_sum(torch.as_tensor(table), dim=1).numpy()
-    assert by_rows.tobytes() == np.array([_pairwise_numpy(r) for r in table]).tobytes()
+    assert by_rows.tobytes() == np.array([_sequential_numpy(r) for r in table]).tobytes()
     by_cols = port_kernel._fixed_sum(torch.as_tensor(table), dim=0).numpy()
-    assert by_cols.tobytes() == np.array([_pairwise_numpy(c) for c in table.T]).tobytes()
+    assert by_cols.tobytes() == np.array([_sequential_numpy(c) for c in table.T]).tobytes()
+    assert port_kernel._fixed_sum(table, dim=1).tobytes() == by_rows.tobytes()
+    assert port_kernel._fixed_sum(table, dim=0).tobytes() == by_cols.tobytes()
+
+
+# The scale case (tests/test_parity_scale.py, seed 1 at 128 nodes) where
+# the pairwise water-fill sum diverged: 1/3 over the pairwise sum of the
+# padded weights caps queue 5 at one rounding above its demand, so the
+# port satisfied it a round early and every uncapped share moved (0.95
+# against the reference's 0.91).
+TIE_WEIGHTS = [1.0, 0.5, 1 / 3, 1.0, 0.5, 1 / 3, 0.0, 0.0]
+TIE_DEMAND = [0.10016835016835017, 0.06860269360269361, 0.1151094276094276,
+              0.09154040404040405, 0.08207070707070707, 0.09090909090909091, 0.0, 0.0]
+
+
+def _fair_share_cases():
+    rng = np.random.default_rng(18)
+    out = [(TIE_WEIGHTS, TIE_DEMAND, False)]
+    for q in (1, 2, 3, 5, 8, 13, 16, 31, 32):
+        w = rng.choice([0.0, 1.0, 0.5, 1 / 3, 0.25, 2.0, 0.1], size=q)
+        d = rng.random(q) * rng.choice([0.01, 0.1, 1.0], size=q)
+        d[rng.random(q) < 0.2] = 0.0
+        out.append((list(w), list(d), False))
+    out.append(([1.0, 1.0, 0.5], [0.2, 0.0, 0.7], True))
+    return out
+
+
+@pytest.mark.parametrize("weights, demand, total_is_zero", _fair_share_cases())
+def test_water_fill_matches_reference_bit_for_bit(weights, demand, total_is_zero):
+    """The port's water-fill (`_fair_shares`) against the JAX package's
+    on the same vectors, within the bounds the reference holds its own
+    kernel to (4 ULP, 16 for the uncapped accumulator; XLA rounds a
+    multiply-add of the loop once where the port rounds twice): the tie
+    above (about 4e14 ULP apart with the pairwise sum) and random queue
+    vectors up to 32 queues, with zero weights, zero demands and an
+    empty pool."""
+    import jax.numpy as jnp
+    import torch
+
+    w, d = np.asarray(weights, np.float64), np.asarray(demand, np.float64)
+    want = ref_kernel._fair_shares(jnp.asarray(w), jnp.asarray(d), jnp.asarray(total_is_zero))
+    got = port_kernel._fair_shares(torch.as_tensor(w), torch.as_tensor(d),
+                                   torch.tensor(total_is_zero))
+    bounds = (ULP_BOUNDS["fair_share"], ULP_BOUNDS["demand_capped_fair_share"],
+              ULP_BOUNDS["uncapped_fair_share"])
+    for name, g, r, bound in zip(("fair_share", "capped", "uncapped"), got, want, bounds):
+        assert g.dtype == torch.float64 and g.shape == w.shape, name
+        assert int(_ulps(g.numpy(), np.asarray(r)).max()) <= bound, name

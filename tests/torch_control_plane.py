@@ -2,6 +2,8 @@
 the JAX package and from the port, and the plain form their records are
 compared in.
 
+`plain`, `leases_view` and `record_cycles` are tests/torch_conformance.py's,
+re-exported (chip_smoke.py's phase 19 uses them with no JAX package).
 `plain` turns dataclasses and enums of either package into dicts,
 tuples and values, and numpy arrays into their dtype, shape and bytes,
 so a reference record and a port record compare with `==`, exactly.
@@ -35,29 +37,7 @@ import inspect
 import re
 import types
 
-
-def plain(value):
-    import numpy as np
-
-    if isinstance(value, (np.ndarray, np.generic)):
-        # Bit for bit: dtype, shape and bytes (NaNs included).
-        a = np.asarray(value)
-        return ("ndarray", str(a.dtype), a.shape, a.tobytes())
-    if isinstance(value, float) and value != value:
-        return ("nan",)
-    if isinstance(value, enum.Enum):
-        return value.value
-    if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        return (type(value).__name__,) + tuple(
-            (f.name, plain(getattr(value, f.name))) for f in dataclasses.fields(value)
-        )
-    if isinstance(value, dict):
-        return {plain(k): plain(v) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return tuple(plain(v) for v in value)
-    if isinstance(value, (set, frozenset)):
-        return frozenset(plain(v) for v in value)
-    return value
+from torch_conformance import leases_view, plain, record_cycles  # noqa: F401
 
 
 def job_view(job, run_ids=True):
@@ -111,22 +91,6 @@ def scrub_run_ids(value, run_ids):
     if isinstance(value, (tuple, frozenset)):
         return type(value)(scrub_run_ids(v, run_ids) for v in value)
     return value
-
-
-def leases_view(jobdb):
-    """job id -> (state, executor, node, pool, priority) of its latest
-    run: what the scheduler leased, without the random run ids."""
-    out = {}
-    for j in jobdb.read_txn().all_jobs():
-        run = j.latest_run
-        out[j.id] = (
-            j.state.value,
-            j.num_attempts,
-            None if run is None else (
-                run.executor, run.node_id, run.pool, run.scheduled_at_priority, run.state.value,
-            ),
-        )
-    return out
 
 
 class Package(types.SimpleNamespace):
@@ -248,35 +212,6 @@ def port_copy(name, subs=(), *, port=True):
         exec(compile(src, ref.__file__, "exec"), module.__dict__)
         _COPIES[key] = module
     return _COPIES[key]
-
-
-def record_cycles(monkeypatch, module):
-    """Record the leases after every cycle of every SchedulerService of
-    the scheduler module `module` that cycles in this process's own
-    threads: one history per service, in the order the services first
-    cycle. What-if rollouts are left out: the JAX package runs them on
-    its planner's threads (named "whatif"), the port in rollout
-    processes of its own, where nothing here can record their cycles;
-    tests/test_torch_whatif.py compares their plans and the leases and
-    preemptions each rollout sends back."""
-    import threading
-
-    histories = []
-    cycle = module.SchedulerService.cycle
-
-    def recorded(self, *a, **k):
-        out = cycle(self, *a, **k)
-        if threading.current_thread().name.startswith("whatif"):
-            return out
-        history = self.__dict__.get("_recorded_cycles")
-        if history is None:
-            history = self.__dict__["_recorded_cycles"] = []
-            histories.append(history)
-        history.append(leases_view(self.jobdb))
-        return out
-
-    monkeypatch.setattr(module.SchedulerService, "cycle", recorded)
-    return histories
 
 
 def case_marks(name, test):
